@@ -1,0 +1,351 @@
+"""Drive the PyTorch port's scan-to-map localization step once on a CUDA
+card and check it.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases, each of which must pass (any failure exits non-zero):
+
+1. build: ``nvcc`` builds kernel K1 from ``lidar_feature_extraction_tpu_
+   torch/csrc/extraction_k1.cu``;
+2. scenes: the reference ``bench.py`` scene (seed 0, 64 x 2304 range
+   image, a map of the scan's features at 7 noisy keyframe poses) and a
+   street canyon ray-cast from 7 keyframes of one world, both at
+   ``kitti_hdl64()`` widths; the maps come from the port's own
+   ``extract_features`` + ``build_geometry_maps`` on the card;
+3. k1: K1 against its plain PyTorch version on the card at 64 x 2304:
+   labels and compaction columns bit-equal, curvature max |diff| shown,
+   both timed (median of 20 after warm-up);
+4. localize: 20 chained ``localize_scan`` calls per scene and prior (the
+   bench's best-case prior t = (0.3, -0.2, 0.05), and it with a 0.2 m +
+   ~1 degree error drawn with numpy), each on a fresh image tensor. K1's
+   launch count is reset just before and read just after, and must be at
+   least the number of scans. Every result must be finite and registered
+   (a status other than EMPTY_INPUT, at least one iteration). On the
+   street scene the best-case prior must end within 0.1 m of the truth
+   (identity), and no noisy prior may end farther from it than it began.
+   The first scan of each run is replayed through the plain extraction
+   path and must give the same registration result. The status is not
+   held to CONVERGED / MAX_ITERATIONS: like the reference, registration
+   usually stops at its error- or scale-increase abort once near the
+   optimum, and on the bench scene (a map of copies that disagree by up
+   to 2 m) that optimum is not the identity.
+
+Prints the card's name and power limit, one JSON line per phase, the
+kernel summary line, and as its last line
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
+repository, it fails before printing any result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_SCANS = 20
+# K1 and its plain version round every operation alike, so the curvature
+# is expected bit-equal; the check allows 1e-6 of the largest value.
+CURV_RTOL = 1e-6
+K1_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/extraction_k1.cu"
+K1_REPLACES = "lidar_feature_extraction_tpu/ops/extraction_pallas.py:93"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def bench_scene(cfg, device):
+    """bench.py's scene: the scan as a RangeImage and the map's clouds."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.interop import (
+        range_image_from_numpy)
+    from lidar_feature_extraction_tpu_torch.ops.extraction import (
+        extract_features)
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        bench_scan, keyframe_copies)
+
+    ex = cfg.extraction
+    R, P = ex.n_rings, ex.max_points_per_ring
+    rng = np.random.default_rng(0)
+    xyz = bench_scan(rng, R, P)
+    img = range_image_from_numpy(xyz, np.ones((R, P), bool),
+                                 np.full(R, P, np.int32), device)
+    f = extract_features(img, ex)
+    e = f.edge_xyz[f.edge_valid].cpu().numpy()
+    s = f.surface_xyz[f.surface_valid].cpu().numpy()
+    edge = torch.as_tensor(keyframe_copies(rng, e), dtype=torch.float32,
+                           device=device)
+    surf = torch.as_tensor(keyframe_copies(rng, s), dtype=torch.float32,
+                           device=device)
+    return img, edge, surf
+
+
+def street_scene(cfg, device):
+    """Street canyon: scan at the identity and the map's clouds from 7
+    keyframes (keyframe 0 is the scan's own pose)."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.interop import (
+        range_image_from_numpy)
+    from lidar_feature_extraction_tpu_torch.ops.extraction import (
+        extract_features)
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        street_scan, street_world, to_world)
+
+    ex = cfg.extraction
+    R, P = ex.n_rings, ex.max_points_per_ring
+    rng = np.random.default_rng(1)
+    world = street_world(rng)
+    mask, count = np.ones((R, P), bool), np.full(R, P, np.int32)
+    edges, surfs, scan0 = [], [], None
+    for k in range(7):
+        o = (0.0, 0.0) if k == 0 else tuple(rng.uniform(-3, 3, 2) * [1, .3])
+        yaw = 0.0 if k == 0 else float(rng.uniform(-0.05, 0.05))
+        img = range_image_from_numpy(street_scan(world, rng, R, P, o, yaw),
+                                     mask, count, device)
+        scan0 = img if k == 0 else scan0
+        f = extract_features(img, ex)
+        edges.append(to_world(f.edge_xyz[f.edge_valid].cpu().numpy(), o, yaw))
+        surfs.append(to_world(f.surface_xyz[f.surface_valid].cpu().numpy(),
+                              o, yaw))
+    as_t = lambda a: torch.as_tensor(np.concatenate(a), dtype=torch.float32,  # noqa: E731
+                                     device=device)
+    return scan0, as_t(edges), as_t(surfs)
+
+
+def build_maps(edge, surf, cfg):
+    import torch
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        build_geometry_maps)
+
+    ones = lambda a: torch.ones(len(a), dtype=torch.bool, device=a.device)  # noqa: E731
+    return build_geometry_maps(edge, ones(edge), surf, ones(surf), cfg)
+
+
+def priors(noisy: bool, n: int):
+    """Per-scan prior errors (dq wxyz, dt) on top of the best-case prior,
+    drawn with numpy: none, or 0.2 m in a random direction and a yaw of
+    N(0, 1 degree)."""
+    out = []
+    rng = np.random.default_rng(7)
+    for _ in range(n):
+        if not noisy:
+            out.append((np.array([1.0, 0, 0, 0]), np.zeros(3)))
+            continue
+        d = rng.normal(size=3)
+        yaw = np.radians(1.0) * rng.normal()
+        out.append((np.array([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)]),
+                    0.2 * d / np.linalg.norm(d)))
+    return out
+
+
+def localize_chain(maps, image, cfg, noisy: bool, n: int):
+    """``n`` chained localize_scan calls: each scan is the image shifted
+    by 1e-3 of the previous estimate (a fresh tensor), each prior the
+    best-case prior moved by the same amount plus its prior error.
+    Returns per-scan (inputs, result, ms)."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+
+    dev = image.xyz.device
+    q0 = torch.tensor([1.0, 0, 0, 0], device=dev)
+    t0 = torch.tensor([0.3, -0.2, 0.05], device=dev)
+    t_prev = t0.clone()
+    runs = []
+    for dq, dt in priors(noisy, n):
+        im = image._replace(xyz=image.xyz + 1e-3 * t_prev)
+        prior = Pose(quat.quat_multiply(q0, torch.as_tensor(
+            dq, dtype=torch.float32, device=dev)),
+            t0 + 1e-3 * t_prev + torch.as_tensor(dt, dtype=torch.float32,
+                                                 device=dev))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result, _ = localize_scan(maps, im, prior, cfg)
+        torch.cuda.synchronize()
+        runs.append(((im, prior), result,
+                     1e3 * (time.perf_counter() - start)))
+        t_prev = result.pose.t
+    return runs
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from lidar_feature_extraction_tpu_torch.config import kitti_hdl64
+    from lidar_feature_extraction_tpu_torch.ops import extraction as tex
+    from lidar_feature_extraction_tpu_torch.ops import extraction_cuda as k1
+    from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+
+    # Full float32 everywhere: the compaction einsum must copy points
+    # exactly, which TF32 would not.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # 1. build
+    start = time.perf_counter()
+    so = k1.build()
+    k1.load()
+    log = so.with_suffix(".log")
+    emit("build", seconds=time.perf_counter() - start, library=so.name)
+    if log.exists():
+        print(log.read_text().strip(), flush=True)
+
+    # 2. scenes
+    cfg = kitti_hdl64()
+    ex = cfg.extraction
+    R, P = ex.n_rings, ex.max_points_per_ring
+    start = time.perf_counter()
+    bench_img, b_edge, b_surf = bench_scene(cfg, dev)
+    bench_maps = build_maps(b_edge, b_surf, cfg)
+    street_img, s_edge, s_surf = street_scene(cfg, dev)
+    street_maps = build_maps(s_edge, s_surf, cfg)
+    torch.cuda.synchronize()
+    emit("scenes", seconds=time.perf_counter() - start, shape=[R, P],
+         bench_map_points=len(b_edge) + len(b_surf),
+         bench_map_edges=len(b_edge),
+         street_map_points=len(s_edge) + len(s_surf),
+         street_map_edges=len(s_edge))
+
+    # 3. k1 against its plain version at full width.
+    planes = [bench_img.xyz[..., i].contiguous() for i in range(3)]
+    args = (*planes, bench_img.count, ex,
+            cfg.registration.surface_downsample_leaf, ex.edges_per_ring,
+            ex.surface_runs_per_ring)
+    got = k1.label_and_columns_cuda(*args)
+    want = tex.label_and_columns_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]), "k1: labels differ from plain")
+    check(torch.equal(got[2], want[2]), "k1: col differs from plain")
+    curv_err = float((got[1] - want[1]).abs().max())
+    check(curv_err <= CURV_RTOL * float(want[1].abs().max()),
+          f"k1: curvature differs by {curv_err}")
+    k1_ms = time_ms(lambda: k1.label_and_columns_cuda(*args))
+    plain_ms = time_ms(lambda: tex.label_and_columns_plain(*args))
+    n_labels = {name: int((got[0] == code).sum()) for name, code in
+                (("edge", tex.EDGE), ("surface", tex.SURFACE))}
+    emit("k1", labels_equal=True, col_equal=True, curvature_max_abs=curv_err,
+         ms=k1_ms, plain_ms=plain_ms, **n_labels)
+
+    # 4. localize: the main path, counted.
+    chains = {}
+    k1.label_and_columns_cuda.launches = 0
+    for scene, (maps, img) in (("bench", (bench_maps, bench_img)),
+                               ("street", (street_maps, street_img))):
+        for noisy in (False, True):
+            chains[scene, noisy] = localize_chain(maps, img, cfg, noisy,
+                                                  N_SCANS)
+    torch.cuda.synchronize()
+    launches = k1.label_and_columns_cuda.launches
+    n_scans = sum(len(c) for c in chains.values())
+    check(launches >= n_scans,
+          f"localize: K1 launched {launches} times for {n_scans} scans")
+
+    valid = (gn.CONVERGED, gn.MAX_ITERATIONS, gn.ERROR_INCREASED,
+             gn.SCALE_INCREASED)
+    plain_cfg = dataclasses.replace(
+        cfg, extraction=dataclasses.replace(ex, pallas_labeling=False))
+    for (scene, noisy), runs in chains.items():
+        status = [int(r.status) for _, r, _ in runs]
+        iters = [int(r.iterations) for _, r, _ in runs]
+        t_err = [float(torch.linalg.vector_norm(r.pose.t)) for _, r, _ in runs]
+        t_prior = [float(torch.linalg.vector_norm(p.t)) for (_, p), _, _ in
+                   runs]
+        finite = all(bool(torch.isfinite(r.pose.q).all())
+                     and bool(torch.isfinite(r.pose.t).all())
+                     for _, r, _ in runs)
+        tag = f"localize {scene} {'noisy' if noisy else 'best'}"
+        check(finite, f"{tag}: non-finite pose")
+        check(all(s in valid for s in status), f"{tag}: status {status}")
+        check(min(iters) >= 1, f"{tag}: iterations {iters}")
+        if scene == "street" and not noisy:
+            check(max(t_err) < 0.1, f"{tag}: |t| up to {max(t_err)} m")
+        if scene == "street" and noisy:
+            check(all(e <= p for e, p in zip(t_err, t_prior)),
+                  f"{tag}: |t| {t_err} against priors {t_prior}")
+        # Replay scan 0 through the plain extraction path.
+        (im, prior), res, _ = runs[0]
+        ref, _ = localize_scan(street_maps if scene == "street"
+                               else bench_maps, im, prior, plain_cfg)
+        same = (int(ref.status) == int(res.status)
+                and int(ref.iterations) == int(res.iterations)
+                and float((ref.pose.t - res.pose.t).abs().max()) <= 1e-6
+                and float((ref.pose.q - res.pose.q).abs().max()) <= 1e-6)
+        check(same, f"{tag}: K1 path and plain path disagree")
+        ms = [m for _, _, m in runs]
+        emit("localize", scene=scene, prior="noisy" if noisy else "best",
+             scans=len(runs), ms_per_scan_mean=statistics.fmean(ms),
+             ms_per_scan_median=statistics.median(ms),
+             ms_first_scan=ms[0], gn_iterations_mean=statistics.fmean(iters),
+             status_counts={str(s): status.count(s) for s in sorted(
+                 set(status))},
+             t_norm_max=max(t_err), t_norm_last=t_err[-1],
+             within_0_1m=sum(e < 0.1 for e in t_err),
+             prior_t_norm_mean=statistics.fmean(t_prior),
+             plain_path_agrees=True)
+    torch.cuda.synchronize()
+
+    print(json.dumps({"kernels": [{
+        "name": "k1_label_and_columns", "route": "cuda",
+        "source": K1_SOURCE, "replaces": K1_REPLACES,
+        "launches": launches, "max_abs_err": curv_err,
+        "ms": k1_ms, "plain_ms": plain_ms}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""Quaternion calculus over batched torch tensors.
+
+Port of ``lidar_feature_extraction_tpu/core/quaternion.py``, only the
+functions the scan-to-map localization step uses. Conventions are the
+reference's: quaternions are ``[..., 4]`` in **wxyz** order, rotations
+act as ``R(q) p``, and ``drpdq`` is Sola eq. 174. Every function takes
+arbitrary leading batch dimensions, broadcast between its arguments.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a x b`` over the last axis, broadcasting like ``jnp.cross``."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1,
+                        a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of ``v``: ``hat(v) @ u = v x u``.
+    ``[..., 3] -> [..., 3, 3]``."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([
+        torch.stack([zero, -z, y], dim=-1),
+        torch.stack([z, zero, -x], dim=-1),
+        torch.stack([-y, x, zero], dim=-1),
+    ], dim=-2)
+
+
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product ``a * b`` in wxyz, batched."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return q / torch.clamp_min(_norm(q, keepdim=True), eps)
+
+
+def quat_rotate(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Rotate point(s) ``p`` [..., 3] by quaternion(s) ``q`` [..., 4]
+    (expanded Rodrigues form, two cross products)."""
+    w = q[..., :1]
+    v = q[..., 1:]
+    uv = _cross(v, p)
+    uuv = _cross(v, uv)
+    return p + 2.0 * (w * uv + uuv)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] -> rotation matrix [..., 3, 3]."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    tx, ty, tz = 2.0 * x, 2.0 * y, 2.0 * z
+    twx, twy, twz = tx * w, ty * w, tz * w
+    txx, txy, txz = tx * x, ty * x, tz * x
+    tyy, tyz, tzz = ty * y, tz * y, tz * z
+    return torch.stack([
+        torch.stack([1.0 - (tyy + tzz), txy - twz, txz + twy], dim=-1),
+        torch.stack([txy + twz, 1.0 - (txx + tzz), tyz - twx], dim=-1),
+        torch.stack([txz - twy, tyz + twx, 1.0 - (txx + tyy)], dim=-1),
+    ], dim=-2)
+
+
+def left_multiplication_matrix(q: torch.Tensor) -> torch.Tensor:
+    """4x4 matrix L(q) with ``L(q) vec(r) = vec(q*r)``."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([w, -x, -y, -z], dim=-1),
+        torch.stack([x, w, -z, y], dim=-1),
+        torch.stack([y, z, w, -x], dim=-1),
+        torch.stack([z, -y, x, w], dim=-1),
+    ], dim=-2)
+
+
+def exp_so3(theta: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Angle-axis vector [..., 3] -> unit quaternion (exponential map),
+    with the reference's small-angle branch as a ``where``."""
+    k = _norm(theta, keepdim=True)
+    small = k < eps
+    ksafe = torch.where(small, torch.ones_like(k), k)
+    half = ksafe * 0.5
+    sinc = torch.where(small, torch.full_like(k, 0.5), torch.sin(half) / ksafe)
+    w = torch.where(small[..., 0], torch.ones_like(k[..., 0]),
+                    torch.cos(half[..., 0]))
+    return torch.cat([w[..., None], theta * sinc], dim=-1)
+
+
+def drpdq(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Jacobian d(R(q) p)/dq, [..., 3, 4] (Sola eq. 174)."""
+    w = q[..., :1]
+    v = q[..., 1:]
+    col0 = w * p + _cross(v, p)                          # [..., 3]
+    vdotp = torch.sum(v * p, dim=-1, keepdim=True)       # [..., 1]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    right = (vdotp[..., None] * eye
+             + v[..., :, None] * p[..., None, :]
+             - p[..., :, None] * v[..., None, :]
+             - w[..., None] * hat(p))
+    return 2.0 * torch.cat([col0[..., :, None], right], dim=-1)

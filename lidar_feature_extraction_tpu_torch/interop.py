@@ -1,0 +1,52 @@
+"""State carried across from numpy arrays: maps, pose and scan.
+
+The arrays are what ``np.asarray`` gives from the JAX package's
+``GeometryMaps`` / ``Pose`` / ``RangeImage`` (or any other source of the
+same layout), so a caller can register with this port against the very
+map another implementation built. Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lidar_feature_extraction_tpu_torch.core.pose import Pose
+from lidar_feature_extraction_tpu_torch.core.scan import RangeImage
+from lidar_feature_extraction_tpu_torch.ops import geometry_grid as gg
+from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+    GeometryMaps)
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def geometry_maps_from_numpy(edge_rec, edge_voxel, edge_origin, edge_dims,
+                             surf_rec, surf_voxel, surf_origin, surf_dims,
+                             device="cpu") -> GeometryMaps:
+    """GeometryMaps from record tables [C + 1, 8], voxel sizes, origins
+    [3] and dims (nx, ny, nz) of the edge and surface grids."""
+    f32 = torch.float32
+    edge = gg.GeometryGrid(rec=_t(edge_rec, f32, device),
+                           voxel_size=_t(edge_voxel, f32, device),
+                           origin=_t(edge_origin, f32, device),
+                           dims=tuple(int(d) for d in edge_dims))
+    surface = gg.GeometryGrid(rec=_t(surf_rec, f32, device),
+                              voxel_size=_t(surf_voxel, f32, device),
+                              origin=_t(surf_origin, f32, device),
+                              dims=tuple(int(d) for d in surf_dims))
+    return GeometryMaps(edge=edge, surface=surface,
+                        fused=gg.fuse_record_tables(edge, surface))
+
+
+def pose_from_numpy(q, t, device="cpu") -> Pose:
+    """Pose from a wxyz quaternion [4] and a translation [3]."""
+    return Pose(_t(q, torch.float32, device), _t(t, torch.float32, device))
+
+
+def range_image_from_numpy(xyz, mask, count, device="cpu") -> RangeImage:
+    """RangeImage from xyz [R, P, 3], mask [R, P] and count [R]."""
+    return RangeImage(xyz=_t(xyz, torch.float32, device),
+                      mask=_t(mask, torch.bool, device),
+                      count=_t(count, torch.int32, device))

@@ -1,0 +1,226 @@
+"""Robust Gauss-Newton pose optimizer.
+
+Port of ``lidar_feature_extraction_tpu/ops/gauss_newton.py:41-269``:
+Huber-IRLS on MAD-normalized squared residual norms, the 7->6 quaternion
+lift, an unrolled Cholesky solve behind the degeneracy guard, and the
+reference's five status codes. The reference's ``lax.while_loop``
+becomes a Python loop around one fixed-shape device step
+(``_gn_body``); the loop reads the step's status back once per
+iteration to decide whether to go on.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+from lidar_feature_extraction_tpu_torch.core import stats
+from lidar_feature_extraction_tpu_torch.core.pose import Pose
+from lidar_feature_extraction_tpu_torch.ops import smallalg
+
+# Status codes (parity: the reference's OptimizationResult constructors).
+CONVERGED = 0
+MAX_ITERATIONS = 1
+ERROR_INCREASED = 2
+SCALE_INCREASED = 3
+EMPTY_INPUT = 4
+
+
+class GNResult(NamedTuple):
+    pose: Pose
+    status: torch.Tensor      # int32 code above
+    iterations: torch.Tensor  # int32
+    error: torch.Tensor       # sum of squared residual norms
+    scale: torch.Tensor       # MAD scale of the error vector
+    # Weighted manifold Hessian M^T A M [6, 6] at the returned pose, in
+    # tangent coordinates (dtheta_right, dt_world).
+    hessian: torch.Tensor | None = None
+    # Per-residual-block lower-middle median of the squared residual
+    # norms at the returned pose ([n_blocks], make_problem's order).
+    block_errors: torch.Tensor | None = None
+
+
+class Problem(NamedTuple):
+    """Stacked correspondences in row form.
+
+    jac_rows:  [M, 7] all jacobian rows (M = sum of N_b * D_b)
+    res_rows:  [M] residual entries matching the rows
+    errors:    [N] r_i . r_i per correspondence
+    valid:     [N] per-correspondence validity
+    shape:     ((N_b, D_b), ...) block structure
+    """
+
+    jac_rows: torch.Tensor
+    res_rows: torch.Tensor
+    errors: torch.Tensor
+    valid: torch.Tensor
+    shape: tuple
+
+
+def rows_from_corr(problem: Problem, values: torch.Tensor) -> torch.Tensor:
+    """Broadcast a per-correspondence [N] vector to the [M] rows."""
+    out = []
+    offset = 0
+    for n, d in problem.shape:
+        seg = values[offset:offset + n]
+        out.append(seg[:, None].expand(n, d).reshape(n * d))
+        offset += n
+    return torch.cat(out, dim=0)
+
+
+def make_problem(blocks) -> Problem:
+    """Stack ResidualBlocks (possibly of different row-dims D) into one
+    row-form problem."""
+    jacs, ress, errs, valids, shape = [], [], [], [], []
+    for b in blocks:
+        n, d, _ = b.jacobian.shape
+        jacs.append(b.jacobian.reshape(n * d, 7))
+        ress.append(b.residual.reshape(n * d))
+        errs.append(torch.sum(b.residual * b.residual, dim=-1))
+        valids.append(b.valid)
+        shape.append((n, d))
+    return Problem(jac_rows=torch.cat(jacs, dim=0),
+                   res_rows=torch.cat(ress, dim=0),
+                   errors=torch.cat(errs, dim=0),
+                   valid=torch.cat(valids, dim=0),
+                   shape=tuple(shape))
+
+
+def make_m(q: torch.Tensor) -> torch.Tensor:
+    """7x6 manifold lift: dx(6) -> d(q, t)(7); top-left 4x3 is
+    0.5 * L(q)[:, 1:]."""
+    L = quat.left_multiplication_matrix(q)
+    z43 = torch.zeros(L.shape[:-2] + (4, 3), dtype=L.dtype, device=L.device)
+    z33 = torch.zeros(L.shape[:-2] + (3, 3), dtype=L.dtype, device=L.device)
+    eye = torch.eye(3, dtype=L.dtype, device=L.device).expand(
+        L.shape[:-2] + (3, 3))
+    top = torch.cat([0.5 * L[..., :, 1:], z43], dim=-1)
+    bot = torch.cat([z33, eye], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def weighted_update(q: torch.Tensor, weights: torch.Tensor,
+                    problem: Problem, degeneracy_threshold: float):
+    """One GN solve: dx = -(M^T A M)^{-1} M^T b, or zero when the
+    unweighted Hessian is degenerate or the solve is not finite.
+    Returns ``(dx [6], H [6, 6])``."""
+    w = torch.where(problem.valid, weights, 0.0)
+    vf = problem.valid.to(problem.jac_rows.dtype)
+    w_rows = rows_from_corr(problem, w)[:, None]
+    v_rows = rows_from_corr(problem, vf)[:, None]
+    j = problem.jac_rows
+    D = (j * v_rows).T @ j
+    A = (j * w_rows).T @ j
+    b = j.T @ (w_rows[:, 0] * problem.res_rows)
+
+    M = make_m(q)
+    H = M.T @ A @ M
+    g = M.T @ b
+    dx = -smallalg.cholesky_solve(H, g)
+
+    degenerate = smallalg.min_eigval_below(D, degeneracy_threshold)
+    bad = degenerate | ~torch.all(torch.isfinite(dx))
+    return torch.where(bad, torch.zeros_like(dx), dx), H
+
+
+class _GNState(NamedTuple):
+    q: torch.Tensor
+    t: torch.Tensor
+    prev_error: torch.Tensor
+    prev_scale: torch.Tensor
+    status: torch.Tensor
+    hess: torch.Tensor
+    block_meds: torch.Tensor
+
+
+def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
+             degeneracy_threshold, abort_on_increase) -> _GNState:
+    """One iteration of the reference's while-loop body, on the device."""
+    q, t, prev_error, prev_scale = state.q, state.t, state.prev_error, \
+        state.prev_scale
+    problem = problem_fn(Pose(q, t))
+
+    n_valid = torch.sum(problem.valid.to(torch.int32))
+    errors = torch.where(problem.valid, problem.errors, 0.0)
+    error = torch.sum(errors)
+    scale = stats.masked_scale_bisect(problem.errors, problem.valid)
+    normalized = errors / (scale + 1e-16)
+
+    meds, off = [], 0
+    for n_b, _ in problem.shape:
+        meds.append(stats._wide_median(problem.errors[off:off + n_b],
+                                       problem.valid[off:off + n_b]))
+        off += n_b
+    block_meds = torch.stack(meds)
+
+    empty = n_valid == 0
+    err_up = (error > prev_error) & abort_on_increase
+    scale_up = (scale > prev_scale) & abort_on_increase
+
+    weights = stats.huber_derivative(normalized, huber_k)
+    dx, hess = weighted_update(q, weights, problem, degeneracy_threshold)
+    dq = quat.exp_so3(dx[:3])
+    dt = dx[3:]
+    q_new = quat.quat_normalize(quat.quat_multiply(q, dq))
+    t_new = t + dt
+    converged = ((quat._norm(dq[1:]) < convergence_tol)
+                 & (quat._norm(dt) < convergence_tol))
+
+    # Aborts keep the pre-update pose.
+    abort = empty | err_up | scale_up
+    code = lambda c: torch.full_like(state.status, c)  # noqa: E731
+    status = torch.where(
+        empty, code(EMPTY_INPUT),
+        torch.where(err_up, code(ERROR_INCREASED),
+                    torch.where(scale_up, code(SCALE_INCREASED),
+                                torch.where(converged, code(CONVERGED),
+                                            code(-1)))))
+    return _GNState(q=torch.where(abort, q, q_new),
+                    t=torch.where(abort, t, t_new),
+                    prev_error=torch.where(abort, prev_error, error),
+                    prev_scale=torch.where(abort, prev_scale, scale),
+                    status=status, hess=hess, block_meds=block_meds)
+
+
+def run_gauss_newton(
+    problem_fn: Callable[[Pose], Problem],
+    initial_pose: Pose,
+    max_iterations: int,
+    convergence_tol: float = 1e-3,
+    huber_k: float = 1.345,
+    degeneracy_threshold: float = 0.1,
+    abort_on_increase: bool = True,
+) -> GNResult:
+    """Iterate GN with correspondences recomputed by ``problem_fn`` at
+    every pose, until a status is set or ``max_iterations`` bodies ran.
+    ``abort_on_increase=False`` disables the error/scale-increase aborts
+    (EMPTY_INPUT still terminates)."""
+    dtype = initial_pose.t.dtype
+    dev = initial_pose.t.device
+    big = torch.tensor(torch.finfo(dtype).max, dtype=dtype, device=dev)
+    state = _GNState(q=initial_pose.q.to(dtype), t=initial_pose.t.to(dtype),
+                     prev_error=big, prev_scale=big,
+                     status=torch.full((), -1, dtype=torch.int32, device=dev),
+                     hess=torch.zeros((6, 6), dtype=dtype, device=dev),
+                     block_meds=None)
+    it = 0
+    while it < max_iterations:
+        state = _gn_body(problem_fn, state, convergence_tol, huber_k,
+                         degeneracy_threshold, abort_on_increase)
+        it += 1
+        if int(state.status) >= 0:   # the one readback per iteration
+            break
+    if state.block_meds is None:
+        # No body ran: the reference reports its initial carry.
+        n_blocks = len(problem_fn(initial_pose).shape)
+        state = state._replace(block_meds=big.expand(n_blocks).clone())
+    status = torch.where(state.status < 0,
+                         torch.full_like(state.status, MAX_ITERATIONS),
+                         state.status)
+    return GNResult(pose=Pose(state.q, state.t), status=status,
+                    iterations=torch.tensor(it, dtype=torch.int32,
+                                            device=dev),
+                    error=state.prev_error, scale=state.prev_scale,
+                    hessian=state.hess, block_errors=state.block_meds)

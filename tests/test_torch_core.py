@@ -1,0 +1,115 @@
+"""Port parity: config tree, quaternions, robust statistics and
+build_range_image against the JAX reference.
+
+Tolerances: quaternion and statistics functions rtol 1e-6 (float32,
+same formulas, possibly another order of rounding); the range image is
+exact (a stable sort and a scatter move values without arithmetic).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from torch_parity import np32, t32, to_np  # noqa: E402
+from test_extraction import make_synthetic_ring  # noqa: E402
+from lidar_feature_extraction_tpu import config as jcfg  # noqa: E402
+from lidar_feature_extraction_tpu.core import quaternion as jq  # noqa: E402
+from lidar_feature_extraction_tpu.core import stats as jstats  # noqa: E402
+from lidar_feature_extraction_tpu.core.scan import (  # noqa: E402
+    build_range_image as j_build_range_image)
+from lidar_feature_extraction_tpu_torch import config as tcfg  # noqa: E402
+from lidar_feature_extraction_tpu_torch.core import (  # noqa: E402
+    quaternion as tq, stats as tstats)
+from lidar_feature_extraction_tpu_torch.core.pose import Pose  # noqa: E402
+from lidar_feature_extraction_tpu_torch.core.scan import (  # noqa: E402
+    build_range_image as t_build_range_image)
+
+RTOL = 1e-6
+ATOL = 1e-6
+
+
+@pytest.mark.parametrize("preset", ["PipelineConfig", "kitti_hdl64",
+                                    "vlp16"])
+def test_config_tree_matches_reference(preset):
+    assert (dataclasses.asdict(getattr(tcfg, preset)())
+            == dataclasses.asdict(getattr(jcfg, preset)()))
+
+
+def _unit_quats(rng, n):
+    q = rng.normal(size=(n, 4))
+    return np32(q / np.linalg.norm(q, axis=-1, keepdims=True))
+
+
+_QUAT_CASES = {
+    "hat": lambda q, p: (p,),
+    "quat_multiply": lambda q, p: (q, q[::-1].copy()),
+    "quat_normalize": lambda q, p: (3.0 * q,),
+    "quat_rotate": lambda q, p: (q, p),
+    "quat_to_matrix": lambda q, p: (q,),
+    "left_multiplication_matrix": lambda q, p: (q,),
+    "exp_so3": lambda q, p: (np32(np.concatenate([0.3 * p[:-1],
+                                                  np.zeros((1, 3))])),),
+    "drpdq": lambda q, p: (q, p),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_QUAT_CASES))
+def test_quaternion_function_matches_reference(name):
+    rng = np.random.default_rng(0)
+    q, p = _unit_quats(rng, 64), np32(rng.normal(size=(64, 3)))
+    args = _QUAT_CASES[name](q, p)
+    want = np32(getattr(jq, name)(*[jnp.asarray(a) for a in args]))
+    got = to_np(getattr(tq, name)(*[t32(a) for a in args]))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_pose_apply_matches_quat_rotate():
+    rng = np.random.default_rng(1)
+    q, p = _unit_quats(rng, 1)[0], np32(rng.normal(size=(16, 3)))
+    t = np32([0.3, -0.2, 0.05])
+    got = to_np(Pose(t32(q), t32(t)).apply(t32(p)))
+    want = np32(jq.quat_rotate(jnp.asarray(q), jnp.asarray(p))) + t
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 257, 4000])
+def test_masked_scale_bisect_matches_reference(n):
+    rng = np.random.default_rng(n)
+    v = np32(rng.exponential(size=n))
+    m = rng.random(n) < 0.7
+    m[0] = True
+    want = np32(jstats.masked_scale_bisect(jnp.asarray(v), jnp.asarray(m)))
+    got = to_np(tstats.masked_scale_bisect(t32(v), torch.as_tensor(m)))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def test_huber_derivative_matches_reference():
+    e = np32(np.random.default_rng(2).exponential(scale=3.0, size=512))
+    want = np32(jstats.huber_derivative(jnp.asarray(e), 1.345))
+    got = to_np(tstats.huber_derivative(t32(e), 1.345))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def test_build_range_image_is_exact():
+    rng = np.random.default_rng(3)
+    rings = [make_synthetic_ring(rng, int(rng.integers(40, 300)))
+             for _ in range(5)]
+    xyz = np32(np.concatenate(rings))
+    ring = np.concatenate([np.full(len(r), i) for i, r in enumerate(rings)])
+    ring[:7] = 3          # a few points in another ring
+    valid = rng.random(len(xyz)) < 0.95
+    perm = rng.permutation(len(xyz))
+    args = (xyz[perm], ring[perm].astype(np.int32), valid[perm])
+    kw = dict(n_rings=6, max_points_per_ring=256, min_points_per_ring=8)
+    want = j_build_range_image(*[jnp.asarray(a) for a in args], **kw)
+    got = t_build_range_image(t32(args[0]), torch.as_tensor(args[1]),
+                              torch.as_tensor(args[2]), **kw)
+    np.testing.assert_array_equal(to_np(got.mask), np.asarray(want.mask))
+    np.testing.assert_array_equal(to_np(got.count), np.asarray(want.count))
+    m = np.asarray(want.mask)
+    np.testing.assert_array_equal(to_np(got.xyz)[m], np32(want.xyz)[m])

@@ -1,0 +1,240 @@
+"""Port parity: feature extraction (the plain version of kernel K1 and
+the compact extraction around it) against the JAX reference, its Pallas
+kernel in interpret mode, and the sequential numpy oracle.
+
+Tolerances: labels, compaction columns, validity masks and compacted
+points are bit-equal (integer results; points are moved, not computed).
+Curvature c = acc^2 is compared as |acc| = sqrt(c) to within
+4 * padding ulp of the largest range: XLA:CPU contracts the reference's
+``x*x + y*y`` and ``-2p*r + r[i-1]`` into FMAs (1-ulp differences in
+about 5% of the ranges), the port rounds every operation as written
+(the CUDA kernel must match it bit for bit), and the curvature's
+cancellation turns an ulp of one range into up to 2p ulp of acc.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import np_ref  # noqa: E402
+from torch_parity import np32, t32, to_np  # noqa: E402
+from test_extraction import (  # noqa: E402
+    _multi_ring_image, _nms_device, _nms_oracle)
+from lidar_feature_extraction_tpu.config import (  # noqa: E402
+    ExtractionConfig as JCfg, kitti_hdl64 as j_kitti)
+from lidar_feature_extraction_tpu.core.scan import (  # noqa: E402
+    RangeImage as JImage)
+from lidar_feature_extraction_tpu.ops import extraction as jex  # noqa: E402
+from lidar_feature_extraction_tpu.ops.extraction_pallas import (  # noqa: E402
+    label_and_columns_pallas)
+from lidar_feature_extraction_tpu_torch.config import (  # noqa: E402
+    ExtractionConfig as TCfg, kitti_hdl64 as t_kitti)
+from lidar_feature_extraction_tpu_torch.interop import (  # noqa: E402
+    range_image_from_numpy)
+from lidar_feature_extraction_tpu_torch.ops import (  # noqa: E402
+    extraction as tex)
+from lidar_feature_extraction_tpu_torch.ops.extraction_cuda import (  # noqa: E402
+    label_and_columns)
+
+
+def assert_curvature_close(got, want, padding, rng_max):
+    atol = 4 * padding * float(np.spacing(np.float32(rng_max)))
+    np.testing.assert_allclose(np.sqrt(to_np(got)), np.sqrt(np32(want)),
+                               rtol=0, atol=atol)
+
+
+CFG_KW = dict(n_rings=4, max_points_per_ring=512, nms_rounds=96,
+              surface_threshold=0.3)
+LEAF, CE, CS = 1.0, 16, 24
+
+
+def _image(seed):
+    """float32 4x512 multi-ring image as numpy (xyz, mask, count)."""
+    img = _multi_ring_image(np.random.default_rng(seed), 4, 512)
+    return (np32(img.xyz), np.array(img.mask),
+            np.array(img.count, dtype=np.int32))
+
+
+def _jimage(xyz, mask, count):
+    return JImage(jnp.asarray(xyz), jnp.asarray(mask), jnp.asarray(count))
+
+
+@pytest.mark.parametrize("seed", [7, 8, 9])
+def test_plain_k1_matches_reference_and_pallas_interpret(seed):
+    xyz, mask, count = _image(seed)
+    jcfg, tcfg = JCfg(**CFG_KW), TCfg(**CFG_KW)
+
+    labels, curv = jex.label_range_image(_jimage(xyz, mask, count), jcfg)
+    key = jex._voxel_run_key(jnp.asarray(xyz), LEAF)
+    col, _, _, _ = jex.compact_columns(labels, jnp.asarray(mask), key, CE, CS)
+    pl_labels, _, pl_col = label_and_columns_pallas(
+        *[jnp.asarray(xyz[..., i]) for i in range(3)], jnp.asarray(count),
+        jcfg, LEAF, CE, CS, ring_group=2, interpret=True)
+
+    got = tex.label_and_columns_plain(
+        *[t32(xyz[..., i]) for i in range(3)], torch.as_tensor(count),
+        tcfg, LEAF, CE, CS)
+    np.testing.assert_array_equal(to_np(got[0]), np.asarray(labels))
+    np.testing.assert_array_equal(to_np(got[2]), np.asarray(col))
+    np.testing.assert_array_equal(to_np(got[0]), np.asarray(pl_labels))
+    np.testing.assert_array_equal(to_np(got[2]), np.asarray(pl_col))
+    assert_curvature_close(got[1], curv, tcfg.padding,
+                           np.hypot(xyz[..., 0], xyz[..., 1]).max())
+
+
+def test_cpu_dispatch_takes_the_plain_version():
+    xyz, _, count = _image(10)
+    cfg = TCfg(**CFG_KW)
+    planes = [t32(xyz[..., i]) for i in range(3)]
+    a = label_and_columns(*planes, torch.as_tensor(count), cfg, LEAF, CE, CS)
+    b = tex.label_and_columns_plain(*planes, torch.as_tensor(count), cfg,
+                                    LEAF, CE, CS)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def _nms_torch(curvature, nb, n, cfg, max_pts=128):
+    curv = torch.zeros((1, max_pts), dtype=torch.float64)
+    curv[0, :n] = torch.as_tensor(curvature)
+    nbt = torch.zeros((1, max_pts), dtype=torch.bool)
+    nbt[0, :n - 1] = torch.as_tensor(nb)
+    g = tex.gap_prefix(nbt)
+    count = torch.tensor([n], dtype=torch.int32)
+    blk = tex.block_ids(count, max_pts, cfg.padding, cfg.n_blocks)
+    labels = torch.full((1, max_pts), tex.DEFAULT, dtype=torch.int32)
+    for pick_max in (True, False):
+        labels = tex._nms_pass(
+            labels, curv, blk, g, count, padding=cfg.padding,
+            n_blocks=cfg.n_blocks,
+            threshold=cfg.edge_threshold if pick_max
+            else cfg.surface_threshold,
+            pick_max=pick_max,
+            point_code=tex.EDGE if pick_max else tex.SURFACE,
+            neighbor_code=tex.EDGE_NEIGHBOR if pick_max
+            else tex.SURFACE_NEIGHBOR,
+            n_iter=cfg.nms_rounds)
+    return to_np(labels)[0, :n]
+
+
+def _nms_case(name, seed=0):
+    n = 100
+    if name == "ties_surface":
+        kw = dict(nms_rounds=128, n_blocks=2, padding=3,
+                  edge_threshold=1e9, surface_threshold=1e12)
+        return kw, np.zeros(n), np.ones(n - 1, bool), n
+    if name == "ties_edge":
+        kw = dict(nms_rounds=128, n_blocks=2, padding=3,
+                  edge_threshold=1.0, surface_threshold=-1.0)
+        return kw, np.ones(n), np.ones(n - 1, bool), n
+    if name == "adversarial_chain":
+        kw = dict(nms_rounds=128, n_blocks=1, padding=4,
+                  edge_threshold=1.0, surface_threshold=-1.0)
+        return kw, np.arange(n, 0, -1).astype(float), np.ones(n - 1, bool), n
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(30, 120))
+    kw = dict(nms_rounds=128, n_blocks=int(rng.integers(1, 4)),
+              padding=int(rng.integers(1, 5)),
+              edge_threshold=6.0, surface_threshold=3.0)
+    return (kw, rng.integers(0, 10, size=n).astype(float),
+            rng.random(n - 1) < 0.8, n)
+
+
+@pytest.mark.parametrize("name,seed", [
+    ("ties_surface", 0), ("ties_edge", 0), ("adversarial_chain", 0),
+    ("random_integer", 1), ("random_integer", 4)])
+def test_nms_matches_sequential_oracle(name, seed):
+    kw, curvature, nb, n = _nms_case(name, seed)
+    want = _nms_oracle(curvature, nb, n, JCfg(**kw))
+    np.testing.assert_array_equal(_nms_torch(curvature, nb, n, TCfg(**kw)),
+                                  want)
+    np.testing.assert_array_equal(
+        _nms_device(curvature, nb, n, JCfg(**kw)), want)
+
+
+def test_round_cap_matches_reference():
+    """With the NMS round cap hit, the port still follows the reference's
+    multi-select rounds (not the sequential order)."""
+    kw, curvature, nb, n = _nms_case("adversarial_chain")
+    kw["nms_rounds"] = 5
+    np.testing.assert_array_equal(
+        _nms_torch(curvature, nb, n, TCfg(**kw)),
+        _nms_device(curvature, nb, n, JCfg(**kw)))
+
+
+def test_full_ring_labels_match_oracle_in_float64():
+    """The float64 oracle against the port run in float64 (the plain
+    version is dtype-generic; the kernel is float32 only)."""
+    img = _multi_ring_image(np.random.default_rng(11), 4, 512)
+    xyz, count = np.asarray(img.xyz, np.float64), np.asarray(img.count)
+    labels, _ = tex.label_range_image(
+        tex.RangeImage(torch.as_tensor(xyz), torch.as_tensor(
+            np.asarray(img.mask)), torch.as_tensor(count, dtype=torch.int32)),
+        TCfg(**CFG_KW))
+    for r in range(4):
+        want = np_ref.extract_ring_labels(xyz[r, :count[r]], JCfg(**CFG_KW))
+        np.testing.assert_array_equal(to_np(labels)[r, :count[r]], want)
+
+
+@pytest.mark.parametrize("pallas_labeling", [True, False])
+def test_extract_features_compact_matches_reference(pallas_labeling):
+    xyz, mask, count = _image(12)
+    jcfg = JCfg(**CFG_KW, pallas_labeling=pallas_labeling)
+    tcfg = TCfg(**CFG_KW, pallas_labeling=pallas_labeling)
+    kw = dict(surface_leaf=LEAF, edges_per_ring=CE,
+              surface_runs_per_ring=CS)
+    want = jex.extract_features_compact(_jimage(xyz, mask, count), jcfg,
+                                        **kw)
+    got = tex.extract_features_compact(
+        range_image_from_numpy(xyz, mask, count), tcfg, **kw)
+    for name in ("labels", "edge_valid", "surface_valid"):
+        np.testing.assert_array_equal(to_np(getattr(got, name)),
+                                      np.asarray(getattr(want, name)))
+    for name in ("edge_xyz", "surface_xyz"):
+        np.testing.assert_array_equal(to_np(getattr(got, name)),
+                                      np32(getattr(want, name)))
+
+
+def test_extract_features_compact_kitti_preset_matches_reference():
+    """The kitti_hdl64 extraction settings (padding 2, 3 degrees, edge
+    threshold 50, nms_rounds 48) on a narrow bench-like scan."""
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import bench_scan
+
+    xyz = bench_scan(np.random.default_rng(0), 8, 256)
+    mask = np.ones(xyz.shape[:2], bool)
+    count = np.full(8, 256, np.int32)
+    jp, tp = j_kitti(), t_kitti()
+    kw = dict(surface_leaf=1.0, edges_per_ring=8, surface_runs_per_ring=32)
+    want = jex.extract_features_compact(_jimage(xyz, mask, count),
+                                        jp.extraction, **kw)
+    got = tex.extract_features_compact(
+        range_image_from_numpy(xyz, mask, count), tp.extraction, **kw)
+    np.testing.assert_array_equal(to_np(got.labels), np.asarray(want.labels))
+    assert (to_np(got.labels) == tex.EDGE).any()
+    np.testing.assert_array_equal(to_np(got.edge_xyz), np32(want.edge_xyz))
+    np.testing.assert_array_equal(to_np(got.surface_xyz),
+                                  np32(want.surface_xyz))
+
+
+def test_extract_features_matches_reference():
+    xyz, mask, count = _image(13)
+    cfg_kw = dict(CFG_KW, max_edges=64, max_surfaces=256)
+    want = jex.extract_features(_jimage(xyz, mask, count), JCfg(**cfg_kw))
+    got = tex.extract_features(range_image_from_numpy(xyz, mask, count),
+                               TCfg(**cfg_kw))
+    for name in ("labels", "edge_valid", "surface_valid"):
+        np.testing.assert_array_equal(to_np(getattr(got, name)),
+                                      np.asarray(getattr(want, name)))
+    for name in ("edge_xyz", "surface_xyz"):
+        np.testing.assert_array_equal(to_np(getattr(got, name)),
+                                      np32(getattr(want, name)))
+
+
+def test_centroid_mode_is_not_ported():
+    xyz, mask, count = _image(14)
+    with pytest.raises(NotImplementedError):
+        tex.extract_features_compact(
+            range_image_from_numpy(xyz, mask, count), TCfg(**CFG_KW),
+            surface_centroid=True)
