@@ -20,7 +20,7 @@ class Pose(NamedTuple):
     t: torch.Tensor
 
     @staticmethod
-    def identity(dtype=torch.float32, device=None) -> "Pose":
+    def identity(dtype=torch.float32, device="cuda") -> "Pose":
         return Pose(quat.quat_identity(dtype, device),
                     torch.zeros(3, dtype=dtype, device=device))
 

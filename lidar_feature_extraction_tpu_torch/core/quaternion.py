@@ -33,7 +33,7 @@ def hat(v: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
-def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+def quat_identity(dtype=torch.float32, device="cuda") -> torch.Tensor:
     return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
 
 

@@ -3,7 +3,10 @@
 The arrays are what ``np.asarray`` gives from the JAX package's
 ``GeometryMaps`` / ``Pose`` / ``RangeImage`` (or any other source of the
 same layout), so a caller can register with this port against the very
-map another implementation built. Nothing here imports JAX.
+map another implementation built. Nothing here imports JAX. Like every
+entry point of the port, each constructor puts its tensors on the CUDA
+card unless the caller asks for another device (``device="cpu"``);
+without a card the default raises.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 def geometry_maps_from_numpy(edge_rec, edge_voxel, edge_origin, edge_dims,
                              surf_rec, surf_voxel, surf_origin, surf_dims,
-                             device="cpu") -> GeometryMaps:
+                             device="cuda") -> GeometryMaps:
     """GeometryMaps from record tables [C + 1, 8], voxel sizes, origins
     [3] and dims (nx, ny, nz) of the edge and surface grids."""
     f32 = torch.float32
@@ -40,12 +43,12 @@ def geometry_maps_from_numpy(edge_rec, edge_voxel, edge_origin, edge_dims,
                         fused=gg.fuse_record_tables(edge, surface))
 
 
-def pose_from_numpy(q, t, device="cpu") -> Pose:
+def pose_from_numpy(q, t, device="cuda") -> Pose:
     """Pose from a wxyz quaternion [4] and a translation [3]."""
     return Pose(_t(q, torch.float32, device), _t(t, torch.float32, device))
 
 
-def range_image_from_numpy(xyz, mask, count, device="cpu") -> RangeImage:
+def range_image_from_numpy(xyz, mask, count, device="cuda") -> RangeImage:
     """RangeImage from xyz [R, P, 3], mask [R, P] and count [R]."""
     return RangeImage(xyz=_t(xyz, torch.float32, device),
                       mask=_t(mask, torch.bool, device),

@@ -28,6 +28,8 @@ from lidar_feature_extraction_tpu_torch.core import (  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core.pose import Pose  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core.scan import (  # noqa: E402
     build_range_image as t_build_range_image)
+from lidar_feature_extraction_tpu_torch.interop import (  # noqa: E402
+    geometry_maps_from_numpy, pose_from_numpy, range_image_from_numpy)
 
 RTOL = 1e-6
 ATOL = 1e-6
@@ -113,3 +115,33 @@ def test_build_range_image_is_exact():
     np.testing.assert_array_equal(to_np(got.count), np.asarray(want.count))
     m = np.asarray(want.mask)
     np.testing.assert_array_equal(to_np(got.xyz)[m], np32(want.xyz)[m])
+
+
+_Q, _T = np32([1.0, 0.0, 0.0, 0.0]), np32([0.3, -0.2, 0.05])
+_REC = np.zeros((5, 8), np.float32)
+_ENTRY_POINTS = {
+    "quat_identity": lambda **kw: tq.quat_identity(**kw),
+    "Pose.identity": lambda **kw: Pose.identity(**kw).q,
+    "pose_from_numpy": lambda **kw: pose_from_numpy(_Q, _T, **kw).t,
+    "range_image_from_numpy": lambda **kw: range_image_from_numpy(
+        np.zeros((2, 8, 3), np.float32), np.ones((2, 8), bool),
+        np.full(2, 8), **kw).xyz,
+    "geometry_maps_from_numpy": lambda **kw: geometry_maps_from_numpy(
+        _REC, np32(0.5), np.zeros(3, np.float32), (2, 2, 1), _REC,
+        np32(0.5), np.zeros(3, np.float32), (2, 2, 1), **kw).edge.rec,
+}
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default succeeds")
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(no_cuda, name):
+    """Without a card the default device raises (torch's own error)
+    instead of quietly giving CPU tensors; the CPU is there on request."""
+    with pytest.raises((AssertionError, RuntimeError)):
+        _ENTRY_POINTS[name]()
+    assert _ENTRY_POINTS[name](device="cpu").device.type == "cpu"

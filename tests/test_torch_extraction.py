@@ -14,6 +14,7 @@ cancellation turns an ulp of one range into up to 2p ulp of acc.
 
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -178,6 +179,116 @@ def test_full_ring_labels_match_oracle_in_float64():
         np.testing.assert_array_equal(to_np(labels)[r, :count[r]], want)
 
 
+def _nms_masks(labels, curvature, blk, g, *, padding, threshold, pick_max,
+               point_code, neighbor_code, n_iter):
+    """The NMS pass as kernel K1 computes it: 2p-bit masks per lane
+    built once from static data (bit k is offset k - p below p, k - p + 1
+    from p on), alive bits gathered over the window each round, and the
+    labels written once at the end of the pass."""
+    P = curvature.shape[-1]
+    lane = torch.arange(P)
+    p = padding
+    offsets = [k - p if k < p else k - p + 1 for k in range(2 * p)]
+
+    def at(a, dd, fill):
+        """a[..., lane + dd], ``fill`` outside the ring."""
+        j = lane + dd
+        inside = (j >= 0) & (j < P)
+        return torch.where(inside, a[..., j.clamp(0, P - 1)],
+                           torch.full_like(a, fill))
+
+    score = curvature if pick_max else -curvature
+    win = torch.zeros(blk.shape, dtype=torch.int64)
+    beats = torch.zeros(blk.shape, dtype=torch.int64)
+    for k, dd in enumerate(offsets):
+        in_win = ((lane + dd >= 0) & (lane + dd < P) & (at(g, dd, -1) == g)
+                  & (at(blk, dd, -2) == blk))
+        s_n = at(score, dd, float("-inf"))
+        tie_win = dd > 0 if pick_max else dd < 0
+        better = ((s_n > score) | ((s_n == score) & tie_win)) \
+            & (s_n > float("-inf"))
+        win |= in_win.to(torch.int64) << k
+        beats |= (in_win & better).to(torch.int64) << k
+
+    def window(bits):
+        out = torch.zeros(bits.shape, dtype=torch.int64)
+        for k, dd in enumerate(offsets):
+            out |= at(bits, dd, False).to(torch.int64) << k
+        return out
+
+    thr_ok = (curvature >= threshold) if pick_max else \
+        (curvature <= threshold)
+    alive = (blk >= 0) & thr_ok & (labels == tex.DEFAULT)
+    ever_sel = torch.zeros_like(alive)
+    ever_win = torch.zeros_like(alive)
+    for _ in range(n_iter):
+        sel = alive & ((beats & window(alive)) == 0)
+        if not bool(sel.any()):
+            break
+        hit = (win & window(sel)) != 0
+        ever_sel |= sel
+        ever_win |= hit
+        alive = alive & ~sel & ~hit
+    labels = torch.where(ever_win, neighbor_code, labels)
+    return torch.where(ever_sel, point_code, labels)
+
+
+@st.composite
+def _nms_rings(draw):
+    """One ring for an NMS pass: ties, monotone chains, infinities,
+    segment breaks, rings too short for any block."""
+    p = draw(st.integers(1, 16))
+    n_blocks = draw(st.integers(1, 6))
+    P = draw(st.integers(1, 96))
+    n = draw(st.integers(0, P))
+    kind = draw(st.sampled_from(["ties", "chain_up", "chain_down",
+                                 "levels", "random"]))
+    if kind == "ties":
+        c = np.full(P, draw(st.sampled_from([0.0, 1.0, 7.0])))
+    elif kind in ("chain_up", "chain_down"):
+        c = np.arange(P, dtype=np.float64)
+        c = c if kind == "chain_up" else c[::-1].copy()
+    elif kind == "levels":
+        c = np.array(draw(st.lists(st.sampled_from(
+            [0.0, 1.0, 2.0, 3.0, np.inf]), min_size=P, max_size=P)))
+    else:
+        c = np.array(draw(st.lists(st.floats(0.0, 10.0, width=32),
+                                   min_size=P, max_size=P)))
+    nb = np.array(draw(st.lists(st.booleans() | st.just(True),
+                                min_size=P, max_size=P)))
+    nb[max(n - 1, 0):] = False
+    labels = np.array(draw(st.lists(st.sampled_from(
+        [tex.DEFAULT, tex.DEFAULT, tex.EDGE, tex.EDGE_NEIGHBOR]),
+        min_size=P, max_size=P)))
+    return dict(p=p, n_blocks=n_blocks, n=n, curvature=c, nb=nb,
+                labels=labels, pick_max=draw(st.booleans()),
+                threshold=draw(st.sampled_from([0.0, 1.0, 2.5, 1e9])),
+                n_iter=draw(st.sampled_from([1, 2, 3, 5, 64])))
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(_nms_rings())
+def test_nms_ballot_mask_form_matches_nms_pass(ring):
+    """K1's NMS (masks built once, labels written once per pass) gives
+    the labels of the port's per-round ``_nms_pass``, with and without
+    the round cap hit."""
+    P = len(ring["curvature"])
+    count = torch.tensor([ring["n"]], dtype=torch.int32)
+    curv = torch.as_tensor(ring["curvature"], dtype=torch.float32)[None]
+    g = tex.gap_prefix(torch.as_tensor(ring["nb"])[None])
+    blk = tex.block_ids(count, P, ring["p"], ring["n_blocks"])
+    labels = torch.as_tensor(ring["labels"], dtype=torch.int32)[None]
+    codes = ((tex.EDGE, tex.EDGE_NEIGHBOR) if ring["pick_max"]
+             else (tex.SURFACE, tex.SURFACE_NEIGHBOR))
+    kw = dict(padding=ring["p"], threshold=ring["threshold"],
+              pick_max=ring["pick_max"], point_code=codes[0],
+              neighbor_code=codes[1], n_iter=ring["n_iter"])
+    want = tex._nms_pass(labels, curv, blk, g, count,
+                         n_blocks=ring["n_blocks"], **kw)
+    got = _nms_masks(labels, curv, blk, g, **kw)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("pallas_labeling", [True, False])
 def test_extract_features_compact_matches_reference(pallas_labeling):
     xyz, mask, count = _image(12)
@@ -188,7 +299,7 @@ def test_extract_features_compact_matches_reference(pallas_labeling):
     want = jex.extract_features_compact(_jimage(xyz, mask, count), jcfg,
                                         **kw)
     got = tex.extract_features_compact(
-        range_image_from_numpy(xyz, mask, count), tcfg, **kw)
+        range_image_from_numpy(xyz, mask, count, "cpu"), tcfg, **kw)
     for name in ("labels", "edge_valid", "surface_valid"):
         np.testing.assert_array_equal(to_np(getattr(got, name)),
                                       np.asarray(getattr(want, name)))
@@ -210,7 +321,8 @@ def test_extract_features_compact_kitti_preset_matches_reference():
     want = jex.extract_features_compact(_jimage(xyz, mask, count),
                                         jp.extraction, **kw)
     got = tex.extract_features_compact(
-        range_image_from_numpy(xyz, mask, count), tp.extraction, **kw)
+        range_image_from_numpy(xyz, mask, count, "cpu"), tp.extraction,
+        **kw)
     np.testing.assert_array_equal(to_np(got.labels), np.asarray(want.labels))
     assert (to_np(got.labels) == tex.EDGE).any()
     np.testing.assert_array_equal(to_np(got.edge_xyz), np32(want.edge_xyz))
@@ -222,7 +334,7 @@ def test_extract_features_matches_reference():
     xyz, mask, count = _image(13)
     cfg_kw = dict(CFG_KW, max_edges=64, max_surfaces=256)
     want = jex.extract_features(_jimage(xyz, mask, count), JCfg(**cfg_kw))
-    got = tex.extract_features(range_image_from_numpy(xyz, mask, count),
+    got = tex.extract_features(range_image_from_numpy(xyz, mask, count, "cpu"),
                                TCfg(**cfg_kw))
     for name in ("labels", "edge_valid", "surface_valid"):
         np.testing.assert_array_equal(to_np(getattr(got, name)),
@@ -236,5 +348,5 @@ def test_centroid_mode_is_not_ported():
     xyz, mask, count = _image(14)
     with pytest.raises(NotImplementedError):
         tex.extract_features_compact(
-            range_image_from_numpy(xyz, mask, count), TCfg(**CFG_KW),
+            range_image_from_numpy(xyz, mask, count, "cpu"), TCfg(**CFG_KW),
             surface_centroid=True)

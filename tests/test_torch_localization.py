@@ -119,11 +119,11 @@ def test_register_scan_geometry_on_carried_maps(scene, noisy):
     maps = geometry_maps_from_numpy(
         np32(jm.edge.rec), np32(jm.edge.voxel_size), np32(jm.edge.origin),
         jm.edge.dims, np32(jm.surface.rec), np32(jm.surface.voxel_size),
-        np32(jm.surface.origin), jm.surface.dims)
+        np32(jm.surface.origin), jm.surface.dims, device="cpu")
     got = tloc.register_scan_geometry(
         maps, t32(f.edge_xyz), torch.as_tensor(np.array(f.edge_valid)),
         t32(f.surface_xyz), torch.as_tensor(np.array(f.surface_valid)),
-        pose_from_numpy(q, t), TCFG, pre_downsampled=True)
+        pose_from_numpy(q, t, "cpu"), TCFG, pre_downsampled=True)
     _assert_same_result(got, want)
 
 
@@ -135,13 +135,15 @@ def test_localize_scan_whole_slice(scene, noisy):
     want, _ = jloc.localize_scan(scene["jmaps"], scene["jimg"],
                                  JPose(jnp.asarray(q), jnp.asarray(t)), JCFG)
 
-    img = range_image_from_numpy(scene["xyz"], scene["mask"], scene["count"])
+    img = range_image_from_numpy(scene["xyz"], scene["mask"], scene["count"],
+                                 "cpu")
     maps = tloc.build_geometry_maps(
         t32(scene["edge_pts"]), torch.ones(len(scene["edge_pts"]),
                                            dtype=torch.bool),
         t32(scene["surf_pts"]), torch.ones(len(scene["surf_pts"]),
                                            dtype=torch.bool), TCFG)
-    got, feats = tloc.localize_scan(maps, img, pose_from_numpy(q, t), TCFG)
+    got, feats = tloc.localize_scan(maps, img, pose_from_numpy(q, t, "cpu"),
+                                    TCFG)
     assert bool(feats.edge_valid.any()) and bool(feats.surface_valid.any())
     _assert_same_result(got, want)
 
@@ -164,7 +166,7 @@ def test_localize_scan_street_scene_recovers_the_pose():
         scan0 = xyz if k == 0 else scan0
         fj = j_extract(JImage(jnp.asarray(xyz), jnp.asarray(mask),
                               jnp.asarray(count)), jcfg.extraction)
-        ft = t_extract(range_image_from_numpy(xyz, mask, count),
+        ft = t_extract(range_image_from_numpy(xyz, mask, count, "cpu"),
                        tcfg.extraction)
         for key, f in (("j", fj), ("t", ft)):
             clouds[key][0].append(to_world(
@@ -187,8 +189,8 @@ def test_localize_scan_street_scene_recovers_the_pose():
         t32(te), torch.ones(len(te), dtype=torch.bool), t32(ts),
         torch.ones(len(ts), dtype=torch.bool), tcfg)
     got, _ = tloc.localize_scan(
-        tmaps, range_image_from_numpy(scan0, mask, count),
-        pose_from_numpy(q, t), tcfg)
+        tmaps, range_image_from_numpy(scan0, mask, count, "cpu"),
+        pose_from_numpy(q, t, "cpu"), tcfg)
     _assert_same_result(got, want)
     assert int(got.status) != EMPTY_INPUT
     assert float(np.linalg.norm(to_np(got.pose.t))) < 0.1
