@@ -32,12 +32,14 @@ Phases, each of which must pass (any failure exits non-zero):
    street scan: labels, curvature and compaction columns bit-equal.
    K1's device time per launch comes from
    ``torch.profiler`` over 200 launches after warm-up (no host work in
-   it), its wrapper's host time per call from the host clock around 200
-   calls with no synchronisation inside (the median of 5 such windows);
-   both beside the least time the card could take (bytes over the
-   H100's memory rate, operations over its float32 rate: the larger).
-   The plain version is timed with CUDA events around the call (median
-   of 20 after warm-up).
+   it; the launches the profiler saw are printed beside it), its
+   wrapper's host time per call from the host clock around 200 calls
+   with no synchronisation inside (the median of 5 such windows); both
+   beside the least time the card could take (bytes over the H100's
+   memory rate, operations over its float32 rate: the larger). The
+   check and the timers are ``k1_check.py``'s, shared with
+   ``profile_k1.py``. The plain version is timed with CUDA events around
+   the call (median of 20 after warm-up).
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -79,17 +81,17 @@ def emit(phase: str, **fields) -> None:
 def bench_scene(cfg, device):
     """bench.py's scene: the scan as a RangeImage and the map's clouds."""
     import torch
+    from k1_check import bench_xyz
     from lidar_feature_extraction_tpu_torch.interop import (
         range_image_from_numpy)
     from lidar_feature_extraction_tpu_torch.ops.extraction import (
         extract_features)
     from lidar_feature_extraction_tpu_torch.utils.synthetic import (
-        bench_scan, keyframe_copies)
+        keyframe_copies)
 
     ex = cfg.extraction
     R, P = ex.n_rings, ex.max_points_per_ring
-    rng = np.random.default_rng(0)
-    xyz = bench_scan(rng, R, P)
+    xyz, rng = bench_xyz(R, P)
     img = range_image_from_numpy(xyz, np.ones((R, P), bool),
                                  np.full(R, P, np.int32), device)
     f = extract_features(img, ex)
@@ -106,25 +108,20 @@ def street_scene(cfg, device):
     """Street canyon: scan at the identity and the map's clouds from 7
     keyframes (keyframe 0 is the scan's own pose)."""
     import torch
+    from k1_check import street_keyframes
     from lidar_feature_extraction_tpu_torch.interop import (
         range_image_from_numpy)
     from lidar_feature_extraction_tpu_torch.ops.extraction import (
         extract_features)
-    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
-        street_scan, street_world, to_world)
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import to_world
 
     ex = cfg.extraction
     R, P = ex.n_rings, ex.max_points_per_ring
-    rng = np.random.default_rng(1)
-    world = street_world(rng)
     mask, count = np.ones((R, P), bool), np.full(R, P, np.int32)
     edges, surfs, scan0 = [], [], None
-    for k in range(7):
-        o = (0.0, 0.0) if k == 0 else tuple(rng.uniform(-3, 3, 2) * [1, .3])
-        yaw = 0.0 if k == 0 else float(rng.uniform(-0.05, 0.05))
-        img = range_image_from_numpy(street_scan(world, rng, R, P, o, yaw),
-                                     mask, count, device)
-        scan0 = img if k == 0 else scan0
+    for xyz, o, yaw in street_keyframes(R, P):
+        img = range_image_from_numpy(xyz, mask, count, device)
+        scan0 = img if scan0 is None else scan0
         f = extract_features(img, ex)
         edges.append(to_world(f.edge_xyz[f.edge_valid].cpu().numpy(), o, yaw))
         surfs.append(to_world(f.surface_xyz[f.surface_valid].cpu().numpy(),
@@ -192,15 +189,6 @@ def localize_chain(maps, image, cfg, noisy: bool, n: int):
     return runs
 
 
-def k1_work(R: int, P: int, padding: int) -> tuple[int, int]:
-    """(bytes, float operations) that K1 must move and do over [R, P]:
-    x, y, z and count read once, labels, curvature and col written once;
-    per lane about 41 + 2 * padding float operations (range 4, neighbour
-    cosine 13, voxel key 6, curvature 2p + 2, thresholds 2, occlusion 4,
-    parallel beam 8, range limits 2)."""
-    return R * P * 24 + R * 4, R * P * (41 + 2 * padding)
-
-
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -234,8 +222,7 @@ def main() -> int:
     from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
     from lidar_feature_extraction_tpu_torch.pipeline.localization import (
         localize_scan)
-    from lidar_feature_extraction_tpu_torch.utils.kernel_timing import (
-        bound_us, device_us_per_launch, host_us_per_call)
+    from k1_check import bound_us, check_and_time, k1_args, k1_work
 
     # Full float32 everywhere: the compaction einsum must copy points
     # exactly, which TF32 would not.
@@ -340,29 +327,15 @@ def main() -> int:
     bound, bound_by = bound_us(nbytes, flops)
     k1_runs = {}
     for scene, img in (("bench", bench_img), ("street", street_img)):
-        planes = [img.xyz[..., i].contiguous() for i in range(3)]
-        args = (*planes, img.count, ex,
-                cfg.registration.surface_downsample_leaf,
-                ex.edges_per_ring, ex.surface_runs_per_ring)
-        got = k1.label_and_columns_cuda(*args)
-        want = tex.label_and_columns_plain(*args)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("labels", "curvature", "col"), got, want):
-            check(torch.equal(g, w), f"k1 {scene}: {name} differs from plain")
-        launch = lambda: k1.label_and_columns_cuda(*args)  # noqa: E731
-        run = k1_runs[scene] = {
-            "host_us": host_us_per_call(launch, K1_LAUNCHES),
-            "device_us": device_us_per_launch(launch, "k1_kernel",
-                                              K1_LAUNCHES),
-            "plain_ms": time_ms(lambda: tex.label_and_columns_plain(*args)),
-            "max_abs_err": float((got[1] - want[1]).abs().max())}
+        args = k1_args(img.xyz, img.count, cfg)
+        run = k1_runs[scene] = check_and_time(k1.label_and_columns_cuda,
+                                              args, K1_LAUNCHES)
+        run["plain_ms"] = time_ms(lambda: tex.label_and_columns_plain(*args))
         run["share_of_bound"] = bound / run["device_us"]
         emit("k1", scene=scene, shape=[R, P], labels_equal=True,
              curvature_equal=True, col_equal=True,
              launches_timed=K1_LAUNCHES, bound_us=bound, bound_by=bound_by,
-             bytes=nbytes, flops=flops,
-             edge=int((got[0] == tex.EDGE).sum()),
-             surface=int((got[0] == tex.SURFACE).sum()), **run)
+             bytes=nbytes, flops=flops, **run)
 
     bench = k1_runs["bench"]
     print(json.dumps({"kernels": [{
@@ -374,7 +347,9 @@ def main() -> int:
         "bound_ms": bound / 1e3, "bound_by": bound_by,
         # No single PyTorch call computes labels + NMS + columns.
         "library_ms": None,
-        "device_us": bench["device_us"], "host_us": bench["host_us"],
+        "device_us": bench["device_us"],
+        "device_launches_seen": bench["device_launches_seen"],
+        "host_us": bench["host_us"],
         "bound_us": bound, "share_of_bound": bench["share_of_bound"],
         "shape": [R, P], "per_scan": k1_runs}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,11 +66,10 @@
 // - Scans (edge rank, run id) as ballots + popc per word, one warp scan
 //   over the CTA's word counts, and the partner's total as the carry.
 //
-// The design was measured against one CTA per ring (-DK1_CTAS_PER_RING=1:
-// the whole ring in one CTA of up to 1024 threads, block barriers only,
-// at most 3072 points per ring) and with 1 and 3 lanes per thread;
-// PERF.md has the numbers. The production build does not define the
-// macro.
+// The design was measured against one CTA per ring (the whole ring in
+// one CTA of up to 1024 threads, block barriers only), which was 4%
+// slower at 64 x 2304, and with 1 and 3 lanes per thread, both slower;
+// PERF.md has the numbers.
 //
 // Exactness: the float expressions that decide labels use explicit
 // round-to-nearest intrinsics (no FMA contraction; built with
@@ -87,23 +86,17 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#ifndef K1_CTAS_PER_RING
-#define K1_CTAS_PER_RING 2
-#endif
-
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCtas = K1_CTAS_PER_RING;  // 1 or 2
-constexpr int kSlots = 3;                // most own lanes per thread
-constexpr int kLanesPerThread = 2;       // 1 and 3 measured slower
-constexpr int kMaxThreads = 1024;        // so H <= 3072
-constexpr int kHalo = 64;                // staged lanes on each side
-constexpr int kMaxPadding = 16;          // 2p window bits in 32 bits
+constexpr int kSlots = 3;           // most own lanes per thread
+constexpr int kLanesPerThread = 2;  // 1 and 3 measured slower
+constexpr int kMaxThreads = 1024;   // so H <= 3072
+constexpr int kHalo = 64;           // staged lanes on each side
+constexpr int kMaxPadding = 16;     // 2p window bits in 32 bits
 constexpr int kMaxBlocks = 127;
 constexpr int kMaxWords = kSlots * kMaxThreads / 32;
-static_assert(kCtas == 1 || kCtas == 2, "K1_CTAS_PER_RING is 1 or 2");
 
 enum : int {
   kDefault = 0,
@@ -225,9 +218,10 @@ struct Layout {
   }
 };
 
-// Lanes per CTA for a ring of P points, and threads per CTA.
+// Lanes per CTA (half the ring, rounded up to 32) for a ring of P
+// points, and threads per CTA.
 __host__ __device__ inline int lanes_per_cta(int P) {
-  return ((P + kCtas - 1) / kCtas + 31) / 32 * 32;
+  return ((P + 1) / 2 + 31) / 32 * 32;
 }
 __host__ __device__ inline int threads_per_cta(int H) {
   const int want = (H + kLanesPerThread - 1) / kLanesPerThread;
@@ -291,7 +285,7 @@ __device__ __forceinline__ int warp_scan(int v) {
   return v;
 }
 
-// The same address in the partner CTA's shared memory (kCtas == 2).
+// The same address in the partner CTA's shared memory.
 template <typename T>
 __device__ __forceinline__ T* partner_of(T* p) {
   return cg::this_cluster().map_shared_rank(
@@ -308,39 +302,36 @@ struct Pair {
 };
 
 // Barrier between the ring's CTAs that also hands over what one CTA's
-// threads read of the other's work. One CTA per ring: a block barrier.
-// Two: after a block barrier, thread 0 makes the stores `push` into the
-// partner's shared memory, arrives on the partner's mbarrier (release,
-// cluster scope) and waits for the partner's arrival on its own
-// (acquire); a second block barrier passes that on to every thread.
-// barrier.cluster took ~630 ns here (PERF.md).
+// threads read of the other's work: after a block barrier, thread 0
+// makes the stores `push` into the partner's shared memory, arrives on
+// the partner's mbarrier (release, cluster scope) and waits for the
+// partner's arrival on its own (acquire); a second block barrier passes
+// that on to every thread. barrier.cluster took ~630 ns here (PERF.md).
 template <typename Push>
 __device__ __forceinline__ void pair_sync(Pair& pr, Push push) {
   __syncthreads();
-  if constexpr (kCtas == 2) {
-    if (threadIdx.x == 0) {
-      const uint32_t off = 8u * (pr.n & 1u);
-      const uint32_t parity = (pr.n >> 1) & 1u;
-      push();
+  if (threadIdx.x == 0) {
+    const uint32_t off = 8u * (pr.n & 1u);
+    const uint32_t parity = (pr.n >> 1) & 1u;
+    push();
+    asm volatile(
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+        ::"r"(pr.remote_bar + off)
+        : "memory");
+    uint32_t done = 0;
+    while (!done) {
       asm volatile(
-          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
-          ::"r"(pr.remote_bar + off)
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 "
+          "p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}\n"
+          : "=r"(done)
+          : "r"(pr.bar + off), "r"(parity)
           : "memory");
-      uint32_t done = 0;
-      while (!done) {
-        asm volatile(
-            "{\n\t.reg .pred p;\n\t"
-            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 "
-            "p, [%1], %2;\n\t"
-            "selp.u32 %0, 1, 0, p;\n\t}\n"
-            : "=r"(done)
-            : "r"(pr.bar + off), "r"(parity)
-            : "memory");
-      }
     }
-    ++pr.n;
-    __syncthreads();
   }
+  ++pr.n;
+  __syncthreads();
 }
 
 // A CTA's place in its ring, as the NMS rounds need it.
@@ -348,8 +339,8 @@ struct Ring {
   int H, p, T, NW;
   int edge_word;      // own word that the partner needs
   int push_word;      // where it goes in the partner's planes
-  uint32_t* p_alive;  // the partner's alive words (kCtas == 2)
-  int* p_flags;       // the partner's round flags (kCtas == 2)
+  uint32_t* p_alive;  // the partner's alive words
+  int* p_flags;       // the partner's round flags
   Pair pair;
 };
 
@@ -440,11 +431,7 @@ __device__ int nms_pass(Ring& rg, uint32_t* alive_w, int* flags,
   return g;
 }
 
-__global__ void
-#if K1_CTAS_PER_RING == 2
-__cluster_dims__(2, 1, 1)
-#endif
-__launch_bounds__(kMaxThreads)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kMaxThreads)
 k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
           const float* __restrict__ zs, const int* __restrict__ count,
           int* __restrict__ labels_out, float* __restrict__ curv_out,
@@ -475,8 +462,8 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int T = blockDim.x;
-  const int ring = blockIdx.x / kCtas;
-  const int rank = blockIdx.x % kCtas;
+  const int ring = blockIdx.x >> 1;
+  const int rank = blockIdx.x & 1;
   const int p = prm.padding;
   const int B = prm.n_blocks;
   const int lo = rank * H;
@@ -532,33 +519,27 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   rgn.NW = NW;
   rgn.edge_word = rank == 0 ? 1 + H / 32 : 2;
   rgn.push_word = rank == 0 ? 1 : 2 + H / 32;
-  rgn.p_alive = nullptr;
-  rgn.p_flags = nullptr;
+  rgn.p_alive = partner_of(alive_w);
+  rgn.p_flags = partner_of(flags);
   rgn.pair = Pair{0u, 0u, 0u};
-  if constexpr (kCtas == 2) {
-    rgn.p_alive = partner_of(alive_w);
-    rgn.p_flags = partner_of(flags);
-    rgn.pair.bar = static_cast<uint32_t>(
-        __cvta_generic_to_shared(smem + L.mbar));
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(rgn.pair.remote_bar)
-                 : "r"(rgn.pair.bar), "r"(rank ^ 1));
-    if (tid == 0) {
-      asm volatile(
-          "mbarrier.init.shared::cta.b64 [%0], %2;\n"
-          "mbarrier.init.shared::cta.b64 [%1], %2;\n"
-          "fence.mbarrier_init.release.cluster;\n" ::"r"(rgn.pair.bar),
-          "r"(rgn.pair.bar + 8u), "r"(1)
-          : "memory");
-    }
+  rgn.pair.bar =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem + L.mbar));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rgn.pair.remote_bar)
+               : "r"(rgn.pair.bar), "r"(rank ^ 1));
+  if (tid == 0) {
+    asm volatile(
+        "mbarrier.init.shared::cta.b64 [%0], %2;\n"
+        "mbarrier.init.shared::cta.b64 [%1], %2;\n"
+        "fence.mbarrier_init.release.cluster;\n" ::"r"(rgn.pair.bar),
+        "r"(rgn.pair.bar + 8u), "r"(1)
+        : "memory");
   }
   __syncthreads();
   // Both CTAs have started, zeroed their words and set up their mbarrier
   // before either stores into the other's shared memory (from step 4 on):
   // the one barrier.cluster of the kernel, its wait half before step 4.
-  if constexpr (kCtas == 2) {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   K1_STAMP(1);
 
   // 2. Range, neighbour flag, block id of every staged lane; voxel keys
@@ -681,9 +662,7 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   bool own[kSlots], occl[kSlots], cand_s[kSlots];
   bool alive[kSlots], sel_e[kSlots], win_e[kSlots], sel_s[kSlots],
       win_s[kSlots];
-  if constexpr (kCtas == 2) {
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     const int e = kHalo + k * T + tid;
@@ -704,7 +683,7 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
       if (lane == 0) alive_w[e >> 5] = b;
     }
   }
-  if (kCtas == 2 && tid >= T - 32 && lane < p) {
+  if (tid >= T - 32 && lane < p) {
     const int e = rank == 0 ? kHalo + H + lane : kHalo - p + lane;
     if (rank == 1 || H + lane < P) {
       uint32_t w;
@@ -839,7 +818,7 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   });
   const int edge_carry = rank == 1 ? ptotals[0] : 0;
   const int run_carry = rank == 1 ? ptotals[1] : 0;
-  const int total_runs = totals[1] + (kCtas == 2 ? ptotals[1] : 0);
+  const int total_runs = totals[1] + ptotals[1];
   K1_STAMP(6);
 
   // 7. Columns, staged with the labels for the stores.
@@ -897,7 +876,7 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 extern "C" {
 
 int k1_max_padding() { return kMaxPadding; }
-int k1_max_points() { return kCtas * kSlots * kMaxThreads; }
+int k1_max_points() { return 2 * kSlots * kMaxThreads; }
 int k1_max_blocks() { return kMaxBlocks; }
 size_t k1_params_bytes() { return sizeof(Params); }
 size_t k1_smem_bytes(int P) { return Layout(lanes_per_cta(P)).bytes; }
@@ -924,7 +903,7 @@ const char* k1_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches K1 over R rings on `stream`, K1_CTAS_PER_RING CTAs per ring.
+// Launches K1 over R rings on `stream`, a cluster of two CTAs per ring.
 // labels, curv and col are the three [R, P] planes of `out` (int32,
 // float32, int32); `params` points to a Params on the host. Returns
 // cudaGetLastError() after the launch (0 on success). Does not
@@ -942,7 +921,7 @@ int k1_label_and_columns(const float* x, const float* y, const float* z,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
         reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(out)) &
        15u) == 0;
-  k1_kernel<<<kCtas * R, threads_per_cta(H), Layout(H).bytes,
+  k1_kernel<<<2 * R, threads_per_cta(H), Layout(H).bytes,
               static_cast<cudaStream_t>(stream)>>>(
       x, y, z, count, labels, curv, col, P, H, aligned ? 1 : 0,
       *static_cast<const Params*>(params));

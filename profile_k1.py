@@ -3,27 +3,19 @@
     python3 profile_k1.py                          # this tree's K1
     python3 profile_k1.py --baseline DIR           # and DIR's K1, in turns
     python3 profile_k1.py --phases                 # and the per-phase split
-    python3 profile_k1.py --variant ctas1=-DK1_CTAS_PER_RING=1
-                                                   # and a build of this
-                                                   # tree with that macro
 
 ``DIR`` is a checkout of another commit (for example ``git archive`` of
 the parent unpacked under ``build/``); its wrapper
 ``lidar_feature_extraction_tpu_torch/ops/extraction_cuda.py`` is loaded
 by path and builds its own kernel source into ``DIR/build/kernels``.
 
-For each implementation (the baseline, this tree, each variant) and each
-scan (chip_smoke's bench scan, seed 0, and its street scan, seed 1), in
-turns (all of them in order, then in reverse: baseline, this tree, this
-tree, baseline) for ``--repeats`` rounds:
-
-- ``device_us``: the kernel's device time per launch, from
-  ``torch.profiler`` over ``--launches`` launches after warm-up;
-- ``host_us``: the wrapper's host time per call, host clock around
-  ``--launches`` calls with no synchronisation inside.
-
-Before timing, every implementation's labels, curvature and columns must
-be bit-equal to the plain PyTorch version on both scans.
+For each implementation (the baseline and this tree) and each scan
+(chip_smoke's bench scan and its street scan), in turns (baseline, this
+tree, this tree, baseline) for ``--repeats`` rounds, ``k1_check.py``'s
+``check_and_time``: labels, curvature and columns bit-equal to the plain
+PyTorch version, then ``device_us`` (the kernel's device time per
+launch, from ``torch.profiler`` over ``--launches`` launches after
+warm-up) and ``host_us`` (the wrapper's host time per call).
 
 With ``--phases`` each implementation is also built with
 ``-DK1_PHASE_TIMING`` (a build the port never uses), whose kernel stamps
@@ -54,27 +46,14 @@ STAMP_BLOCKS, STAMPS, STAMP_ROUNDS = 256, 16, 32
 P_RINGS = 64  # rings of kitti_hdl64(), the shape profiled here
 
 
-def load_impl(root: Path, tag: str, defines=()):
-    """The K1 wrapper module of the checkout at ``root``, loaded by path,
-    building its kernel with ``defines`` added to its nvcc flags."""
+def load_impl(root: Path, tag: str):
+    """The K1 wrapper module of the checkout at ``root``, loaded by path."""
     path = root / "lidar_feature_extraction_tpu_torch" / "ops" / \
         "extraction_cuda.py"
     spec = importlib.util.spec_from_file_location(f"k1_impl_{tag}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.NVCC_FLAGS = tuple(mod.NVCC_FLAGS) + tuple(defines)
     return mod
-
-
-def scans(R: int, P: int):
-    """chip_smoke's bench scan (seed 0) and street scan (seed 1)."""
-    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
-        bench_scan, street_scan, street_world)
-
-    rng = np.random.default_rng(1)
-    world = street_world(rng)
-    return {"bench": bench_scan(np.random.default_rng(0), R, P),
-            "street": street_scan(world, rng, R, P, (0.0, 0.0), 0.0)}
 
 
 def phase_split(mod, args, launches: int):
@@ -170,9 +149,6 @@ def phase_split(mod, args, launches: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="TAG=FLAG[,FLAG]",
-                    help="also time this tree's kernel built with FLAGs")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--launches", type=int, default=200)
     ap.add_argument("--phases", action="store_true")
@@ -187,10 +163,8 @@ def main() -> int:
         print("profile_k1: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
+    from k1_check import check_and_time, k1_inputs
     from lidar_feature_extraction_tpu_torch.config import kitti_hdl64
-    from lidar_feature_extraction_tpu_torch.ops import extraction as tex
-    from lidar_feature_extraction_tpu_torch.utils.kernel_timing import (
-        device_us_per_launch, host_us_per_call)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -200,53 +174,29 @@ def main() -> int:
 
     cfg = kitti_hdl64()
     ex = cfg.extraction
-    R, P = ex.n_rings, ex.max_points_per_ring
-    leaf = cfg.registration.surface_downsample_leaf
     impls = {}
     if opts.baseline is not None:
         impls["baseline"] = load_impl(opts.baseline.resolve(), "baseline")
     impls["this"] = load_impl(HERE, "this")
-    for spec in opts.variant:
-        tag, flags = spec.split("=", 1)
-        impls[tag] = load_impl(HERE, tag, flags.split(","))
     order = list(impls) + list(impls)[::-1] if len(impls) > 1 else ["this"]
-
-    inputs = {}
-    for name, xyz in scans(R, P).items():
-        t = torch.as_tensor(xyz, device="cuda")
-        planes = [t[..., i].contiguous() for i in range(3)]
-        count = torch.full((R,), P, dtype=torch.int32, device="cuda")
-        inputs[name] = (*planes, count, ex, leaf, ex.edges_per_ring,
-                        ex.surface_runs_per_ring)
+    inputs = k1_inputs(cfg, "cuda")
 
     report = {"nvidia_smi": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "shape": [R, P],
+              "cuda": torch.version.cuda,
+              "shape": [ex.n_rings, ex.max_points_per_ring],
               "device": torch.cuda.get_device_name(0), "builds": {},
-              "equal": {}, "runs": [], "phases": {}}
+              "runs": [], "phases": {}}
     for tag, mod in impls.items():
         so = mod.build()
         log = so.with_suffix(".log")
         report["builds"][tag] = log.read_text() if log.exists() else ""
-        for scene, args in inputs.items():
-            got = mod.label_and_columns_cuda(*args)
-            want = tex.label_and_columns_plain(*args)
-            torch.cuda.synchronize()
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
-            report["equal"][f"{tag}/{scene}"] = same
-            if not same:
-                print(json.dumps(report["equal"]), flush=True)
-                raise SystemExit(f"profile_k1: {tag} differs from plain "
-                                 f"on {scene}")
 
     for rep in range(opts.repeats):
         for tag in order:
-            mod = impls[tag]
             for scene, args in inputs.items():
-                call = lambda: mod.label_and_columns_cuda(*args)  # noqa: E731
                 row = {"repeat": rep, "impl": tag, "scene": scene,
-                       "host_us": host_us_per_call(call, opts.launches),
-                       "device_us": device_us_per_launch(
-                           call, "k1_kernel", opts.launches)}
+                       **check_and_time(impls[tag].label_and_columns_cuda,
+                                        args, opts.launches)}
                 report["runs"].append(row)
                 print(json.dumps(row), flush=True)
 
