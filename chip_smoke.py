@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's scan-to-map localization step once on a CUDA
-card and check it.
+"""Drive the PyTorch port's scan-to-map localization step and its closed
+loop (registration + EKF) on a CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -26,11 +26,28 @@ Phases, each of which must pass (any failure exits non-zero):
    usually stops at its error- or scale-increase abort once near the
    optimum, and on the bench scene (a map of copies that disagree by up
    to 2 m) that optimum is not the identity;
-4. k1, after the main path so that its profiler sessions do not run
-   before the host-bound localize loop: K1 against its plain PyTorch
-   version on the card at 64 x 2304, on the bench scan and on the
-   street scan: labels, curvature and compaction columns bit-equal.
-   K1's device time per launch comes from
+4. drive: the closed loop of ``eval_ate.py`` on the card. The port's
+   worldsim makes the seed-0 world (50 poles, 35 m), its maps (30,000
+   ground points) and 20 ray-cast scans of 64 rings x 2048 azimuths with
+   vehicle twists; ``build_geometry_maps`` and ``build_feature_maps``
+   build the maps on the card (each build's wall time is printed); then
+   ``FusedLocalizationPipeline`` replays the drive with ``kitti_hdl64()``
+   (production) and with its faithful variant (full extraction, point
+   maps, refits every iteration). K1's count is reset just before each
+   run and read just after, and must be at least the number of scans;
+   every pose must be finite; each run's ATE must be at most 1.25 x its
+   ``ATE_EVAL.json`` figure + 0.005 m, and production / faithful at most
+   1.2. Per run: ATE, xy ATE, mean step drift, ms/scan (host clock
+   ending in ``synchronize()``: mean, median, first scan), GN iterations
+   and status counts, and the wall time of the last scan's
+   ``localize_scan`` alone, run again from the previous scan's fused
+   pose;
+5. k1, after the main paths (localize, drive): a ``torch.profiler``
+   session leaves the host's kernel launches slower for the rest of
+   the process, so no profiler runs before the host-bound loops. K1
+   against its plain PyTorch version on the card at 64 x 2304, on the
+   bench scan and on the street scan: labels, curvature and compaction
+   columns bit-equal. K1's device time per launch comes from
    ``torch.profiler`` over 200 launches after warm-up (no host work in
    it; the launches the profiler saw are printed beside it), its
    wrapper's host time per call from the host clock around 200 calls
@@ -39,7 +56,10 @@ Phases, each of which must pass (any failure exits non-zero):
    memory rate, operations over its float32 rate: the larger). The
    check and the timers are ``k1_check.py``'s, shared with
    ``profile_k1.py``. The plain version is timed with CUDA events around
-   the call (median of 20 after warm-up).
+   the call (median of 20 after warm-up). Last, the drive's two last
+   registrations once more under the profiler (``drive_profile``:
+   kernel launches in all and per GN iteration, device busy time,
+   profiled wall).
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -63,6 +83,14 @@ N_SCANS = 20
 K1_LAUNCHES = 200
 K1_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/extraction_k1.cu"
 K1_REPLACES = "lidar_feature_extraction_tpu/ops/extraction_pallas.py:93"
+# The drive's acceptance limits. ATE_EVAL.json's closed-loop ATE-RMSE of
+# the reference (JAX on the CPU, eval_ate.py), the factor and margin a
+# run on the card may reach, and docs/design.md §8's production/faithful
+# rule. A miss fails the run.
+DRIVE_SCANS = 20
+ATE_REFERENCE_M = {"production": 0.0329, "faithful": 0.0375}
+ATE_FACTOR, ATE_MARGIN_M = 1.25, 0.005
+RATIO_LIMIT = 1.2
 
 
 class SmokeFailure(RuntimeError):
@@ -189,6 +217,118 @@ def localize_chain(maps, image, cfg, noisy: bool, n: int):
     return runs
 
 
+def drive_inputs():
+    """eval_ate.py's drive (seed 0), made by the port's worldsim: world
+    map clouds, 20 scans, ground-truth positions and twists."""
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    rng = np.random.default_rng(0)
+    world = worldsim.make_world(rng, n_poles=50, extent=35.0)
+    edges, surfs = worldsim.world_maps(world, rng, n_ground=30000)
+    scans, gt = worldsim.make_scan_sequence(
+        world, rng, n_scans=DRIVE_SCANS, n_rings=64, n_az=2048,
+        elev_deg=(2.0, -24.8))
+    return edges, surfs, scans, gt, worldsim.synth_twists(len(scans),
+                                                          rng=rng)
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: kernel launches (the
+    runtime's launch calls), device busy time (the profiler's self device
+    time total) and the wall time of the profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from k1_check import _self_device_us
+
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    events = prof.key_averages()
+    return out, {"launches": sum(e.count for e in events
+                                 if e.key in launch_calls),
+                 "device_busy_ms": sum(_self_device_us(e)
+                                       for e in events) / 1e3,
+                 "profiled_wall_ms": 1e3 * wall}
+
+
+def drive_run(maps, cfg, scans, twists, gt, device, k1):
+    """The closed loop over the drive on ``device``, K1's count read over
+    exactly this run; then the last scan's localize_scan alone, again
+    from the previous scan's fused pose. Returns the run's metrics and
+    (maps, image, prior, cfg) of that last registration."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        FusedLocalizationPipeline, scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils.evaluation import (
+        ate_rmse, relative_translation_errors)
+
+    pipeline = FusedLocalizationPipeline(
+        maps, cfg, initial_pose=Pose.identity(device=device), device=device)
+    results, ms = [], []
+    torch.cuda.synchronize()
+    k1.label_and_columns_cuda.launches = 0
+    for i, (pts, ring) in enumerate(scans):
+        start = time.perf_counter()
+        results.append(pipeline.process_scan(pts, ring, stamp=0.1 * i,
+                                             twist=twists[i]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - start))
+    launches = k1.label_and_columns_cuda.launches
+
+    est = np.stack([r.measured_pose.t.cpu().numpy() for r in results])
+    finite = all(bool(torch.isfinite(p).all()) for r in results
+                 for p in (*r.measured_pose, *r.fused_pose))
+    status = [r.gn_status for r in results]
+    iters = [r.gn_iterations for r in results]
+
+    image = scan_range_image(*scans[-1], cfg, device)
+    prior = Pose(*(t.to(device) for t in results[-2].fused_pose))
+    start = time.perf_counter()
+    res, _ = localize_scan(maps, image, prior, cfg)
+    torch.cuda.synchronize()
+    last_ms = 1e3 * (time.perf_counter() - start)
+    return {
+        "scans": len(scans), "k1_launches": launches, "finite": finite,
+        "ate_rmse_m": ate_rmse(est, gt, align=False),
+        "ate_xy_rmse_m": ate_rmse(np.pad(est[:, :2], ((0, 0), (0, 1))),
+                                  np.pad(gt[:, :2], ((0, 0), (0, 1))),
+                                  align=False),
+        "mean_step_drift_m": float(np.mean(relative_translation_errors(
+            est, gt))),
+        "ms_per_scan_mean": statistics.fmean(ms),
+        "ms_per_scan_median": statistics.median(ms),
+        "ms_first_scan": ms[0], "ms_per_scan": ms,
+        "gn_iterations_mean": statistics.fmean(iters), "gn_iterations": iters,
+        "status_counts": {str(s): status.count(s) for s in sorted(
+            set(status))},
+        "last_scan_localize_ms": last_ms,
+        "last_scan_gn_iterations": int(res.iterations),
+    }, (maps, image, prior, cfg)
+
+
+def drive_profile(maps, image, prior, cfg) -> dict:
+    """One localize_scan under the profiler: kernel launches (in all and
+    per GN iteration), device busy time and the profiled wall time."""
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+
+    (res, _), prof = profile_call(
+        lambda: localize_scan(maps, image, prior, cfg))
+    prof["gn_iterations"] = int(res.iterations)
+    prof["launches_per_gn_iteration"] = prof["launches"] / max(
+        int(res.iterations), 1)
+    return prof
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -273,6 +413,7 @@ def main() -> int:
                                                   N_SCANS)
     torch.cuda.synchronize()
     launches = k1.label_and_columns_cuda.launches
+    launches_by_phase = {"localize": launches}
     n_scans = sum(len(c) for c in chains.values())
     check(launches >= n_scans,
           f"localize: K1 launched {launches} times for {n_scans} scans")
@@ -321,8 +462,58 @@ def main() -> int:
              plain_path_agrees=True)
     torch.cuda.synchronize()
 
-    # 4. k1 against its plain version at full width, on both scans, and
-    # timed.
+    # 4. drive: the closed loop of eval_ate.py, both configurations.
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        build_feature_maps, build_geometry_maps)
+
+    faithful = dataclasses.replace(
+        cfg, compact_extraction=False,
+        registration=dataclasses.replace(cfg.registration,
+                                         refit_per_iteration=True))
+    start = time.perf_counter()
+    edges, surfs, scans, gt, twists = drive_inputs()
+    scene_s = time.perf_counter() - start
+    args = (torch.as_tensor(edges, dtype=torch.float32, device=dev),
+            torch.ones(len(edges), dtype=torch.bool, device=dev),
+            torch.as_tensor(surfs, dtype=torch.float32, device=dev),
+            torch.ones(len(surfs), dtype=torch.bool, device=dev))
+    maps, build_s = {}, {}
+    for name, build, c in (("production", build_geometry_maps, cfg),
+                           ("faithful", build_feature_maps, faithful)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        maps[name] = build(*args, c)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - start
+    emit("drive_maps", worldsim_s=scene_s, scans=len(scans),
+         points_per_scan=[len(p) for p, _ in scans],
+         map_edge_points=len(edges), map_surface_points=len(surfs),
+         build_geometry_maps_s=build_s["production"],
+         build_feature_maps_s=build_s["faithful"])
+    drive, last_scans = {}, {}
+    for name, c in (("production", cfg), ("faithful", faithful)):
+        run, last_scans[name] = drive_run(maps[name], c, scans, twists, gt,
+                                          dev, k1)
+        drive[name] = run
+        limit = ATE_FACTOR * ATE_REFERENCE_M[name] + ATE_MARGIN_M
+        emit("drive", config=name, ate_limit_m=limit,
+             ate_reference_m=ATE_REFERENCE_M[name], **run)
+        check(run["k1_launches"] >= run["scans"],
+              f"drive {name}: K1 launched {run['k1_launches']} times for "
+              f"{run['scans']} scans")
+        check(run["finite"], f"drive {name}: non-finite pose")
+        check(run["ate_rmse_m"] <= limit,
+              f"drive {name}: ATE {run['ate_rmse_m']} m above {limit} m")
+        launches += run["k1_launches"]
+        launches_by_phase[f"drive {name}"] = run["k1_launches"]
+    ratio = drive["production"]["ate_rmse_m"] / max(
+        drive["faithful"]["ate_rmse_m"], 1e-9)
+    emit("drive_ratio", production_over_faithful=ratio, limit=RATIO_LIMIT)
+    check(ratio <= RATIO_LIMIT,
+          f"drive: production / faithful ATE {ratio} above {RATIO_LIMIT}")
+
+    # 5. k1 against its plain version at full width, on both scans, and
+    # timed: the first profiler sessions of the process.
     nbytes, flops = k1_work(R, P, ex.padding)
     bound, bound_by = bound_us(nbytes, flops)
     k1_runs = {}
@@ -337,11 +528,15 @@ def main() -> int:
              launches_timed=K1_LAUNCHES, bound_us=bound, bound_by=bound_by,
              bytes=nbytes, flops=flops, **run)
 
+    # The drive's last scans once more, under the profiler.
+    for name, last in last_scans.items():
+        emit("drive_profile", config=name, **drive_profile(*last))
+
     bench = k1_runs["bench"]
     print(json.dumps({"kernels": [{
         "name": "k1_label_and_columns", "route": "cuda",
         "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches,
+        "launches": launches, "launches_by_phase": launches_by_phase,
         "max_abs_err": max(r["max_abs_err"] for r in k1_runs.values()),
         "ms": bench["device_us"] / 1e3, "plain_ms": bench["plain_ms"],
         "bound_ms": bound / 1e3, "bound_by": bound_by,

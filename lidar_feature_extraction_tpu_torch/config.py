@@ -77,8 +77,9 @@ class ExtractionConfig:
     compact_surface_centroid: bool = False
     # Run labeling + compaction columns as one fused kernel: in the
     # reference the Pallas kernel on TPU, in this port the hand-written
-    # CUDA kernel K1 (ops/extraction_cuda.py) for CUDA tensors. CPU
-    # tensors take the plain PyTorch version. Ignored in centroid mode.
+    # CUDA kernel K1 (ops/extraction_cuda.py) for CUDA tensors, in both
+    # surface modes and for the full extraction's labels. CPU tensors
+    # take the plain PyTorch version.
     pallas_labeling: bool = True
 
     @property

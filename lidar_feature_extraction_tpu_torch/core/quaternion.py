@@ -1,7 +1,7 @@
 """Quaternion calculus over batched torch tensors.
 
-Port of ``lidar_feature_extraction_tpu/core/quaternion.py``, only the
-functions the scan-to-map localization step uses. Conventions are the
+Port of ``lidar_feature_extraction_tpu/core/quaternion.py``, the
+functions the localization step and the closed loop use. Conventions are the
 reference's: quaternions are ``[..., 4]`` in **wxyz** order, rotations
 act as ``R(q) p``, and ``drpdq`` is Sola eq. 174. Every function takes
 arbitrary leading batch dimensions, broadcast between its arguments.
@@ -49,6 +49,11 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
 
@@ -81,6 +86,33 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> quaternion [..., 4] wxyz: all four
+    Shepperd candidates, the one with the largest pivot selected, then
+    normalized with the sign canonicalized to w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                      m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+                         dim=-1)
+    # argmax picks the first of equal pivots, as jnp.argmax does.
+    best = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)           # [..., 4, 4]
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = quat_normalize(torch.gather(cands, -2, idx)[..., 0, :])
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
 def left_multiplication_matrix(q: torch.Tensor) -> torch.Tensor:
     """4x4 matrix L(q) with ``L(q) vec(r) = vec(q*r)``."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
@@ -90,6 +122,26 @@ def left_multiplication_matrix(q: torch.Tensor) -> torch.Tensor:
         torch.stack([y, z, w, -x], dim=-1),
         torch.stack([z, -y, x, w], dim=-1),
     ], dim=-2)
+
+
+def rpy_to_quat(roll, pitch, yaw) -> torch.Tensor:
+    """ZYX-composed roll/pitch/yaw tensors -> quaternion (qz * qy * qx)."""
+    hr, hp, hy = roll * 0.5, pitch * 0.5, yaw * 0.5
+    cr, sr = torch.cos(hr), torch.sin(hr)
+    cp, sp = torch.cos(hp), torch.sin(hp)
+    cy, sy = torch.cos(hy), torch.sin(hy)
+    return torch.stack([
+        cy * cp * cr + sy * sp * sr,
+        cy * cp * sr - sy * sp * cr,
+        cy * sp * cr + sy * cp * sr,
+        sy * cp * cr - cy * sp * sr,
+    ], dim=-1)
+
+
+def quat_yaw(q: torch.Tensor) -> torch.Tensor:
+    """Yaw (rotation about +z) of a quaternion, batched."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
 
 
 def exp_so3(theta: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -103,6 +155,18 @@ def exp_so3(theta: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     w = torch.where(small[..., 0], torch.ones_like(k[..., 0]),
                     torch.cos(half[..., 0]))
     return torch.cat([w[..., None], theta * sinc], dim=-1)
+
+
+def log_so3(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Unit quaternion -> angle-axis vector (logarithmic map), taking
+    the w >= 0 branch."""
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    vn = _norm(q[..., 1:])
+    angle = 2.0 * torch.atan2(vn, w)
+    scale = torch.where(vn < eps, torch.full_like(vn, 2.0),
+                        angle / torch.clamp_min(vn, eps))
+    return q[..., 1:] * scale[..., None]
 
 
 def drpdq(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -268,8 +268,25 @@ def compact_by_mask(xyz: torch.Tensor, mask: torch.Tensor,
 def extract_features(image: RangeImage,
                      cfg: ExtractionConfig) -> ExtractionResult:
     """Full feature-extraction step for one organized scan (the map
-    build's extraction)."""
-    labels, curv = label_range_image(image, cfg)
+    build's and the faithful path's extraction).
+
+    With ``cfg.pallas_labeling`` the labels and curvature of a CUDA
+    image come from kernel K1 (its compaction columns are not used
+    here); CPU images, and ``pallas_labeling=False``, take
+    ``label_range_image``. Both give the same labels and curvature,
+    bit for bit, where the image's mask is ``lane < count`` (K1's mask),
+    as in every image ``build_range_image`` makes."""
+    if cfg.pallas_labeling and image.xyz.device.type == "cuda":
+        from lidar_feature_extraction_tpu_torch.ops.extraction_cuda import (
+            label_and_columns_cuda)
+
+        xyz = image.xyz
+        labels, curv, _ = label_and_columns_cuda(
+            xyz[..., 0].contiguous(), xyz[..., 1].contiguous(),
+            xyz[..., 2].contiguous(), image.count, cfg, 1.0,
+            cfg.edges_per_ring, cfg.surface_runs_per_ring)
+    else:
+        labels, curv = label_range_image(image, cfg)
     edge_xyz, edge_valid = compact_by_mask(
         image.xyz, (labels == EDGE) & image.mask, cfg.max_edges)
     surf_xyz, surf_valid = compact_by_mask(
@@ -337,12 +354,38 @@ def label_and_columns_plain(x, y, z, count, cfg: ExtractionConfig,
     return labels, curv, col
 
 
+def _segmented_hold(flag: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """Per lane of [R, P]: ``value`` [R, P, F] at the most recent lane at
+    or before it where ``flag`` is set (lane 0's where there is none), as
+    the reference's associative scan gives it; here a running max of the
+    flagged lane indices and a gather."""
+    lane = _lane(flag).to(torch.int64).expand(flag.shape)
+    src = torch.cummax(torch.where(flag, lane, 0), dim=-1).values
+    return torch.gather(value, 1, src[..., None].expand(value.shape))
+
+
+def _surface_run_sums(xyz: torch.Tensor, labels: torch.Tensor,
+                      mask: torch.Tensor, leaf: float) -> torch.Tensor:
+    """[R, P, 4]: at the end lane of each surface voxel run, the sum of
+    the run's points and their count (centroid mode), from per-ring
+    cumulative sums less their value before the run's start."""
+    surf = (labels == SURFACE) & mask
+    key = _voxel_run_key(xyz, leaf)
+    prv_surf = torch.roll(surf, 1, -1) & (_lane(labels) >= 1)
+    run_start = surf & (~prv_surf | (torch.roll(key, 1, -1) != key))
+    own = torch.cat([torch.where(surf[..., None], xyz, 0.0),
+                     surf.to(xyz.dtype)[..., None]], dim=-1)
+    csum = torch.cumsum(own, dim=1)
+    return csum - _segmented_hold(run_start, csum - own)
+
+
 class CompactFeatures(NamedTuple):
     """Feature outputs of the single-matmul compaction path.
 
     edge_xyz:     [R * edges_per_ring, 3]
     surface_xyz:  [R * surface_runs_per_ring, 3] one point per voxel run
-                  (the run's last measured point)
+                  (the run's last measured point, or with
+                  ``surface_centroid`` the run's centroid)
     """
 
     labels: torch.Tensor
@@ -360,16 +403,14 @@ def extract_features_compact(image: RangeImage, cfg: ExtractionConfig,
                              surface_centroid: bool = False
                              ) -> CompactFeatures:
     """Feature extraction compacted by ONE one-hot matmul (reference
-    ``extract_features_compact``, run-end mode): per ring, the first
-    ``edges_per_ring`` edges by lane order, and one point per surface
-    voxel run, runs picked stratified by azimuth rank.
+    ``extract_features_compact``): per ring, the first ``edges_per_ring``
+    edges by lane order, and one point per surface voxel run, runs
+    picked stratified by azimuth rank. A run is represented by its last
+    measured point, or with ``surface_centroid`` by its centroid.
 
     With ``cfg.pallas_labeling`` the labels and columns come from
     ``label_and_columns`` (kernel K1 on CUDA tensors, its plain version
     on CPU tensors); otherwise from the plain functions above."""
-    if surface_centroid:
-        raise NotImplementedError(
-            "surface_centroid=True is not ported; use the run-end mode")
     xyz = image.xyz
     R, P = image.mask.shape
     ce, cs = edges_per_ring, surface_runs_per_ring
@@ -388,9 +429,14 @@ def extract_features_compact(image: RangeImage, cfg: ExtractionConfig,
         key = _voxel_run_key(xyz, surface_leaf)
         col, _, _, _ = compact_columns(labels, image.mask, key, ce, cs)
 
-    # Run-end representative point [xyz, 1] for edges and surfaces alike.
+    # Run-end representative point [xyz, 1] for edges and surfaces alike,
+    # or the run sums [sum xyz, count] at the surface run ends.
     feat = torch.cat([xyz, torch.ones((R, P, 1), dtype=dtype,
                                       device=xyz.device)], dim=-1)
+    if surface_centroid:
+        edge = (labels == EDGE) & image.mask
+        feat = torch.where(edge[..., None], feat, _surface_run_sums(
+            xyz, labels, image.mask, surface_leaf))
     onehot = (col[..., None] == torch.arange(
         ce + cs, device=xyz.device)[None, None, :]).to(dtype)
     out = torch.einsum("rpc,rpf->rcf", onehot, feat)    # [R, ce+cs, 4]

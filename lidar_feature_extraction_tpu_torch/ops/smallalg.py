@@ -1,15 +1,42 @@
 """Small-matrix linear algebra as straight-line tensor code.
 
-Port of ``lidar_feature_extraction_tpu/ops/smallalg.py:57-162``: the
-unrolled Cholesky solve of the 6x6 GN system, the degeneracy test on the
-7x7 unweighted Hessian, and fixed-sweep Jacobi eigenvalues. Unrolled as
-in the reference (no ``torch.linalg``), so the results follow its
-arithmetic and nothing is read back to the host.
+Port of ``lidar_feature_extraction_tpu/ops/smallalg.py``: the batched
+closed-form symmetric 3x3 solve of the plane fits, the unrolled Cholesky
+solve of the 6x6 GN system, the degeneracy test on the 7x7 unweighted
+Hessian, and fixed-sweep Jacobi eigenvalues. Unrolled as in the
+reference (no ``torch.linalg``), so the results follow its arithmetic
+and nothing is read back to the host.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def solve3x3_sym(a: torch.Tensor, b: torch.Tensor,
+                 eps: float = 1e-30) -> torch.Tensor:
+    """Solve ``a x = b`` for symmetric ``a`` [..., 3, 3], b [..., 3] by
+    the adjugate (Cramer) form. A singular system gives large-magnitude
+    garbage that the caller gates."""
+    a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
+    a11, a12, a22 = a[..., 1, 1], a[..., 1, 2], a[..., 2, 2]
+
+    c00 = a11 * a22 - a12 * a12
+    c01 = a02 * a12 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c11 = a00 * a22 - a02 * a02
+    c12 = a01 * a02 - a00 * a12
+    c22 = a00 * a11 - a01 * a01
+
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    tiny = torch.where(det < 0, -eps, eps).to(det.dtype)
+    inv_det = 1.0 / torch.where(torch.abs(det) < eps, tiny, det)
+
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    x0 = (c00 * b0 + c01 * b1 + c02 * b2) * inv_det
+    x1 = (c01 * b0 + c11 * b1 + c12 * b2) * inv_det
+    x2 = (c02 * b0 + c12 * b1 + c22 * b2) * inv_det
+    return torch.stack([x0, x1, x2], dim=-1)
 
 
 def cholesky_solve(a: torch.Tensor, b: torch.Tensor,

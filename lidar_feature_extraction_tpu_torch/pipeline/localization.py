@@ -1,11 +1,21 @@
-"""Scan-to-map localization: extraction + Gauss-Newton registration
-against precomputed-geometry maps.
+"""Scan-to-map localization: extraction + Gauss-Newton registration.
 
-Port of the compact + ``GeometryMaps`` branch of
-``lidar_feature_extraction_tpu/pipeline/localization.py`` (``GeometryMaps``,
-``build_geometry_maps``, ``register_scan_geometry`` and ``localize_scan``,
-lines 50-281). The other branches (the kNN ``FeatureMaps`` path, the
-surface voxel downsample, ``HostLocalizer``) are not ported and raise.
+Port of ``lidar_feature_extraction_tpu/pipeline/localization.py:45-439``:
+
+- ``GeometryMaps`` / ``build_geometry_maps`` / ``register_scan_geometry``:
+  precomputed per-voxel line and plane fits, looked up every GN
+  iteration (the production path);
+- ``FeatureMaps`` / ``build_feature_maps`` / ``register_scan``: map
+  points in dense voxel grids and the k-nearest-neighbour fits of the
+  reference (the faithful path), over ``n_search_rounds`` rounds that
+  each gather the 27-voxel candidate sets once. The reference's
+  ``lax.cond`` between rounds is one host read of the "run again?" flag
+  per round;
+- ``localize_scan``: extraction + registration, for both map types;
+- ``HostLocalizer``: the same calls behind the reference's class
+  interface. The reference splits it into small jitted programs because
+  its TPU compiler is slow on the fused loop; here every loop is driven
+  from the host already, so there is one driver.
 """
 
 from __future__ import annotations
@@ -16,20 +26,33 @@ import numpy as np
 import torch
 
 from lidar_feature_extraction_tpu_torch.config import PipelineConfig
+from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.core.scan import RangeImage
 from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
 from lidar_feature_extraction_tpu_torch.ops import geometry_grid as gg
 from lidar_feature_extraction_tpu_torch.ops import voxel_grid as vg
+from lidar_feature_extraction_tpu_torch.ops.downsample import voxel_downsample
 from lidar_feature_extraction_tpu_torch.ops.extraction import (
-    extract_features_compact)
+    extract_features, extract_features_compact)
+from lidar_feature_extraction_tpu_torch.ops.residuals import (
+    edge_residuals_from_candidates, edge_rows_from_geometry,
+    fit_edge_geometry, fit_surface_geometry,
+    surface_residuals_from_candidates, surface_rows_from_geometry)
+
+
+class FeatureMaps(NamedTuple):
+    """Map points in dense voxel grids (the kNN path)."""
+
+    edge: vg.DenseVoxelGrid
+    surface: vg.DenseVoxelGrid
 
 
 class GeometryMaps(NamedTuple):
     """Precomputed-geometry feature maps: per-voxel line/plane fits,
     baked at build time. ``fused`` is the concatenated edge+surface
     record table (``gg.fuse_record_tables``) that registration gathers
-    from once per iteration."""
+    from once per iteration; None fuses it at registration."""
 
     edge: gg.GeometryGrid
     surface: gg.GeometryGrid
@@ -41,6 +64,25 @@ def _bounds(xyz: torch.Tensor, mask: torch.Tensor):
     if len(pts) == 0:
         return np.zeros(3, np.float32), np.ones(3, np.float32)
     return pts.min(axis=0), pts.max(axis=0)
+
+
+def build_feature_maps(edge_xyz, edge_mask, surface_xyz, surface_mask,
+                       cfg: PipelineConfig) -> FeatureMaps:
+    """Insert the feature map clouds ([N, 3] points + [N] masks) into
+    dense voxel grids. The grid bounds are computed on the host (one
+    readback per map build)."""
+    em = cfg.registration.edge_map
+    sm = cfg.registration.surface_map
+    e_origin, e_dims = vg.grid_for_bounds(*_bounds(edge_xyz, edge_mask),
+                                          em.voxel_size)
+    s_origin, s_dims = vg.grid_for_bounds(*_bounds(surface_xyz, surface_mask),
+                                          sm.voxel_size)
+    return FeatureMaps(
+        edge=vg.build_voxel_grid(edge_xyz, edge_mask, em.voxel_size,
+                                 e_origin, e_dims, em.points_per_voxel),
+        surface=vg.build_voxel_grid(surface_xyz, surface_mask,
+                                    sm.voxel_size, s_origin, s_dims,
+                                    sm.points_per_voxel))
 
 
 def build_geometry_maps(edge_xyz, edge_mask, surface_xyz, surface_mask,
@@ -62,52 +104,157 @@ def build_geometry_maps(edge_xyz, edge_mask, surface_xyz, surface_mask,
                         fused=gg.fuse_record_tables(edge, surface))
 
 
-def register_scan_geometry(maps: GeometryMaps, edge_pts, edge_valid,
-                           surf_pts, surf_valid, prior: Pose,
-                           cfg: PipelineConfig,
-                           pre_downsampled: bool = False) -> gn.GNResult:
-    """Gauss-Newton registration against precomputed-geometry maps, the
-    voxel lookup re-done every iteration. Only ``pre_downsampled=True``
-    (surfaces already voxel-thinned by ``extract_features_compact``) is
-    ported."""
-    if not pre_downsampled:
-        raise NotImplementedError(
-            "the surface voxel downsample is not ported; pass features "
-            "from extract_features_compact with pre_downsampled=True")
-    if maps.fused is None:
-        raise NotImplementedError("GeometryMaps without a fused table")
+def _gauss_newton(problem_fn, prior: Pose, cfg: PipelineConfig,
+                  max_iterations: int) -> gn.GNResult:
     reg = cfg.registration
-
-    def problem_fn(p: Pose) -> gn.Problem:
-        eb, sb = gg.fused_rows_from_grids(
-            maps.edge, maps.surface, maps.fused, edge_pts, edge_valid,
-            surf_pts, surf_valid, p, reg.min_fit_points)
-        return gn.make_problem([eb, sb])
-
     return gn.run_gauss_newton(
         problem_fn, prior,
-        max_iterations=reg.max_iterations,
+        max_iterations=max_iterations,
         convergence_tol=reg.convergence_tol,
         huber_k=reg.huber_k,
         degeneracy_threshold=reg.degeneracy_threshold)
 
 
-def localize_scan(maps: GeometryMaps, image: RangeImage, prior: Pose,
+def register_scan_geometry(maps: GeometryMaps, edge_pts, edge_valid,
+                           surf_pts, surf_valid, prior: Pose,
+                           cfg: PipelineConfig,
+                           pre_downsampled: bool = False) -> gn.GNResult:
+    """Gauss-Newton registration against precomputed-geometry maps, the
+    voxel lookup re-done every iteration. ``pre_downsampled`` skips the
+    surface voxel downsample when the extraction already voxel-thinned
+    the surfaces (``extract_features_compact``)."""
+    reg = cfg.registration
+    if pre_downsampled:
+        surf_ds, surf_ds_valid = surf_pts, surf_valid
+    else:
+        surf_ds, surf_ds_valid = voxel_downsample(
+            surf_pts, surf_valid, reg.surface_downsample_leaf,
+            reg.max_surface_points)
+    fused = (maps.fused if maps.fused is not None
+             else gg.fuse_record_tables(maps.edge, maps.surface))
+
+    def problem_fn(p: Pose) -> gn.Problem:
+        eb, sb = gg.fused_rows_from_grids(
+            maps.edge, maps.surface, fused, edge_pts, edge_valid,
+            surf_ds, surf_ds_valid, p, reg.min_fit_points)
+        return gn.make_problem([eb, sb])
+
+    return _gauss_newton(problem_fn, prior, cfg, reg.max_iterations)
+
+
+def register_scan(maps: FeatureMaps, edge_pts, edge_valid, surf_pts,
+                  surf_valid, prior: Pose, cfg: PipelineConfig) -> gn.GNResult:
+    """Gauss-Newton registration of extracted features against point
+    maps by kNN. The surface scan is voxel-downsampled once. Each of
+    ``n_search_rounds`` rounds gathers the candidate sets at its start
+    pose and runs up to ceil(max_iterations / rounds) iterations; with
+    ``refit_per_iteration`` every iteration re-selects the neighbours and
+    refits, otherwise the fits are made once per round."""
+    reg = cfg.registration
+    surf_ds, surf_ds_valid = voxel_downsample(
+        surf_pts, surf_valid, reg.surface_downsample_leaf,
+        reg.max_surface_points)
+
+    rounds = max(reg.n_search_rounds, 1)
+    iters = -(-reg.max_iterations // rounds)  # ceil split
+    # Candidates stay valid while the pose moved less than ~half the
+    # smaller map voxel since they were gathered.
+    refresh_threshold = 0.5 * min(reg.edge_map.voxel_size,
+                                  reg.surface_map.voxel_size)
+
+    def one_round(pose: Pose) -> gn.GNResult:
+        cand_e, ok_e = vg.neighborhood_candidates(maps.edge,
+                                                  pose.apply(edge_pts))
+        cand_s, ok_s = vg.neighborhood_candidates(maps.surface,
+                                                  pose.apply(surf_ds))
+        if reg.refit_per_iteration:
+            def problem_fn(p: Pose) -> gn.Problem:
+                eb = edge_residuals_from_candidates(
+                    cand_e, ok_e, edge_pts, edge_valid, p, reg.n_neighbors)
+                sb = surface_residuals_from_candidates(
+                    cand_s, ok_s, surf_ds, surf_ds_valid, p,
+                    reg.n_neighbors)
+                return gn.make_problem([eb, sb])
+        else:
+            # Neighbour selection and fits depend only on the candidate
+            # sets: made once per round, outside the GN loop.
+            eg = fit_edge_geometry(cand_e, ok_e, edge_pts, edge_valid,
+                                   pose, reg.n_neighbors)
+            sg = fit_surface_geometry(cand_s, ok_s, surf_ds,
+                                      surf_ds_valid, pose, reg.n_neighbors)
+
+            def problem_fn(p: Pose) -> gn.Problem:
+                return gn.make_problem([
+                    edge_rows_from_geometry(eg, edge_pts, p),
+                    surface_rows_from_geometry(sg, surf_ds, p)])
+
+        return _gauss_newton(problem_fn, pose, cfg, iters)
+
+    result = one_round(prior)
+    prev_pose = prior
+    for _ in range(rounds - 1):
+        # Run again when the round moved the pose out of its candidate
+        # neighbourhoods, or (fits frozen per round) ended at an error-
+        # or scale-increase abort, which may be an artifact of the
+        # frozen problem.
+        moved = quat._norm(result.pose.t - prev_pose.t) > refresh_threshold
+        aborted = ((result.status == gn.ERROR_INCREASED)
+                   | (result.status == gn.SCALE_INCREASED))
+        rerun = moved | (aborted & (not reg.refit_per_iteration))
+        prev_pose = result.pose
+        if bool(rerun):   # the one readback per round
+            result = one_round(result.pose)
+    return result
+
+
+def localize_scan(maps, image: RangeImage, prior: Pose,
                   cfg: PipelineConfig):
-    """Per-scan hot path: compact extraction + registration.
-    Returns (GNResult, CompactFeatures)."""
-    if not (cfg.compact_extraction and isinstance(maps, GeometryMaps)):
-        raise NotImplementedError(
-            "only the compact extraction + GeometryMaps branch is ported")
+    """Per-scan hot path: extraction + registration. With
+    ``cfg.compact_extraction`` and ``GeometryMaps``, the compact
+    extraction feeds ``register_scan_geometry`` pre-downsampled;
+    otherwise the full extraction feeds ``register_scan_geometry``
+    (``GeometryMaps``) or ``register_scan`` (``FeatureMaps``).
+    Returns (GNResult, features)."""
     ex = cfg.extraction
-    feats = extract_features_compact(
-        image, ex,
-        surface_leaf=cfg.registration.surface_downsample_leaf,
-        edges_per_ring=ex.edges_per_ring,
-        surface_runs_per_ring=ex.surface_runs_per_ring,
-        surface_centroid=ex.compact_surface_centroid)
-    result = register_scan_geometry(
-        maps, feats.edge_xyz, feats.edge_valid,
-        feats.surface_xyz, feats.surface_valid, prior, cfg,
-        pre_downsampled=True)
+    if cfg.compact_extraction and isinstance(maps, GeometryMaps):
+        feats = extract_features_compact(
+            image, ex,
+            surface_leaf=cfg.registration.surface_downsample_leaf,
+            edges_per_ring=ex.edges_per_ring,
+            surface_runs_per_ring=ex.surface_runs_per_ring,
+            surface_centroid=ex.compact_surface_centroid)
+        result = register_scan_geometry(
+            maps, feats.edge_xyz, feats.edge_valid,
+            feats.surface_xyz, feats.surface_valid, prior, cfg,
+            pre_downsampled=True)
+        return result, feats
+    feats = extract_features(image, ex)
+    register = (register_scan_geometry
+                if isinstance(maps, GeometryMaps) else register_scan)
+    result = register(maps, feats.edge_xyz, feats.edge_valid,
+                      feats.surface_xyz, feats.surface_valid, prior, cfg)
     return result, feats
+
+
+class HostLocalizer:
+    """Scan-to-map localizer over fixed maps: ``register`` for extracted
+    features, ``localize`` for a range image. The same math as
+    ``localize_scan``."""
+
+    def __init__(self, maps, cfg: PipelineConfig):
+        self.maps = maps
+        self.cfg = cfg
+        self._compact = (cfg.compact_extraction
+                         and isinstance(maps, GeometryMaps))
+
+    def register(self, edge_pts, edge_valid, surf_pts, surf_valid,
+                 prior: Pose) -> gn.GNResult:
+        if isinstance(self.maps, GeometryMaps):
+            return register_scan_geometry(
+                self.maps, edge_pts, edge_valid, surf_pts, surf_valid,
+                prior, self.cfg, pre_downsampled=self._compact)
+        return register_scan(self.maps, edge_pts, edge_valid, surf_pts,
+                             surf_valid, prior, self.cfg)
+
+    def localize(self, image: RangeImage, prior: Pose):
+        return localize_scan(self.maps, image, prior, self.cfg)

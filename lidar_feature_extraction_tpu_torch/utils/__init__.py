@@ -1,1 +1,2 @@
-"""Host-side helpers: synthetic scenes."""
+"""Host-side helpers: synthetic scenes, the drive simulator and
+trajectory evaluation."""

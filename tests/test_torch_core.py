@@ -6,7 +6,9 @@ same formulas, possibly another order of rounding); the range image is
 exact (a stable sort and a scatter move values without arithmetic).
 """
 
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,8 +30,14 @@ from lidar_feature_extraction_tpu_torch.core import (  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core.pose import Pose  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core.scan import (  # noqa: E402
     build_range_image as t_build_range_image)
+from lidar_feature_extraction_tpu_torch.fusion import ekf as tekf  # noqa: E402
 from lidar_feature_extraction_tpu_torch.interop import (  # noqa: E402
-    geometry_maps_from_numpy, pose_from_numpy, range_image_from_numpy)
+    feature_maps_from_numpy, geometry_maps_from_numpy, pose_from_numpy,
+    range_image_from_numpy)
+from lidar_feature_extraction_tpu_torch.pipeline.ekf_node import (  # noqa: E402
+    EkfNode)
+from lidar_feature_extraction_tpu_torch.pipeline.replay import (  # noqa: E402
+    FusedLocalizationPipeline)
 
 RTOL = 1e-6
 ATOL = 1e-6
@@ -57,6 +65,13 @@ _QUAT_CASES = {
     "exp_so3": lambda q, p: (np32(np.concatenate([0.3 * p[:-1],
                                                   np.zeros((1, 3))])),),
     "drpdq": lambda q, p: (q, p),
+    "quat_conjugate": lambda q, p: (q,),
+    "matrix_to_quat": lambda q, p: (np32(jq.quat_to_matrix(jnp.asarray(q))),),
+    "rpy_to_quat": lambda q, p: (p[:, 0].copy(), p[:, 1].copy(),
+                                 p[:, 2].copy()),
+    "quat_yaw": lambda q, p: (q,),
+    "log_so3": lambda q, p: (np32(np.concatenate([q[:-1], q[-1:] * [
+        [1.0, 1e-9, 0.0, 0.0]]])),),    # and one at the small-angle branch
 }
 
 
@@ -119,6 +134,7 @@ def test_build_range_image_is_exact():
 
 _Q, _T = np32([1.0, 0.0, 0.0, 0.0]), np32([0.3, -0.2, 0.05])
 _REC = np.zeros((5, 8), np.float32)
+_EKF = tcfg.EkfConfig(extend_state_step=2)
 _ENTRY_POINTS = {
     "quat_identity": lambda **kw: tq.quat_identity(**kw),
     "Pose.identity": lambda **kw: Pose.identity(**kw).q,
@@ -129,6 +145,16 @@ _ENTRY_POINTS = {
     "geometry_maps_from_numpy": lambda **kw: geometry_maps_from_numpy(
         _REC, np32(0.5), np.zeros(3, np.float32), (2, 2, 1), _REC,
         np32(0.5), np.zeros(3, np.float32), (2, 2, 1), **kw).edge.rec,
+    "feature_maps_from_numpy": lambda **kw: feature_maps_from_numpy(
+        np.zeros((5, 2, 3), np.float32), np.zeros(5, np.int32), np32(0.5),
+        np.zeros(3, np.float32), (2, 2, 1), np.zeros((5, 2, 3), np.float32),
+        np.zeros(5, np.int32), np32(0.5), np.zeros(3, np.float32),
+        (2, 2, 1), **kw).surface.points,
+    "init_ekf": lambda **kw: tekf.init_ekf(_EKF, **kw).td.p,
+    "Filter1D.create": lambda **kw: tekf.Filter1D.create(**kw).x,
+    "EkfNode": lambda **kw: EkfNode(_EKF, **kw).ekf.td.x,
+    "FusedLocalizationPipeline": lambda **kw: FusedLocalizationPipeline(
+        None, tcfg.PipelineConfig(ekf=_EKF), **kw).pose_r,
 }
 
 
@@ -145,3 +171,31 @@ def test_entry_point_defaults_to_the_card(no_cuda, name):
     with pytest.raises((AssertionError, RuntimeError)):
         _ENTRY_POINTS[name]()
     assert _ENTRY_POINTS[name](device="cpu").device.type == "cpu"
+
+
+_ROOT = Path(__file__).resolve().parents[1]
+_PORT_FILES = sorted(
+    [p for p in (_ROOT / "lidar_feature_extraction_tpu_torch").rglob("*.py")]
+    + [_ROOT / name for name in ("chip_smoke.py", "k1_check.py",
+                                 "profile_k1.py")])
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _PORT_FILES,
+                         ids=lambda p: str(p.relative_to(_ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    """The machine with the card has no JAX, and the JAX package's
+    __init__ imports it: no module of the port, nor the scripts that
+    drive it on the card, may import either (the port keeps its own
+    copies of the numpy-only modules it needs)."""
+    banned = ("jax", "jaxlib", "lidar_feature_extraction_tpu")
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in banned]
+    assert not bad, f"{path.name} imports {bad}"

@@ -1,4 +1,5 @@
-"""Kernel K1 on the card against its plain PyTorch version.
+"""Kernel K1 on the card against its plain PyTorch version, and the paths
+that run it (full extraction, one closed-loop scan) against the CPU.
 
 Needs a CUDA device and ``nvcc``; every test here is marked ``gpu`` and
 skips elsewhere. The file imports neither JAX nor the JAX package, so on
@@ -7,7 +8,10 @@ a machine without JAX it runs without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -m gpu
 
 Tolerances: labels, curvature and compaction columns bit-equal (both
-round every operation as written, in the same order).
+round every operation as written, in the same order); the full
+extraction on the card equal to it on the CPU; one closed-loop scan on
+the card within 1e-4 of it on the CPU, with the same GN status and
+iterations (sums run in another order on the card).
 """
 
 import dataclasses
@@ -179,3 +183,102 @@ def test_compact_extraction_through_k1_matches_plain_path(cuda):
         img, ExtractionConfig(pallas_labeling=False), **kw)
     for name in a._fields:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_centroid_mode_through_k1_matches_plain_path(cuda):
+    xyz, count, _ = _case("ragged_default")
+    mask = np.arange(512)[None, :] < count[:, None]
+    img = range_image_from_numpy(xyz, mask, count, device=cuda)
+    kw = dict(surface_leaf=1.0, edges_per_ring=16, surface_runs_per_ring=32,
+              surface_centroid=True)
+    a = tex.extract_features_compact(img, ExtractionConfig(), **kw)
+    b = tex.extract_features_compact(
+        img, ExtractionConfig(pallas_labeling=False), **kw)
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("case", ["bench_full", "street_full",
+                                  "ragged_default"])
+def test_extract_features_on_the_card_labels_with_k1(cuda, case):
+    """The full extraction on a CUDA image labels with K1 (one launch)
+    and equals the plain path on the CPU: labels and the compacted edge
+    and surface points exactly; the curvature as |acc| = sqrt(c) to
+    within 4 * padding ulp of the largest range, because the CPU build
+    of torch may contract ``x*x + y*y`` into an FMA where the card (and
+    K1) round each operation."""
+    xyz, count, cfg = _case(case)
+    mask = np.arange(xyz.shape[1])[None, :] < count[:, None]
+    before = extraction_cuda.label_and_columns_cuda.launches
+    got = tex.extract_features(range_image_from_numpy(xyz, mask, count,
+                                                      device=cuda), cfg)
+    assert extraction_cuda.label_and_columns_cuda.launches == before + 1
+    want = tex.extract_features(range_image_from_numpy(xyz, mask, count,
+                                                       device="cpu"), cfg)
+    for name in set(want._fields) - {"curvature"}:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    rng_max = float(np.linalg.norm(xyz[..., :2], axis=-1)[mask].max())
+    atol = 4 * cfg.padding * float(np.spacing(np.float32(rng_max)))
+    assert float((got.curvature.cpu().sqrt() - want.curvature.sqrt())
+                 .abs().max()) <= atol
+
+
+def _small_drive(cfg):
+    """Three scans of a worldsim drive at cfg's ring count and the world's
+    feature map clouds (seed 0)."""
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    rng = np.random.default_rng(0)
+    world = worldsim.make_world(rng)
+    edges, surfs = worldsim.world_maps(world, rng)
+    scans, _ = worldsim.make_scan_sequence(
+        world, rng, n_scans=3, n_rings=cfg.extraction.n_rings,
+        n_az=cfg.extraction.max_points_per_ring)
+    return edges, surfs, scans, worldsim.synth_twists(3, rng=rng)
+
+
+@pytest.mark.parametrize("faithful", [False, True])
+def test_process_scan_on_the_card_matches_the_cpu(cuda, faithful):
+    """One closed-loop scan after two (EKF prior, registration, EKF
+    update) on the card and on the CPU: the measured pose within 1e-4,
+    the same GN status and iterations. The faithful path (kNN plane
+    fits, ill-conditioned in float32 far from the origin) is held in
+    float64."""
+    from lidar_feature_extraction_tpu_torch.pipeline import localization
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        FusedLocalizationPipeline)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kitti = kitti_hdl64()
+    cfg = dataclasses.replace(kitti, extraction=dataclasses.replace(
+        kitti.extraction, n_rings=16, max_points_per_ring=512,
+        max_edges=512, max_surfaces=4096))
+    if faithful:
+        cfg = dataclasses.replace(
+            cfg, compact_extraction=False,
+            registration=dataclasses.replace(cfg.registration,
+                                             refit_per_iteration=True))
+    dtype = torch.float64 if faithful else torch.float32
+    build = (localization.build_feature_maps if faithful
+             else localization.build_geometry_maps)
+    edges, surfs, scans, twists = _small_drive(cfg)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ones = lambda a: torch.ones(len(a), dtype=torch.bool, device=dev)  # noqa: E731
+        e = torch.as_tensor(edges, dtype=dtype, device=dev)
+        s = torch.as_tensor(surfs, dtype=dtype, device=dev)
+        pipe = FusedLocalizationPipeline(
+            build(e, ones(e), s, ones(s), cfg),
+            cfg, initial_pose=Pose.identity(dtype, dev), dtype=dtype,
+            device=dev)
+        for i, (pts, ring) in enumerate(scans):
+            res = pipe.process_scan(pts, ring, 0.1 * i, twists[i])
+        out.append(res)
+    got, want = out
+    assert (got.gn_status, got.gn_iterations) == (want.gn_status,
+                                                  want.gn_iterations)
+    for g, w in ((got.measured_pose.t, want.measured_pose.t),
+                 (got.measured_pose.q, want.measured_pose.q),
+                 (got.fused_pose.t, want.fused_pose.t)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4

@@ -345,8 +345,30 @@ def test_extract_features_matches_reference():
 
 
 def test_centroid_mode_is_not_ported():
+    """Centroid mode (``surface_centroid=True``) against the reference,
+    with and without the fused labeling: labels and validity exact,
+    edges exact, surface run centroids rtol 1e-5 (per-ring cumulative
+    sums, added in another order)."""
     xyz, mask, count = _image(14)
-    with pytest.raises(NotImplementedError):
-        tex.extract_features_compact(
-            range_image_from_numpy(xyz, mask, count, "cpu"), TCfg(**CFG_KW),
-            surface_centroid=True)
+    kw = dict(surface_leaf=LEAF, edges_per_ring=CE,
+              surface_runs_per_ring=CS, surface_centroid=True)
+    img = range_image_from_numpy(xyz, mask, count, "cpu")
+    for pallas_labeling in (True, False):
+        want = jex.extract_features_compact(
+            _jimage(xyz, mask, count),
+            JCfg(**CFG_KW, pallas_labeling=pallas_labeling), **kw)
+        got = tex.extract_features_compact(
+            img, TCfg(**CFG_KW, pallas_labeling=pallas_labeling), **kw)
+        for name in ("labels", "edge_valid", "surface_valid"):
+            np.testing.assert_array_equal(to_np(getattr(got, name)),
+                                          np.asarray(getattr(want, name)))
+        np.testing.assert_array_equal(to_np(got.edge_xyz),
+                                      np32(want.edge_xyz))
+        np.testing.assert_allclose(to_np(got.surface_xyz),
+                                   np32(want.surface_xyz), rtol=1e-5,
+                                   atol=1e-5)
+    # Centroids differ from the run-end points wherever a run has more
+    # than one point.
+    run_end = tex.extract_features_compact(
+        img, TCfg(**CFG_KW), **dict(kw, surface_centroid=False))
+    assert not torch.equal(run_end.surface_xyz, got.surface_xyz)
