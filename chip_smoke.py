@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's scan-to-map localization step and its closed
-loop (registration + EKF) on a CUDA card and check them.
+"""Drive the PyTorch port's scan-to-map localization step, its closed
+loop (registration + EKF), its odometry and its keyframe SLAM pipeline
+on a CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -42,24 +43,46 @@ Phases, each of which must pass (any failure exits non-zero):
    and status counts, and the wall time of the last scan's
    ``localize_scan`` alone, run again from the previous scan's fused
    pose;
-5. k1, after the main paths (localize, drive): a ``torch.profiler``
-   session leaves the host's kernel launches slower for the rest of
-   the process, so no profiler runs before the host-bound loops. K1
-   against its plain PyTorch version on the card at 64 x 2304, on the
-   bench scan and on the street scan: labels, curvature and compaction
-   columns bit-equal. K1's device time per launch comes from
-   ``torch.profiler`` over 200 launches after warm-up (no host work in
-   it; the launches the profiler saw are printed beside it), its
-   wrapper's host time per call from the host clock around 200 calls
-   with no synchronisation inside (the median of 5 such windows); both
-   beside the least time the card could take (bytes over the H100's
-   memory rate, operations over its float32 rate: the larger). The
-   check and the timers are ``k1_check.py``'s, shared with
+5. odometry: ``bench_odometry.py``'s extracted-features chain made by the
+   port (seed 0, 50 poles over 60 m, ``straight_drive``, 100 ray-cast
+   64 x 2048 sweeps through the range image and ``extract_features``),
+   then ``geometry_odometry_step`` over it with the constant-velocity
+   prior carried as in its ``bench_mode``. Prints ms/scan (host clock
+   ending in ``synchronize()``: mean, median, first), GN iterations per
+   scan, final drift, mean step drift and K1's launches; every pose must
+   be finite, K1 launched at least once per frame and the mean step
+   drift at most 1.25 x ``ODOMETRY_BENCH.json``'s + 0.005 m;
+6. slam: ``eval_ate.py``'s two ``slam_loop`` drives through the port's
+   ``run_mapping_drive`` (80 scans of 64 x 2048 around a 10 m circle,
+   loop radius 6 m, gap 10, an optimization every 8 keyframes; without
+   then with IMU windows), drawing from the drive's generator after its
+   twists as eval_ate.py does. Per run: the optimized keyframe
+   trajectory's ATE, keyframes, loop constraints, ms/scan of
+   ``process_scan`` (mean, median, max), the number and wall time of
+   ``optimize()`` calls and of loop-closure registrations, the gyro bias
+   recovered, the run's wall time and K1's launches. ATE at most 1.25 x
+   ``ATE_EVAL.json``'s + 0.005 m, 40 +- 2 keyframes, a loop constraint
+   or more, everything finite, K1 launched at least once per scan;
+7. k1, after the main paths (localize, drive, odometry, slam): a
+   ``torch.profiler`` session leaves the host's kernel launches slower
+   for the rest of the process, so no profiler runs before the
+   host-bound loops. K1 against its plain PyTorch version on the card at
+   64 x 2304, on the bench scan and on the street scan: labels,
+   curvature and compaction columns bit-equal. K1's device time per
+   launch comes from ``torch.profiler`` over 200 launches after warm-up
+   (no host work in it; the launches the profiler saw are printed beside
+   it), its wrapper's host time per call from the host clock around 200
+   calls with no synchronisation inside (the median of 5 such windows);
+   both beside the least time the card could take (bytes over the
+   H100's memory rate, operations over its float32 rate: the larger).
+   The check and the timers are ``k1_check.py``'s, shared with
    ``profile_k1.py``. The plain version is timed with CUDA events around
-   the call (median of 20 after warm-up). Last, the drive's two last
-   registrations once more under the profiler (``drive_profile``:
-   kernel launches in all and per GN iteration, device busy time,
-   profiled wall).
+   the call (median of 20 after warm-up). Then the drive's two last
+   registrations once more under the profiler (``drive_profile``: kernel
+   launches in all and per GN iteration, device busy time, profiled
+   wall), and ``slam_profile``: the odometry chain's last step, one
+   registration of each SLAM run's last closing pair and one
+   ``optimize()`` of each run's final graph, measured the same way.
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -91,6 +114,15 @@ DRIVE_SCANS = 20
 ATE_REFERENCE_M = {"production": 0.0329, "faithful": 0.0375}
 ATE_FACTOR, ATE_MARGIN_M = 1.25, 0.005
 RATIO_LIMIT = 1.2
+# The mapping workloads' limits. ODOMETRY_BENCH.json's mean step drift of
+# the reference's extracted-features chain and ATE_EVAL.json's slam_loop
+# / slam_loop_imu ATE-RMSE (JAX on the CPU), with the drive's factor and
+# margin; the reference's keyframe count, with a slack of two.
+ODOM_FRAMES = 100
+ODOM_DRIFT_REFERENCE_M = 0.0076
+SLAM_SCANS = 80
+SLAM_ATE_REFERENCE_M = {"slam_loop": 0.0279, "slam_loop_imu": 0.0164}
+SLAM_KEYFRAMES, SLAM_KEYFRAME_SLACK = 40, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -219,7 +251,9 @@ def localize_chain(maps, image, cfg, noisy: bool, n: int):
 
 def drive_inputs():
     """eval_ate.py's drive (seed 0), made by the port's worldsim: world
-    map clouds, 20 scans, ground-truth positions and twists."""
+    map clouds, 20 scans, ground-truth positions and twists; then the
+    world and the generator, which eval_ate.py's SLAM drives go on
+    drawing from."""
     from lidar_feature_extraction_tpu_torch.utils import worldsim
 
     rng = np.random.default_rng(0)
@@ -228,8 +262,8 @@ def drive_inputs():
     scans, gt = worldsim.make_scan_sequence(
         world, rng, n_scans=DRIVE_SCANS, n_rings=64, n_az=2048,
         elev_deg=(2.0, -24.8))
-    return edges, surfs, scans, gt, worldsim.synth_twists(len(scans),
-                                                          rng=rng)
+    twists = worldsim.synth_twists(len(scans), rng=rng)
+    return edges, surfs, scans, gt, twists, world, rng
 
 
 def profile_call(fn) -> dict:
@@ -327,6 +361,202 @@ def drive_profile(maps, image, prior, cfg) -> dict:
     prof["launches_per_gn_iteration"] = prof["launches"] / max(
         int(res.iterations), 1)
     return prof
+
+
+def odometry_frames(cfg, device):
+    """bench_odometry.py's extracted-features frames, made by the port:
+    seed 0, 50 poles over 60 m, ``straight_drive``, ray-cast 64 x 2048
+    sweeps through the range image and ``extract_features`` (K1) on the
+    card. Returns the frames and the ground-truth positions."""
+    from lidar_feature_extraction_tpu_torch.ops.extraction import (
+        extract_features)
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    rng = np.random.default_rng(0)
+    world = worldsim.make_world(rng, n_poles=50, extent=60.0)
+    frames, gt = [], []
+    for i in range(ODOM_FRAMES):
+        pose = worldsim.straight_drive(i)
+        gt.append(pose.t.numpy())
+        pts, ring = worldsim.raycast_scan(world, pose, rng, n_rings=64,
+                                          n_az=2048, elev_deg=(2.0, -24.8))
+        f = extract_features(scan_range_image(pts, ring, cfg, device),
+                             cfg.extraction)
+        frames.append((f.edge_xyz, f.edge_valid, f.surface_xyz,
+                       f.surface_valid))
+    return frames, np.stack(gt)
+
+
+def odometry_chain(frames, gt, cfg, device):
+    """``geometry_odometry_step`` over the frames with the
+    constant-velocity prior carried as in bench_odometry.py's
+    ``bench_mode``; each step timed on the host clock ending in
+    ``synchronize()``. Returns the metrics and the last step's
+    arguments."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.pipeline.odometry import (
+        geometry_odometry_step, init_geometry_odometry)
+
+    state = init_geometry_odometry(cfg, device=device)
+    prev = Pose(state.pose_q, state.pose_t)
+    ts, iters, ms = [], [], []
+    for frame in frames:
+        cur = Pose(state.pose_q, state.pose_t)
+        prior = cur.compose(prev.inverse().compose(cur))
+        last = (state, frame, prior)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, result = geometry_odometry_step(
+            state, *frame, cfg, prior_q=prior.q, prior_t=prior.t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - start))
+        ts.append(result.pose.t)
+        iters.append(result.iterations)
+        prev = cur
+    est = torch.stack(ts).cpu().numpy()
+    iters = torch.stack(iters).cpu().numpy()
+    # Frame 0 starts the window at the origin; drift over the rest.
+    step_err = np.linalg.norm(np.diff(est, axis=0) - np.diff(gt, axis=0),
+                              axis=-1)
+    return {
+        "frames": len(frames), "finite": bool(np.isfinite(est).all()),
+        "ms_per_scan_mean": statistics.fmean(ms),
+        "ms_per_scan_median": statistics.median(ms),
+        "ms_first_scan": ms[0],
+        "gn_iterations_per_scan": float(np.mean(iters[1:])),
+        "final_drift_m": float(np.linalg.norm(est[-1] - gt[-1])),
+        "mean_step_drift_m": float(step_err.mean()),
+    }, last
+
+
+def slam_run(cfg, world, rng, with_imu: bool, device, k1):
+    """eval_ate.py's ``eval_slam_loop`` on the card: the port's
+    ``run_mapping_drive`` over 80 scans of a 10 m circle, drawing from
+    ``rng``, with the pipeline's ``process_scan``, ``optimize`` and
+    loop-closure registrations timed (host clock ending in
+    ``synchronize()``). Returns the metrics, the pipeline and the last
+    (keyframe, target) pair that closed."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.pipeline import slam
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+    from lidar_feature_extraction_tpu_torch.utils.evaluation import ate_rmse
+
+    times = {"scan": [], "optimize": [], "loop": []}
+    closed = []
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key].append(1e3 * (time.perf_counter() - start))
+        return out
+
+    class TimedPipeline(slam.MappingPipeline):
+        def process_scan(self, *args, **kwargs):
+            return timed("scan", lambda: super(TimedPipeline, self)
+                         .process_scan(*args, **kwargs))
+
+        def optimize(self, *args, **kwargs):
+            return timed("optimize", lambda: super(TimedPipeline, self)
+                         .optimize(*args, **kwargs))
+
+        def _register_to_keyframe(self, kf, target):
+            match = timed("loop", lambda: super(TimedPipeline, self)
+                          ._register_to_keyframe(kf, target))
+            if match is not None:
+                closed.append((kf, target))
+            return match
+
+    start = time.perf_counter()
+    k1.label_and_columns_cuda.launches = 0
+    plain = slam.MappingPipeline
+    slam.MappingPipeline = TimedPipeline
+    try:
+        pipeline, gt = worldsim.run_mapping_drive(
+            world, cfg, rng, n_scans=SLAM_SCANS, radius=10.0,
+            scan_period=0.1, with_imu=with_imu,
+            pipeline_kwargs=dict(loop_radius=6.0, loop_min_gap=10,
+                                 optimize_every=8),
+            device=device, n_rings=64, n_az=2048, elev_deg=(2.0, -24.8))
+    finally:
+        slam.MappingPipeline = plain
+    torch.cuda.synchronize()
+    launches = k1.label_and_columns_cuda.launches
+    wall = time.perf_counter() - start
+    est = pipeline.trajectory
+    n_kf = len(pipeline.keyframes)
+    bias = (None if pipeline.imu_bias is None
+            else [float(b) for b in pipeline.imu_bias[0]])
+    return {
+        "scans": SLAM_SCANS, "k1_launches": launches,
+        "ate_rmse_m": ate_rmse(est, gt, align=False),
+        "keyframes": n_kf,
+        "loop_constraints": len(pipeline.constraints) - (n_kf - 1),
+        "finite": bool(np.isfinite(est).all()) and (
+            bias is None or bool(np.isfinite(bias).all())),
+        "gyro_bias": bias,
+        "ms_per_scan_mean": statistics.fmean(times["scan"]),
+        "ms_per_scan_median": statistics.median(times["scan"]),
+        "ms_per_scan_max": max(times["scan"]),
+        "optimize_calls": len(times["optimize"]),
+        "optimize_ms_total": sum(times["optimize"]),
+        "optimize_ms": times["optimize"],
+        "loop_attempts": len(times["loop"]),
+        "loop_accepted": len(closed),
+        "loop_ms_total": sum(times["loop"]), "loop_ms": times["loop"],
+        "wall_s": wall,
+    }, pipeline, (closed[-1] if closed else None)
+
+
+def gn_iterations_of(fn):
+    """``fn()`` and the Gauss-Newton iterations its registrations ran."""
+    from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+
+    results, run = [], gn.run_gauss_newton
+
+    def counted(*args, **kwargs):
+        results.append(run(*args, **kwargs))
+        return results[-1]
+
+    gn.run_gauss_newton = counted
+    try:
+        out = fn()
+    finally:
+        gn.run_gauss_newton = run
+    return out, sum(int(r.iterations) for r in results)
+
+
+def slam_profile(odometry_last, slam_runs, cfg) -> list:
+    """Under the profiler: the odometry chain's last step, and per SLAM
+    run one registration of its last pair that closed and one
+    ``optimize()`` of its final graph (10 graph iterations)."""
+    from lidar_feature_extraction_tpu_torch.pipeline.odometry import (
+        geometry_odometry_step)
+
+    state, frame, prior = odometry_last
+    out = []
+    (_, res), prof = profile_call(lambda: geometry_odometry_step(
+        state, *frame, cfg, prior_q=prior.q, prior_t=prior.t))
+    prof["gn_iterations"] = int(res.iterations)
+    out.append(dict(step="geometry_odometry_step", **prof))
+    for name, (pipeline, pair) in slam_runs.items():
+        if pair is not None:
+            (_, its), prof = profile_call(lambda: gn_iterations_of(
+                lambda: pipeline._register_to_keyframe(*pair)))
+            prof["gn_iterations"] = its
+            out.append(dict(step="_register_to_keyframe", run=name, **prof))
+        _, prof = profile_call(pipeline.optimize)
+        prof["gn_iterations"] = 10
+        out.append(dict(step="optimize", run=name,
+                        keyframes=len(pipeline.keyframes), **prof))
+    for prof in out:
+        prof["launches_per_gn_iteration"] = prof["launches"] / max(
+            prof["gn_iterations"], 1)
+    return out
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -471,7 +701,7 @@ def main() -> int:
         registration=dataclasses.replace(cfg.registration,
                                          refit_per_iteration=True))
     start = time.perf_counter()
-    edges, surfs, scans, gt, twists = drive_inputs()
+    edges, surfs, scans, gt, twists, world, rng = drive_inputs()
     scene_s = time.perf_counter() - start
     args = (torch.as_tensor(edges, dtype=torch.float32, device=dev),
             torch.ones(len(edges), dtype=torch.bool, device=dev),
@@ -512,7 +742,51 @@ def main() -> int:
     check(ratio <= RATIO_LIMIT,
           f"drive: production / faithful ATE {ratio} above {RATIO_LIMIT}")
 
-    # 5. k1 against its plain version at full width, on both scans, and
+    # 5. odometry: bench_odometry.py's extracted-features chain.
+    start = time.perf_counter()
+    k1.label_and_columns_cuda.launches = 0
+    frames, odom_gt = odometry_frames(cfg, dev)
+    frames_s = time.perf_counter() - start
+    odom, odom_last = odometry_chain(frames, odom_gt, cfg, dev)
+    torch.cuda.synchronize()
+    odom["k1_launches"] = k1.label_and_columns_cuda.launches
+    drift_limit = ATE_FACTOR * ODOM_DRIFT_REFERENCE_M + ATE_MARGIN_M
+    emit("odometry", frames_s=frames_s, drift_limit_m=drift_limit,
+         drift_reference_m=ODOM_DRIFT_REFERENCE_M, **odom)
+    check(odom["finite"], "odometry: non-finite pose")
+    check(odom["k1_launches"] >= odom["frames"],
+          f"odometry: K1 launched {odom['k1_launches']} times for "
+          f"{odom['frames']} frames")
+    check(odom["mean_step_drift_m"] <= drift_limit,
+          f"odometry: mean step drift {odom['mean_step_drift_m']} m above "
+          f"{drift_limit} m")
+    launches += odom["k1_launches"]
+    launches_by_phase["odometry"] = odom["k1_launches"]
+    del frames
+
+    # 6. slam: eval_ate.py's two slam_loop drives, drawing on after the
+    # drive's twists as eval_ate.py does.
+    slam_runs = {}
+    for name, with_imu in (("slam_loop", False), ("slam_loop_imu", True)):
+        run, pipeline, pair = slam_run(cfg, world, rng, with_imu, dev, k1)
+        slam_runs[name] = (pipeline, pair)
+        limit = ATE_FACTOR * SLAM_ATE_REFERENCE_M[name] + ATE_MARGIN_M
+        emit("slam", run=name, ate_limit_m=limit,
+             ate_reference_m=SLAM_ATE_REFERENCE_M[name], **run)
+        check(run["finite"], f"{name}: non-finite keyframe pose or bias")
+        check(run["k1_launches"] >= run["scans"],
+              f"{name}: K1 launched {run['k1_launches']} times for "
+              f"{run['scans']} scans")
+        check(run["ate_rmse_m"] <= limit,
+              f"{name}: ATE {run['ate_rmse_m']} m above {limit} m")
+        check(abs(run["keyframes"] - SLAM_KEYFRAMES) <= SLAM_KEYFRAME_SLACK,
+              f"{name}: {run['keyframes']} keyframes")
+        check(run["loop_constraints"] >= 1, f"{name}: no loop constraint")
+        launches += run["k1_launches"]
+        launches_by_phase["slam" if not with_imu else "slam_imu"] = \
+            run["k1_launches"]
+
+    # 7. k1 against its plain version at full width, on both scans, and
     # timed: the first profiler sessions of the process.
     nbytes, flops = k1_work(R, P, ex.padding)
     bound, bound_by = bound_us(nbytes, flops)
@@ -531,6 +805,11 @@ def main() -> int:
     # The drive's last scans once more, under the profiler.
     for name, last in last_scans.items():
         emit("drive_profile", config=name, **drive_profile(*last))
+
+    # One odometry step, one closing registration and one optimize() of
+    # each SLAM run's final graph, under the profiler.
+    for prof in slam_profile(odom_last, slam_runs, cfg):
+        emit("slam_profile", **prof)
 
     bench = k1_runs["bench"]
     print(json.dumps({"kernels": [{

@@ -1,7 +1,6 @@
 """SE(3) pose as a (quaternion, translation) pair of tensors.
 
-Port of ``lidar_feature_extraction_tpu/core/pose.py`` (``identity`` and
-``apply``, the parts the localization step uses).
+Port of ``lidar_feature_extraction_tpu/core/pose.py``.
 """
 
 from __future__ import annotations
@@ -27,3 +26,36 @@ class Pose(NamedTuple):
     def apply(self, p: torch.Tensor) -> torch.Tensor:
         """Transform points [..., 3]."""
         return quat.quat_rotate(self.q, p) + self.t
+
+    def compose(self, other: "Pose") -> "Pose":
+        """``self @ other``: first apply ``other``, then ``self``."""
+        return Pose(
+            quat.quat_normalize(quat.quat_multiply(self.q, other.q)),
+            quat.quat_rotate(self.q, other.t) + self.t,
+        )
+
+    def inverse(self) -> "Pose":
+        qinv = quat.quat_conjugate(self.q)
+        return Pose(qinv, -quat.quat_rotate(qinv, self.t))
+
+    def matrix(self) -> torch.Tensor:
+        """Homogeneous 4x4 matrix [..., 4, 4]."""
+        r = quat.quat_to_matrix(self.q)
+        top = torch.cat([r, self.t[..., :, None]], dim=-1)
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                              device=top.device).expand(
+                                  top.shape[:-2] + (1, 4))
+        return torch.cat([top, bottom], dim=-2)
+
+    @staticmethod
+    def from_matrix(m: torch.Tensor) -> "Pose":
+        return Pose(quat.matrix_to_quat(m[..., :3, :3]), m[..., :3, 3])
+
+
+def pose_delta_magnitudes(a: Pose, b: Pose):
+    """(translation delta norm, quaternion vec-part norm) of ``a^-1 b``,
+    the keyframe gate's measure (``map.hpp:49-59``)."""
+    d = a.inverse().compose(b)
+    dq = d.q * torch.where(d.q[..., :1] < 0, -1.0, 1.0)
+    return (torch.linalg.vector_norm(d.t, dim=-1),
+            torch.linalg.vector_norm(dq[..., 1:], dim=-1))

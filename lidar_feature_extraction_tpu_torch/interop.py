@@ -1,4 +1,5 @@
-"""State carried across from numpy arrays: maps, pose and scan.
+"""State carried across from numpy arrays: maps, pose, scan, odometry
+state, pose and IMU graphs, their factors and preintegrated windows.
 
 The arrays are what ``np.asarray`` gives from the JAX package's
 ``GeometryMaps`` / ``FeatureMaps`` / ``Pose`` / ``RangeImage`` (or any
@@ -17,10 +18,17 @@ import torch
 
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.core.scan import RangeImage
+from lidar_feature_extraction_tpu_torch.fusion.imu import ImuPreintegration
 from lidar_feature_extraction_tpu_torch.ops import geometry_grid as gg
 from lidar_feature_extraction_tpu_torch.ops import voxel_grid as vg
+from lidar_feature_extraction_tpu_torch.parallel.imu_graph import (
+    ImuFactors, ImuGraph)
+from lidar_feature_extraction_tpu_torch.parallel.pose_graph import (
+    Constraints, PoseGraph)
 from lidar_feature_extraction_tpu_torch.pipeline.localization import (
     FeatureMaps, GeometryMaps)
+from lidar_feature_extraction_tpu_torch.pipeline.odometry import (
+    GeometryOdometryState, OdometryState)
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -78,3 +86,82 @@ def range_image_from_numpy(xyz, mask, count, device="cuda") -> RangeImage:
     return RangeImage(xyz=_t(xyz, torch.float32, device),
                       mask=_t(mask, torch.bool, device),
                       count=_t(count, torch.int32, device))
+
+
+def _auto(a, device) -> torch.Tensor | None:
+    """An array as a tensor: booleans stay bool, integers become int32,
+    floats float32. None stays None (an optional field)."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    dtype = (torch.bool if a.dtype.kind == "b" else
+             torch.int32 if a.dtype.kind in "iu" else torch.float32)
+    return _t(a, dtype, device)
+
+
+def _tuple_from_numpy(cls, values, device):
+    return cls(*[_auto(v, device) for v in values])
+
+
+def pose_graph_from_numpy(poses_q, poses_t, device="cuda") -> PoseGraph:
+    """PoseGraph from quaternions [K, 4] and translations [K, 3]."""
+    return _tuple_from_numpy(PoseGraph, (poses_q, poses_t), device)
+
+
+def constraints_from_numpy(i, j, z_q, z_t, weight, info=None,
+                           device="cuda") -> Constraints:
+    """Constraints from keyframe indices [M], measured relative poses
+    ([M, 4], [M, 3]), weights [M] and optional information [M, 6, 6]."""
+    return _tuple_from_numpy(Constraints, (i, j, z_q, z_t, weight, info),
+                             device)
+
+
+def imu_graph_from_numpy(poses_q, poses_t, vels, bg=None, ba=None,
+                         device="cuda") -> ImuGraph:
+    """ImuGraph from poses ([K, 4], [K, 3]), velocities [K, 3] and the
+    optional shared biases [3]."""
+    return _tuple_from_numpy(ImuGraph, (poses_q, poses_t, vels, bg, ba),
+                             device)
+
+
+def imu_factors_from_numpy(i, j, dq, dv, dp, dt, w_rot, w_vel, w_pos, weight,
+                           dq_dbg=None, dv_dbg=None, dv_dba=None, dp_dbg=None,
+                           dp_dba=None, device="cuda") -> ImuFactors:
+    """ImuFactors from the stacked fields of ``ImuFactors``, in its
+    order (the bias Jacobians [M, 3, 3] optional)."""
+    return _tuple_from_numpy(
+        ImuFactors, (i, j, dq, dv, dp, dt, w_rot, w_vel, w_pos, weight,
+                     dq_dbg, dv_dbg, dv_dba, dp_dbg, dp_dba), device)
+
+
+def imu_preintegration_from_numpy(dq, dv, dp, dt, dq_dbg, dv_dbg, dv_dba,
+                                  dp_dbg, dp_dba, cov,
+                                  device="cuda") -> ImuPreintegration:
+    """ImuPreintegration from its fields, in its order."""
+    return _tuple_from_numpy(
+        ImuPreintegration, (dq, dv, dp, dt, dq_dbg, dv_dbg, dv_dba, dp_dbg,
+                            dp_dba, cov), device)
+
+
+def odometry_state_from_numpy(edge_window, edge_mask, surf_window, surf_mask,
+                              slot, n_scans, pose_q, pose_t,
+                              device="cuda") -> OdometryState:
+    """OdometryState (the point-grid window) from its fields, in its
+    order."""
+    return _tuple_from_numpy(
+        OdometryState, (edge_window, edge_mask, surf_window, surf_mask, slot,
+                        n_scans, pose_q, pose_t), device)
+
+
+def geometry_odometry_state_from_numpy(edge_m, surf_m, edge_origin,
+                                       surf_origin, edge_window, edge_mask,
+                                       surf_window, surf_mask, slot, n_scans,
+                                       pose_q, pose_t, device="cuda"
+                                       ) -> GeometryOdometryState:
+    """GeometryOdometryState (moment grids + eviction window) from its
+    fields, in its order."""
+    return _tuple_from_numpy(
+        GeometryOdometryState, (edge_m, surf_m, edge_origin, surf_origin,
+                                edge_window, edge_mask, surf_window,
+                                surf_mask, slot, n_scans, pose_q, pose_t),
+        device)

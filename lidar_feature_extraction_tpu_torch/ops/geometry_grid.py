@@ -1,20 +1,23 @@
 """Precomputed per-voxel correspondence geometry: line/plane fits over
 3x3x3 voxel neighbourhoods, baked once at map build time.
 
-Port of ``lidar_feature_extraction_tpu/ops/geometry_grid.py:56-373``:
+Port of ``lidar_feature_extraction_tpu/ops/geometry_grid.py``:
 
 1. scatter point moments (count, sum, second moment, local to the
    voxel centre) into the dense grid — ``index_add_`` into a
-   ``capacity + 1`` table whose last row takes masked points;
+   ``capacity + 1`` table whose last row takes masked points; a weight
+   of -1 removes points, and ``recenter_moments`` rolls the grid after
+   the vehicle (the incremental odometry map);
 2. sum 3x3x3 neighbourhoods as a separable box filter, translating
    moments between voxel frames with the parallel-axis rule;
 3. fit every voxel's line (principal axis) or plane (smallest axis) with
    the closed-form ``eigh3x3``.
 
 Registration then needs one 8-float record gather per scan point per
-Gauss-Newton iteration (``fused_rows_from_grids``). On a GPU the
-scatter-add uses atomics, so moment sums can differ from the CPU's in
-the last bits.
+Gauss-Newton iteration (``fused_rows_from_grids``, or one grid at a
+time: ``edge_rows_from_grid`` / ``surface_rows_from_grid``). On a GPU
+the scatter-add uses atomics, so moment sums can differ from the CPU's
+in the last bits.
 """
 
 from __future__ import annotations
@@ -80,9 +83,12 @@ def _translate_moments(m: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 
 def voxel_moments(xyz: torch.Tensor, mask: torch.Tensor, voxel_size,
-                  origin, dims: tuple[int, int, int]) -> torch.Tensor:
+                  origin, dims: tuple[int, int, int],
+                  weight: torch.Tensor | None = None) -> torch.Tensor:
     """Scatter masked points into per-voxel moments [C, 10], local to
-    each voxel's centre so second moments stay O(voxel_size^2)."""
+    each voxel's centre so second moments stay O(voxel_size^2).
+    ``weight`` [N] scales each point's row; -1 removes a point inserted
+    before (moments are additive: the incremental odometry map)."""
     dtype, dev = xyz.dtype, xyz.device
     origin = torch.as_tensor(origin, dtype=dtype, device=dev)
     voxel_size = torch.as_tensor(voxel_size, dtype=dtype, device=dev)
@@ -94,10 +100,44 @@ def voxel_moments(xyz: torch.Tensor, mask: torch.Tensor, voxel_size,
     center = origin + (c.to(dtype) + 0.5) * voxel_size
     feats = _point_moments(xyz - center)
     feats = torch.where(mask[:, None], feats, 0.0)
+    if weight is not None:
+        feats = feats * weight[:, None].to(dtype)
 
     m = torch.zeros((capacity + 1, 10), dtype=dtype, device=dev)
     m.index_add_(0, cell.to(torch.int64), feats)
     return m[:capacity]
+
+
+def recenter_moments(m: torch.Tensor, dims: tuple[int, int, int],
+                     voxel_size, origin, target_center):
+    """Roll a dense moment grid by whole voxels so its centre follows
+    ``target_center``, zeroing the bands that wrapped around (space the
+    grid newly covers). Local moment frames ride along unchanged: the
+    origin moves by exactly the roll. Returns (m, new_origin).
+
+    ``jnp.roll`` takes the traced shift in the reference; ``torch.roll``
+    takes Python ints only, so each axis is a gather with on-device
+    modular indices instead, and the shift is never read by the host."""
+    dtype, dev = m.dtype, m.device
+    nx, ny, nz = dims
+    h = torch.as_tensor(voxel_size, dtype=dtype, device=dev)
+    origin = torch.as_tensor(origin, dtype=dtype, device=dev)
+    half = torch.tensor(dims, dtype=dtype, device=dev) * h / 2.0
+    desired = torch.as_tensor(target_center, dtype=dtype, device=dev) - half
+    shift = torch.round((desired - origin) / h).to(torch.int32)   # [3]
+
+    g = m.reshape(nx, ny, nz, 10)
+    for axis, n_a in enumerate((nx, ny, nz)):
+        s = shift[axis]
+        idx = torch.arange(n_a, device=dev)
+        # roll by -s: out[i] = g[(i + s) mod n]; then keep only what did
+        # not wrap (i < n - s for s >= 0, i >= -s otherwise).
+        g = torch.index_select(g, axis, torch.remainder(idx + s, n_a))
+        keep = torch.where(s >= 0, idx < n_a - s, idx >= -s)
+        shape = [1, 1, 1, 1]
+        shape[axis] = n_a
+        g = torch.where(keep.reshape(shape), g, 0.0)
+    return g.reshape(-1, 10), origin + shift.to(dtype) * h
 
 
 def _shift(a: torch.Tensor, axis: int, direction: int) -> torch.Tensor:
@@ -274,3 +314,38 @@ def fused_rows_from_grids(edge_grid: GeometryGrid,
     sb = ResidualBlock(jacobian=torch.where(osf[..., None], jac_s, 0.0),
                        residual=torch.where(osf, res_s, 0.0), valid=ok_s)
     return eb, sb
+
+
+def _block(jac, res, ok) -> ResidualBlock:
+    okf = ok[..., None]
+    return ResidualBlock(jacobian=torch.where(okf[..., None], jac, 0.0),
+                         residual=torch.where(okf, res, 0.0), valid=ok)
+
+
+def edge_rows_from_grid(grid: GeometryGrid, scan_pts, scan_valid,
+                        pose: Pose, min_points: int) -> ResidualBlock:
+    """Point-to-line rows with one record gather from one grid: residual
+    (p - p1) x (p - p2), Jacobian [Hat(p2 - p1) DRpDq | Hat(p2 - p1)]."""
+    p_map = pose.apply(scan_pts)
+    rec, in_grid = gather_records(grid, p_map)
+    m, v, cnt = rec[..., 0:3], rec[..., 3:6], rec[..., 6]
+    p1, p2 = m - v, m + v
+    khat = quat.hat(p2 - p1)
+    dr = quat.drpdq(pose.q.expand(scan_pts.shape[:-1] + (4,)), scan_pts)
+    jac = torch.cat([khat @ dr, khat], dim=-1)
+    res = quat._cross(p_map - p1, p_map - p2)
+    return _block(jac, res, scan_valid & in_grid & (cnt >= min_points))
+
+
+def surface_rows_from_grid(grid: GeometryGrid, scan_pts, scan_valid,
+                           pose: Pose, min_points: int) -> ResidualBlock:
+    """Point-to-plane rows with one record gather from one grid: residual
+    u . p - b, Jacobian [u^T DRpDq | u^T]."""
+    p_map = pose.apply(scan_pts)
+    rec, in_grid = gather_records(grid, p_map)
+    u, b, cnt = rec[..., 0:3], rec[..., 3], rec[..., 4]
+    dr = quat.drpdq(pose.q.expand(scan_pts.shape[:-1] + (4,)), scan_pts)
+    ju = torch.einsum("...i,...ij->...j", u, dr)
+    jac = torch.cat([ju, u], dim=-1)[..., None, :]
+    res = (torch.sum(u * p_map, dim=-1) - b)[..., None]
+    return _block(jac, res, scan_valid & in_grid & (cnt >= min_points))

@@ -1,8 +1,8 @@
 """Synthetic LiDAR world and drive simulator for closed-loop evaluation.
 
-Numpy copy of ``lidar_feature_extraction_tpu/utils/worldsim.py:40-206,
-307-324``: the same draws from ``rng`` in the same order, so one seed
-gives the same world, maps, scans and twists as the reference.
+Numpy copy of ``lidar_feature_extraction_tpu/utils/worldsim.py``: the
+same draws from ``rng`` in the same order, so one seed gives the same
+world, maps, scans, twists and IMU windows as the reference.
 
 - ``make_world``: vertical pole cylinders (edge features) over a ground
   plane (surface features);
@@ -12,6 +12,8 @@ gives the same world, maps, scans and twists as the reference.
   discontinuities and occlusions;
 - ``straight_drive`` / ``circle_pose``: scripted trajectories, as the
   port's ``Pose`` on the CPU;
+- ``run_mapping_drive``: the mapping workload (odometry, keyframes, loop
+  closure, pose graph or IMU graph) over a closed circular drive;
 - ``run_drive``: the closed-loop localization + EKF replay of a scan
   sequence through ``FusedLocalizationPipeline``.
 
@@ -187,6 +189,75 @@ def circle_pose(i: float, n_scans: int, radius: float) -> Pose:
     th = 2 * np.pi * i / n_scans
     return _yaw_pose(th, [radius * np.sin(th), radius * (1 - np.cos(th)),
                           0.0])
+
+
+def run_mapping_drive(world: World, cfg: PipelineConfig,
+                      rng: np.random.Generator, n_scans: int,
+                      radius: float, scan_period: float = 0.1,
+                      with_imu: bool = False, imu_substeps: int = 100,
+                      pipeline_kwargs: dict | None = None, device="cuda",
+                      **scan_kwargs):
+    """The mapping workload over a closed circular drive: ray-cast ->
+    ``extract_features`` (K1 on the card) -> odometry -> keyframes ->
+    loop closure -> pose-graph back end, on ``device``. Returns
+    ``(pipeline, ground-truth keyframe positions [K, 3])`` after the
+    final optimization. ``with_imu`` synthesizes noisy IMU windows, fed
+    as scan-matcher priors and keyframe factors, with the reference's
+    trust model for the back end (``imu_accel_noise`` matched to the
+    zeroth-order-hold sampler's coherent error at the keyframe horizon);
+    the draws from ``rng`` are the reference's, in its order."""
+    from lidar_feature_extraction_tpu_torch.fusion import imu as imu_mod
+    from lidar_feature_extraction_tpu_torch.ops.extraction import (
+        extract_features)
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.pipeline.slam import (
+        MappingPipeline)
+
+    gyro = accel = dts = None
+    sub = imu_substeps
+    pipeline_kwargs = dict(pipeline_kwargs or {})
+    if with_imu:
+        fine = [circle_pose(k / sub, n_scans, radius)
+                for k in range(n_scans * sub + 1)]
+        gyro, accel, dts, _v0 = imu_mod.synthesize_imu(
+            torch.stack([p.q for p in fine]),
+            torch.stack([p.t for p in fine]), scan_period / sub)
+        gyro = gyro.numpy() + rng.normal(scale=1e-3, size=gyro.shape)
+        accel = accel.numpy() + rng.normal(scale=1e-2, size=accel.shape)
+        dts = dts.numpy()
+        # synthesize_imu holds each sample for its interval, so on the
+        # turning platform its accel carries a coherent error of about
+        # jerk * dt_sub / 2: the factors' noise density is matched to it
+        # at the keyframe horizon (sigma_c = e_a * sqrt(T)).
+        speed = 2 * np.pi * radius / (n_scans * scan_period)
+        omega = speed / radius
+        jerk = (speed * speed / radius) * omega
+        e_a = jerk * (scan_period / sub) / 2 + 1e-2
+        pipeline_kwargs.setdefault(
+            "imu_accel_noise",
+            max(2.0e-3, float(e_a * np.sqrt(scan_period))))
+
+    pipeline = MappingPipeline(cfg, device=device, **pipeline_kwargs)
+    for i in range(n_scans):
+        pts, ring = raycast_scan(world, circle_pose(i, n_scans, radius), rng,
+                                 **scan_kwargs)
+        feats = extract_features(scan_range_image(pts, ring, cfg, device),
+                                 cfg.extraction)
+        scan = (feats.edge_xyz, feats.edge_valid, feats.surface_xyz,
+                feats.surface_valid)
+        if with_imu and i >= 1:
+            sl = slice((i - 1) * sub, i * sub)
+            pipeline.process_scan(*scan, stamp=float(i) * scan_period,
+                                  imu_gyro=gyro[sl], imu_accel=accel[sl],
+                                  imu_dts=dts[sl])
+        else:
+            pipeline.process_scan(*scan, stamp=float(i) * scan_period)
+    pipeline.optimize()
+    gt = np.stack([
+        circle_pose(round(kf.stamp / scan_period), n_scans, radius).t.numpy()
+        for kf in pipeline.keyframes])
+    return pipeline, gt
 
 
 def run_drive(maps, cfg: PipelineConfig, scans: Sequence,

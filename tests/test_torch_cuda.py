@@ -1,5 +1,7 @@
 """Kernel K1 on the card against its plain PyTorch version, and the paths
-that run it (full extraction, one closed-loop scan) against the CPU.
+that run it (full extraction, one closed-loop scan, the odometry step,
+IMU preintegration, the pose-graph and IMU-graph solvers, a short
+mapping run with a loop closure) against the CPU.
 
 Needs a CUDA device and ``nvcc``; every test here is marked ``gpu`` and
 skips elsewhere. The file imports neither JAX nor the JAX package, so on
@@ -11,7 +13,15 @@ Tolerances: labels, curvature and compaction columns bit-equal (both
 round every operation as written, in the same order); the full
 extraction on the card equal to it on the CPU; one closed-loop scan on
 the card within 1e-4 of it on the CPU, with the same GN status and
-iterations (sums run in another order on the card).
+iterations (sums run in another order on the card). The odometry step
+and preintegration in float32: the same GN status and iterations, poses
+within 1e-4; preintegrated fields within 1e-5 of each field's largest
+entry (100 compounded steps, transcendentals rounded differently). The
+graph solvers and the mapping run in float64 (the float32 graph normal
+equations have a condition number near 1e12, where LU and
+conjugate-gradient rounding on two devices part visibly): positions
+within 1e-6, the mapping run's keyframes and constraints exactly and its
+trajectory within 1e-6 m.
 """
 
 import dataclasses
@@ -282,3 +292,230 @@ def test_process_scan_on_the_card_matches_the_cpu(cuda, faithful):
                  (got.measured_pose.q, want.measured_pose.q),
                  (got.fused_pose.t, want.fused_pose.t)):
         assert float((g.cpu() - w).abs().max()) <= 1e-4
+
+
+# ---- odometry, preintegration, back end, mapping ----------------------
+
+def _mapping_cfg():
+    """A small configuration: 256 edges, 512 surface points, 2 m voxels,
+    a 32 x 32 x 8 odometry grid (test_pipeline's sizes)."""
+    from lidar_feature_extraction_tpu_torch.config import (
+        MappingConfig, PipelineConfig, RegistrationConfig, VoxelMapConfig)
+
+    vm = VoxelMapConfig(voxel_size=2.0, table_capacity=1 << 12,
+                        points_per_voxel=16, max_probes=8)
+    return PipelineConfig(
+        extraction=ExtractionConfig(n_rings=8, max_points_per_ring=256,
+                                    nms_rounds=32, max_edges=256,
+                                    max_surfaces=512),
+        registration=RegistrationConfig(
+            n_neighbors=8, max_iterations=30, edge_map=vm, surface_map=vm,
+            odometry_grid_dims=(32, 32, 8)),
+        mapping=MappingConfig(max_keyframes=16, max_map_points=1 << 14))
+
+
+def _feature_scans(xs, seed=1):
+    """Feature clouds seen from (x, 0.1 n, 0) for each x in ``xs``: pole
+    samples and ground points of a seeded world within sensor-frame
+    reach, padded to the small configuration's capacities; numpy."""
+    rng = np.random.default_rng(seed)
+    zs = np.linspace(-2, 4, 30)
+    poles = np.concatenate([
+        np.concatenate([np.tile(rng.uniform(-15, 15, size=2), (30, 1)),
+                        zs[:, None]], axis=-1) for _ in range(20)])
+    edges = poles + rng.normal(scale=0.01, size=poles.shape)
+    g = rng.uniform(-20, 20, size=(4000, 2))
+    surfs = np.concatenate([g, rng.normal(scale=0.01, size=(4000, 1))], -1)
+    out = []
+    for n, x in enumerate(xs):
+        t = np.array([x, 0.1 * n, 0.0])
+        scan = []
+        for pts, k, cap in ((edges, 200, 256), (surfs, 500, 512)):
+            pick = pts[rng.choice(len(pts), size=k, replace=False)] - t
+            buf = np.zeros((cap, 3), np.float32)
+            buf[:k] = pick
+            scan += [buf, np.arange(cap) < k]
+        out.append(scan)
+    return out
+
+
+def test_geometry_odometry_step_on_the_card_matches_the_cpu(cuda):
+    """Three incremental odometry steps (window insert, eviction-free
+    registration, a constant-velocity prior) on both devices."""
+    from lidar_feature_extraction_tpu_torch.pipeline import odometry
+
+    cfg = _mapping_cfg()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        state = odometry.init_geometry_odometry(cfg, device=dev)
+        for scan in _feature_scans([0.0, 0.6, 1.2]):
+            args = [torch.as_tensor(a, device=dev) for a in scan]
+            state, res = odometry.geometry_odometry_step(state, *args, cfg)
+        out.append((state, res))
+    (gs, got), (ws, want) = out
+    assert (int(got.status), int(got.iterations)) == (int(want.status),
+                                                      int(want.iterations))
+    assert int(got.iterations) >= 1
+    for g, w in ((gs.pose_t, ws.pose_t), (gs.pose_q, ws.pose_q)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4
+    assert torch.equal(gs.edge_mask.cpu(), ws.edge_mask)
+    assert float(gs.pose_t[0]) > 1.0        # it moved with the scans
+
+
+def test_preintegrate_on_the_card_matches_the_cpu(cuda):
+    from lidar_feature_extraction_tpu_torch.fusion import imu
+
+    rng = np.random.default_rng(3)
+    gyro = rng.normal(scale=0.3, size=(100, 3)).astype(np.float32)
+    accel = (rng.normal(scale=1.0, size=(100, 3))
+             + [0.0, 0.0, 9.80665]).astype(np.float32)
+    dts = np.full(100, 0.001, np.float32)
+    valid = np.arange(100) < 93
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        out.append(imu.preintegrate(t(gyro), t(accel), t(dts),
+                                    t(np.float32([1e-3, 0, 0])),
+                                    t(np.float32([0, 2e-2, 0])),
+                                    valid=t(valid)))
+    got, want = out
+    for name in want._fields:
+        w = getattr(want, name)
+        scale = max(float(w.abs().max()), 1e-12)
+        assert float((getattr(got, name).cpu() - w).abs().max()) \
+            <= 1e-5 * scale, name
+
+
+def _looped_graph_np(k=10, seed=1):
+    """k poses around an arc, the chain measured with noise plus a loop
+    k-1 -> 0 and a 3 m outlier 2 -> 6; the initial guess is the noisy
+    chain integrated. float64 numpy: (q, t), constraint fields."""
+    from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+
+    f64 = torch.float64
+    rng = np.random.default_rng(seed)
+    yaw = np.linspace(0, 1.6 * np.pi, k)
+    gt = [Pose(torch.tensor([np.cos(a / 2), 0, 0, np.sin(a / 2)], dtype=f64),
+               torch.tensor([6 * np.sin(a), 6 * (1 - np.cos(a)), 0.1 * a],
+                            dtype=f64)) for a in yaw]
+    pairs = [(n, n + 1) for n in range(k - 1)] + [(0, k - 1), (2, 6)]
+    zs = []
+    for n, (a, b) in enumerate(pairs):
+        rel = gt[a].inverse().compose(gt[b])
+        noise = quat.exp_so3(torch.as_tensor(rng.normal(scale=0.01, size=3)))
+        off = rng.normal(scale=0.05, size=3) + (
+            [0.0, 3.0, 0.0] if n == len(pairs) - 1 else 0.0)
+        zs.append(Pose(quat.quat_multiply(rel.q, noise),
+                       rel.t + torch.as_tensor(off)))
+    poses = [gt[0]]
+    for z in zs[:k - 1]:
+        poses.append(poses[-1].compose(z))
+    cons = (np.array([p[0] for p in pairs], np.int32),
+            np.array([p[1] for p in pairs], np.int32),
+            torch.stack([z.q for z in zs]).numpy(),
+            torch.stack([z.t for z in zs]).numpy(),
+            np.r_[np.ones(k - 1), 0.8, 0.7])   # float64 throughout
+    return (torch.stack([p.q for p in poses]).numpy(),
+            torch.stack([p.t for p in poses]).numpy()), cons
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pose_graph_solvers_on_the_card_match_the_cpu(cuda, solver):
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph
+
+    (q, t), cons = _looped_graph_np()
+    fn, kw = ((pose_graph.optimize_pose_graph, {}) if solver == "dense"
+              else (pose_graph.optimize_pose_graph_cg, dict(n_cg=10)))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t64 = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        out.append(fn(pose_graph.PoseGraph(t64(q), t64(t)),
+                      pose_graph.Constraints(*[t64(a) for a in cons]),
+                      n_iterations=6, robust_delta=0.5, **kw))
+    got, want = out
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6
+    assert float((want.poses_t - torch.as_tensor(t)).abs().max()) > 0.05
+
+
+def test_optimize_imu_graph_on_the_card_matches_the_cpu(cuda):
+    """A 2 s arc with a 0.02 rad/s yaw-rate bias, keyframes every 0.2 s,
+    factors preintegrated at zero bias; the bias is recovered on both."""
+    from lidar_feature_extraction_tpu_torch.fusion import imu
+    from lidar_feature_extraction_tpu_torch.parallel import (
+        imu_graph, pose_graph)
+
+    f64 = torch.float64
+    n, dt, every = 101, 0.02, 10
+    th = 2.0 * dt * np.arange(n) / 20.0
+    q_gt = torch.tensor(np.stack([np.cos(th / 2), 0 * th, 0 * th,
+                                  np.sin(th / 2)], -1))
+    t_gt = torch.tensor(np.stack([20 * np.sin(th), 20 * (1 - np.cos(th)),
+                                  0 * th], -1))
+    gyro, accel, dts, _ = imu.synthesize_imu(q_gt, t_gt, dt)
+    gyro = gyro + torch.tensor([0.0, 0.0, 0.02], dtype=f64)
+    kf = list(range(0, n, every))
+    k = len(kf)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        zero = torch.zeros(3, dtype=f64, device=dev)
+        pres = [imu.preintegrate(gyro[a:b].to(dev), accel[a:b].to(dev),
+                                 dts[a:b].to(dev), zero, zero)
+                for a, b in zip(kf[:-1], kf[1:])]
+        w_rot, w_vel, w_pos = imu_graph.weights_from_covariance(
+            torch.stack([p.cov for p in pres]))
+        gt = [Pose(q_gt[a].to(dev), t_gt[a].to(dev)) for a in kf]
+        rels = [gt[a].inverse().compose(gt[a + 1]) for a in range(k - 1)]
+        poses = [gt[0]]
+        for r in rels:
+            poses.append(poses[-1].compose(Pose(r.q, r.t + 0.01)))
+        idx = torch.arange(k - 1, dtype=torch.int32, device=dev)
+        ones = torch.ones(k - 1, dtype=f64, device=dev)
+        cons = pose_graph.Constraints(idx, idx + 1,
+                                      torch.stack([r.q for r in rels]),
+                                      torch.stack([r.t for r in rels]), ones)
+        stack = {f: torch.stack([getattr(p, f) for p in pres])
+                 for f in imu.ImuPreintegration._fields}
+        factors = imu_graph.ImuFactors(
+            idx, idx + 1, stack["dq"], stack["dv"], stack["dp"], stack["dt"],
+            w_rot, w_vel, w_pos, ones, stack["dq_dbg"], stack["dv_dbg"],
+            stack["dv_dba"], stack["dp_dbg"], stack["dp_dba"])
+        pt = torch.stack([p.t for p in poses])
+        vels = torch.gradient(pt, dim=0)[0] / (every * dt)
+        graph = imu_graph.ImuGraph(torch.stack([p.q for p in poses]), pt,
+                                   vels, bg=zero)
+        out.append(imu_graph.optimize_imu_graph(graph, cons, factors,
+                                                n_iterations=8,
+                                                robust_delta=0.5))
+    got, want = out
+    for name in ("poses_q", "poses_t", "vels", "bg"):
+        assert float((getattr(got, name).cpu() - getattr(want, name))
+                     .abs().max()) <= 1e-6, name
+    assert abs(float(want.bg[2]) - 0.02) < 5e-3
+
+
+def test_mapping_pipeline_on_the_card_matches_the_cpu(cuda):
+    """Ten scans out and back (2 m steps, then home): odometry,
+    keyframes, one loop closure or more through the pyramid, the pose
+    graph, on both devices in float64."""
+    from lidar_feature_extraction_tpu_torch.pipeline.slam import (
+        MappingPipeline)
+
+    cfg = _mapping_cfg()
+    scans = _feature_scans([0, 1.5, 3, 4.5, 6, 4.5, 3, 1.5, 0.5, 0.1])
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = MappingPipeline(cfg, loop_radius=2.5, loop_min_gap=2,
+                            optimize_every=3, dtype=torch.float64,
+                            device=dev)
+        for n, scan in enumerate(scans):
+            p.process_scan(*scan, stamp=0.1 * n)
+        p.optimize()
+        out.append(p)
+    got, want = out
+    assert len(got.keyframes) == len(want.keyframes)
+    assert [c[:2] for c in got.constraints] == \
+        [c[:2] for c in want.constraints]
+    assert len(want.constraints) > len(want.keyframes) - 1   # a closure
+    np.testing.assert_allclose(got.trajectory, want.trajectory, rtol=0,
+                               atol=1e-6)

@@ -27,8 +27,6 @@ Tolerances:
 - evaluation copy: equal to the reference's.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -38,6 +36,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_production_parity import _configs  # noqa: E402
+from torch_parity import port_config  # noqa: E402
 from lidar_feature_extraction_tpu.core.pose import Pose as JPose  # noqa: E402
 from lidar_feature_extraction_tpu.pipeline import (  # noqa: E402
     localization as jloc)
@@ -45,7 +44,6 @@ from lidar_feature_extraction_tpu.pipeline.replay import (  # noqa: E402
     FusedLocalizationPipeline as JPipeline)
 from lidar_feature_extraction_tpu.utils import evaluation as jeval  # noqa: E402
 from lidar_feature_extraction_tpu.utils import worldsim as jws  # noqa: E402
-from lidar_feature_extraction_tpu_torch import config as tcfg  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core.pose import Pose  # noqa: E402
 from lidar_feature_extraction_tpu_torch.pipeline import (  # noqa: E402
     localization as tloc)
@@ -58,21 +56,6 @@ jax.config.update("jax_enable_x64", True)
 
 POS_ATOL = 1e-3
 ATE_ATOL = 5e-3
-
-
-def _port_config(cfg) -> tcfg.PipelineConfig:
-    """The port's copy of a reference PipelineConfig, field for field."""
-    d = dataclasses.asdict(cfg)
-    reg = d["registration"]
-    reg["edge_map"] = tcfg.VoxelMapConfig(**reg["edge_map"])
-    reg["surface_map"] = tcfg.VoxelMapConfig(**reg["surface_map"])
-    return tcfg.PipelineConfig(
-        compact_extraction=d["compact_extraction"],
-        extraction=tcfg.ExtractionConfig(**d["extraction"]),
-        registration=tcfg.RegistrationConfig(**reg),
-        ekf=tcfg.EkfConfig(**d["ekf"]),
-        mapping=tcfg.MappingConfig(**d["mapping"]),
-        parallel=tcfg.ParallelConfig(**d["parallel"]))
 
 
 def _replay(pipeline, scans, twists):
@@ -101,7 +84,7 @@ def drive():
             ("faithful", faithful, jloc.build_feature_maps,
              tloc.build_feature_maps, [(jnp.float32, torch.float32),
                                        (jnp.float64, torch.float64)])):
-        pcfg = _port_config(cfg)
+        pcfg = port_config(cfg)
         for jd, td in dtypes:
             jm = jbuild(jnp.asarray(edges, jd), jnp.ones(len(edges), bool),
                         jnp.asarray(surfs, jd), jnp.ones(len(surfs), bool),

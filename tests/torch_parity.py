@@ -10,8 +10,12 @@ comparing.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from lidar_feature_extraction_tpu_torch import config as tcfg
 
 torch.set_num_threads(2)
 
@@ -29,3 +33,18 @@ def to_np(a) -> np.ndarray:
 
 def t32(a) -> torch.Tensor:
     return torch.as_tensor(np32(a))
+
+
+def port_config(cfg) -> tcfg.PipelineConfig:
+    """The port's copy of a reference PipelineConfig, field for field."""
+    d = dataclasses.asdict(cfg)
+    reg = d["registration"]
+    reg["edge_map"] = tcfg.VoxelMapConfig(**reg["edge_map"])
+    reg["surface_map"] = tcfg.VoxelMapConfig(**reg["surface_map"])
+    return tcfg.PipelineConfig(
+        compact_extraction=d["compact_extraction"],
+        extraction=tcfg.ExtractionConfig(**d["extraction"]),
+        registration=tcfg.RegistrationConfig(**reg),
+        ekf=tcfg.EkfConfig(**d["ekf"]),
+        mapping=tcfg.MappingConfig(**d["mapping"]),
+        parallel=tcfg.ParallelConfig(**d["parallel"]))
