@@ -1,6 +1,7 @@
 """Drive the PyTorch port's scan-to-map localization step, its closed
-loop (registration + EKF), its odometry and its keyframe SLAM pipeline
-on a CUDA card and check them.
+loop (registration + EKF), its odometry, its keyframe SLAM pipeline, its
+batched localizer and its KITTI entry point on a CUDA card and check
+them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -63,12 +64,35 @@ Phases, each of which must pass (any failure exits non-zero):
    recovered, the run's wall time and K1's launches. ATE at most 1.25 x
    ``ATE_EVAL.json``'s + 0.005 m, 40 +- 2 keyframes, a loop constraint
    or more, everything finite, K1 launched at least once per scan;
-7. k1, after the main paths (localize, drive, odometry, slam): a
-   ``torch.profiler`` session leaves the host's kernel launches slower
-   for the rest of the process, so no profiler runs before the
+7. batch: the batched localizer (``make_batched_localizer``, B scans
+   through one extraction, one K1 launch on the [B * 64, 2304] planes,
+   and one lock-step Gauss-Newton loop) at B = 1, 8 and 32 on both
+   scenes. Lane b is the scene's image moved by 1e-3 * b m with the b-th
+   noisy prior of phase 3, so the lanes stop at different iterations
+   (checked). Every lane's status and iterations must equal
+   ``localize_scan`` run on that lane alone on the card, its pose within
+   1e-4; a lane that ends otherwise is printed with the margins of its
+   lone run's abort tests, and passes only as a rounding tie (a status or
+   iteration count apart, with the error or the scale test within 1e-5
+   of its threshold), at most one per 32. The batch's K1 output must be bit-equal to
+   B single launches and to the plain version. Per B and scene: scans/s
+   and ms per batch and per scan (host clock ending in
+   ``synchronize()``, the median of 5 batches after an untimed one), GN
+   iterations (max, mean), K1 launches per batch (must be 1) and
+   ``torch.cuda.max_memory_allocated``;
+8. kitti: the drive of phase 4 written as a KITTI sequence (``.bin``
+   scans, PCD maps) into a temporary directory, then
+   ``launch.load_config("kitti_hdl64")``, ``launch.load_maps`` and
+   ``run_kitti_localization`` (no twists) on the card; the fused
+   positions' ATE must be at most 1.25 x the JAX package's on the same
+   files + 0.005 m, K1 launched once per scan;
+9. k1, after the main paths (localize, drive, odometry, slam, batch,
+   kitti): a ``torch.profiler`` session leaves the host's kernel launches
+   slower for the rest of the process, so no profiler runs before the
    host-bound loops. K1 against its plain PyTorch version on the card at
-   64 x 2304, on the bench scan and on the street scan: labels,
-   curvature and compaction columns bit-equal. K1's device time per
+   64 x 2304, on the bench scan and on the street scan, and on the bench
+   batches of 8 and 32 scans: labels, curvature and compaction columns
+   bit-equal. K1's device time per
    launch comes from ``torch.profiler`` over 200 launches after warm-up
    (no host work in it; the launches the profiler saw are printed beside
    it), its wrapper's host time per call from the host clock around 200
@@ -80,9 +104,11 @@ Phases, each of which must pass (any failure exits non-zero):
    the call (median of 20 after warm-up). Then the drive's two last
    registrations once more under the profiler (``drive_profile``: kernel
    launches in all and per GN iteration, device busy time, profiled
-   wall), and ``slam_profile``: the odometry chain's last step, one
+   wall), ``slam_profile``: the odometry chain's last step, one
    registration of each SLAM run's last closing pair and one
-   ``optimize()`` of each run's final graph, measured the same way.
+   ``optimize()`` of each run's final graph, and ``batch_profile``: one
+   batch of each size on each scene (launches per GN iteration of the
+   batch, device busy against profiled wall), measured the same way.
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -123,6 +149,20 @@ ODOM_DRIFT_REFERENCE_M = 0.0076
 SLAM_SCANS = 80
 SLAM_ATE_REFERENCE_M = {"slam_loop": 0.0279, "slam_loop_imu": 0.0164}
 SLAM_KEYFRAMES, SLAM_KEYFRAME_SLACK = 40, 2
+# The batched localizer: batch sizes, timed batches per size (after one
+# untimed), the pose tolerance of a lane against its lone run, and the
+# relative error or scale change of a Gauss-Newton abort test within
+# which float32 rounding may decide it either way (ROADMAP §C11); at most
+# one such lane per 32 may end otherwise than its lone run.
+BATCH_SIZES = (1, 8, 32)
+BATCH_REPS = 5
+BATCH_T_ATOL = BATCH_Q_ATOL = 1e-4
+TIE_MARGIN = 1e-5
+# The KITTI replay's limit: the JAX package's run_kitti_localization ATE
+# on the same written files (the drive's 20 scans, no twists; computed on
+# the CPU by `PYTHONPATH=. python tests/test_torch_entry.py`), with the
+# drive's factor and margin.
+KITTI_ATE_REFERENCE_M = 4.77979214851624
 
 
 class SmokeFailure(RuntimeError):
@@ -559,6 +599,241 @@ def slam_profile(odometry_last, slam_runs, cfg) -> list:
     return out
 
 
+def batch_lanes(image, n: int):
+    """``n`` lanes on a scene: lane b's image is the scene's moved by
+    1e-3 * b m (a fresh tensor), its prior the best-case prior with the
+    b-th of ``priors(noisy=True, n)``'s errors, so the lanes stop at
+    different iterations. Returns the images and the priors (Pose
+    each)."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+
+    dev = image.xyz.device
+    q0 = torch.tensor([1.0, 0, 0, 0], device=dev)
+    t0 = torch.tensor([0.3, -0.2, 0.05], device=dev)
+    step = torch.tensor([1.0, -0.5, 0.2], device=dev)
+    images, poses = [], []
+    for b, (dq, dt) in enumerate(priors(True, n)):
+        images.append(image._replace(xyz=image.xyz + 1e-3 * b * step))
+        poses.append(Pose(quat.quat_multiply(q0, torch.as_tensor(
+            dq, dtype=torch.float32, device=dev)),
+            t0 + torch.as_tensor(dt, dtype=torch.float32, device=dev)))
+    return images, poses
+
+
+def abort_margins(fn):
+    """``fn()`` with every Gauss-Newton body's abort tests recorded.
+    Returns fn's output and, over the bodies, the smallest |relative
+    change| of the error and of the MAD scale against the carried ones
+    (what the ERROR_ / SCALE_INCREASED aborts compare)."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import stats
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+
+    body, seen = gn._gn_body, []
+
+    def traced(problem_fn, state, *args):
+        p = problem_fn(Pose(state.q, state.t))
+        err = torch.sum(torch.where(p.valid, p.errors, 0.0), dim=-1)
+        scale = stats.masked_scale_bisect(p.errors, p.valid)
+        seen.append([float((err - state.prev_error) / state.prev_error),
+                     float((scale - state.prev_scale) / state.prev_scale)])
+        return body(problem_fn, state, *args)
+
+    gn._gn_body = traced
+    try:
+        out = fn()
+    finally:
+        gn._gn_body = body
+    margins = np.abs(np.asarray(seen))
+    return out, {"error": float(margins[:, 0].min()),
+                 "scale": float(margins[:, 1].min())}
+
+
+def batch_check(maps, cfg, images, poses, result, lone, k1):
+    """A batch's lanes against their lone ``localize_scan`` runs
+    (``lone``: per lane (status, iterations, q, t)), and its one K1
+    launch on the [B * R, P] planes against B single launches and the
+    plain version. Returns the lanes that ended otherwise than alone,
+    each with the abort margins of its lone run (a rounding tie when both
+    are below TIE_MARGIN)."""
+    import torch
+    from k1_check import k1_args
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    from lidar_feature_extraction_tpu_torch.ops import extraction as tex
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+
+    B = len(images)
+    stacked = stack_range_images(images)
+    args = k1_args(stacked.xyz.flatten(0, 1), stacked.count.flatten(), cfg)
+    got = k1.label_and_columns_cuda(*args)
+    singles = [k1.label_and_columns_cuda(*k1_args(im.xyz, im.count, cfg))
+               for im in images]
+    plain = tex.label_and_columns_plain(*args)
+    for n, name in enumerate(("labels", "curvature", "col")):
+        check(torch.equal(got[n], torch.cat([s[n] for s in singles])),
+              f"batch {B}: K1 {name} on the batch differs from {B} single "
+              f"launches")
+        check(torch.equal(got[n], plain[n]),
+              f"batch {B}: K1 {name} on the batch differs from the plain "
+              f"version")
+    status = result.status.tolist()
+    iters = result.iterations.tolist()
+    q, t = result.pose.q.cpu(), result.pose.t.cpu()
+    differ = []
+    for b in range(B):
+        ls, li, lq, lt = lone[b]
+        dq = float((q[b] - lq).abs().max())
+        dt = float((t[b] - lt).abs().max())
+        if status[b] == ls and iters[b] == li and dq <= BATCH_Q_ATOL \
+                and dt <= BATCH_T_ATOL:
+            continue
+        _, margins = abort_margins(lambda: localize_scan(
+            maps, images[b], poses[b], cfg))
+        # A lane that ends as its lone run does but elsewhere is no tie.
+        differ.append({"lane": b, "status": status[b], "iterations": iters[b],
+                       "lone_status": ls, "lone_iterations": li,
+                       "pose_dt_m": dt, "pose_dq": dq, "margins": margins,
+                       "tie": (status[b], iters[b]) != (ls, li)
+                       and min(margins.values()) < TIE_MARGIN})
+    return differ
+
+
+def batch_phase(scenes, cfg, dev, k1) -> tuple[dict, list]:
+    """The batched localizer through ``make_batched_localizer`` at
+    B = 1, 8, 32 on both scenes: every lane held to its lone run, the
+    batch's K1 launch to single launches and the plain version, then
+    ``BATCH_REPS`` timed batches (host clock ending in synchronize())
+    after an untimed one, K1's launches counted over exactly those
+    calls. Returns the launches and what the profiler is to run later."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    from lidar_feature_extraction_tpu_torch.parallel.distributed import (
+        make_batched_localizer)
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+
+    run = make_batched_localizer(cfg)
+    n_max = max(BATCH_SIZES)
+    launches, later = 0, []
+    for scene, (maps, image) in scenes.items():
+        images, poses = batch_lanes(image, n_max)
+        lone = []
+        for im, pose in zip(images, poses):
+            r, _ = localize_scan(maps, im, pose, cfg)
+            lone.append((int(r.status), int(r.iterations), r.pose.q.cpu(),
+                         r.pose.t.cpu()))
+        for B in BATCH_SIZES:
+            stacked = stack_range_images(images[:B])
+            prior = Pose(torch.stack([p.q for p in poses[:B]]),
+                         torch.stack([p.t for p in poses[:B]]))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k1.label_and_columns_cuda.launches = 0
+            ms = []
+            for _ in range(1 + BATCH_REPS):
+                start = time.perf_counter()
+                result, feats = run(maps, stacked, prior)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - start))
+            count = k1.label_and_columns_cuda.launches
+            peak = torch.cuda.max_memory_allocated()
+            check(count == 1 + BATCH_REPS,
+                  f"batch {scene} {B}: K1 launched {count} times for "
+                  f"{1 + BATCH_REPS} batches")
+            launches += count
+            check(bool(torch.isfinite(result.pose.t).all())
+                  and bool(torch.isfinite(result.pose.q).all()),
+                  f"batch {scene} {B}: non-finite pose")
+            check(feats.edge_xyz.shape[0] == B,
+                  f"batch {scene} {B}: features of {feats.edge_xyz.shape[0]}"
+                  f" scans")
+            differ = batch_check(maps, cfg, images[:B], poses[:B], result,
+                                 lone, k1)
+            k1.label_and_columns_cuda.launches = 0
+            iters = result.iterations.tolist()
+            med = statistics.median(ms[1:])
+            emit("batch", scene=scene, batch=B, scans_per_s=1e3 * B / med,
+                 ms_per_batch=med, ms_per_scan=med / B, ms_batches=ms[1:],
+                 ms_first_batch=ms[0], gn_iterations_max=max(iters),
+                 gn_iterations_mean=statistics.fmean(iters),
+                 distinct_iteration_counts=len(set(iters)),
+                 k1_launches_per_batch=count / (1 + BATCH_REPS),
+                 max_memory_allocated=peak,
+                 lanes_equal_to_lone_runs=B - len(differ),
+                 lanes_otherwise=differ)
+            check(all(d["tie"] for d in differ),
+                  f"batch {scene} {B}: lanes {differ} differ from their lone "
+                  f"runs beyond a rounding tie")
+            check(len(differ) <= max(1, B // 32),
+                  f"batch {scene} {B}: {len(differ)} tie lanes")
+            if B > 1:
+                check(len(set(iters)) > 1,
+                      f"batch {scene} {B}: every lane ran {iters[0]} "
+                      f"iterations; the freeze is not exercised")
+            later.append((scene, B, max(iters),
+                          lambda r=run, m=maps, s=stacked, p=prior: r(m, s, p)))
+    return launches, later
+
+
+def write_kitti_drive(root: str, edges, surfs, scans) -> tuple:
+    """The drive as a KITTI sequence: its scans as ``.bin`` files (points
+    in the sensor frame, intensity 0) in ``root/sequence``, the map
+    clouds as ``root/edge.pcd`` and ``root/surface.pcd``. Returns the
+    three paths."""
+    from lidar_feature_extraction_tpu_torch.io import kitti
+    from lidar_feature_extraction_tpu_torch.io.pcd import save_pcd
+
+    seq = os.path.join(root, "sequence")
+    os.makedirs(seq, exist_ok=True)
+    for i, (pts, _ring) in enumerate(scans):
+        kitti.write_velodyne_bin(os.path.join(seq, f"{i:06d}.bin"), pts)
+    edge, surf = os.path.join(root, "edge.pcd"), os.path.join(root,
+                                                               "surface.pcd")
+    save_pcd(edge, edges)
+    save_pcd(surf, surfs)
+    return seq, edge, surf
+
+
+def kitti_run(edges, surfs, scans, gt, k1) -> dict:
+    """The entry point end to end: the drive written as a KITTI sequence,
+    ``launch.load_config("kitti_hdl64")``, ``launch.load_maps`` and
+    ``run_kitti_localization`` on the card; the fused positions' ATE
+    against the drive's truth, K1 counted over the replay."""
+    import tempfile
+
+    import torch
+    from lidar_feature_extraction_tpu_torch.pipeline import launch
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        run_kitti_localization)
+    from lidar_feature_extraction_tpu_torch.utils.evaluation import ate_rmse
+
+    with tempfile.TemporaryDirectory() as root:
+        seq, edge, surf = write_kitti_drive(root, edges, surfs, scans)
+        cfg = launch.load_config("kitti_hdl64")
+        start = time.perf_counter()
+        maps = launch.load_maps(edge, surf, cfg)
+        torch.cuda.synchronize()
+        maps_s = time.perf_counter() - start
+        k1.label_and_columns_cuda.launches = 0
+        start = time.perf_counter()
+        fused = run_kitti_localization(seq, maps, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = k1.label_and_columns_cuda.launches
+    return {"scans": len(fused), "k1_launches": launches,
+            "finite": bool(np.isfinite(fused).all()),
+            "ate_rmse_m": ate_rmse(fused, gt, align=False),
+            "load_maps_s": maps_s, "replay_s": wall,
+            "ms_per_scan": 1e3 * wall / len(fused)}
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -786,8 +1061,32 @@ def main() -> int:
         launches_by_phase["slam" if not with_imu else "slam_imu"] = \
             run["k1_launches"]
 
-    # 7. k1 against its plain version at full width, on both scans, and
-    # timed: the first profiler sessions of the process.
+    # 7. batch: the batched localizer at B = 1, 8, 32 on both scenes.
+    batch_launches, batch_later = batch_phase(
+        {"bench": (bench_maps, bench_img), "street": (street_maps,
+                                                       street_img)},
+        cfg, dev, k1)
+    launches += batch_launches
+    launches_by_phase["batch"] = batch_launches
+
+    # 8. kitti: the drive as a KITTI sequence through the entry points.
+    kitti = kitti_run(edges, surfs, scans, gt, k1)
+    kitti_limit = ATE_FACTOR * KITTI_ATE_REFERENCE_M + ATE_MARGIN_M
+    emit("kitti", ate_limit_m=kitti_limit,
+         ate_reference_m=KITTI_ATE_REFERENCE_M, **kitti)
+    check(kitti["finite"], "kitti: non-finite fused pose")
+    check(kitti["scans"] == DRIVE_SCANS
+          and kitti["k1_launches"] >= kitti["scans"],
+          f"kitti: K1 launched {kitti['k1_launches']} times for "
+          f"{kitti['scans']} scans")
+    check(kitti["ate_rmse_m"] <= kitti_limit,
+          f"kitti: ATE {kitti['ate_rmse_m']} m above {kitti_limit} m")
+    launches += kitti["k1_launches"]
+    launches_by_phase["kitti"] = kitti["k1_launches"]
+
+    # 9. k1 against its plain version at full width, on both scans and on
+    # the bench scene's batches, and timed: the first profiler sessions
+    # of the process.
     nbytes, flops = k1_work(R, P, ex.padding)
     bound, bound_by = bound_us(nbytes, flops)
     k1_runs = {}
@@ -801,6 +1100,24 @@ def main() -> int:
              curvature_equal=True, col_equal=True,
              launches_timed=K1_LAUNCHES, bound_us=bound, bound_by=bound_by,
              bytes=nbytes, flops=flops, **run)
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    k1_batches = {}
+    lanes, _ = batch_lanes(bench_img, max(BATCH_SIZES))
+    for B in BATCH_SIZES[1:]:
+        stacked = stack_range_images(lanes[:B])
+        args = k1_args(stacked.xyz.flatten(0, 1), stacked.count.flatten(),
+                       cfg)
+        b_bytes, b_flops = k1_work(B * R, P, ex.padding)
+        b_bound, b_by = bound_us(b_bytes, b_flops)
+        run = k1_batches[B] = check_and_time(k1.label_and_columns_cuda,
+                                             args, K1_LAUNCHES)
+        run.update(bound_us=b_bound, bound_by=b_by,
+                   share_of_bound=b_bound / run["device_us"],
+                   device_us_per_scan=run["device_us"] / B)
+        emit("k1", scene="bench batch", batch=B, shape=[B * R, P],
+             labels_equal=True, curvature_equal=True, col_equal=True,
+             launches_timed=K1_LAUNCHES, bytes=b_bytes, flops=b_flops, **run)
 
     # The drive's last scans once more, under the profiler.
     for name, last in last_scans.items():
@@ -810,6 +1127,14 @@ def main() -> int:
     # each SLAM run's final graph, under the profiler.
     for prof in slam_profile(odom_last, slam_runs, cfg):
         emit("slam_profile", **prof)
+
+    # One batch of each size on each scene, under the profiler.
+    for scene, B, iters, fn in batch_later:
+        _, prof = profile_call(fn)
+        emit("batch_profile", scene=scene, batch=B, gn_iterations_max=iters,
+             launches_per_gn_iteration=prof["launches"] / max(iters, 1),
+             device_idle_share=1.0 - prof["device_busy_ms"]
+             / prof["profiled_wall_ms"], **prof)
 
     bench = k1_runs["bench"]
     print(json.dumps({"kernels": [{
@@ -825,7 +1150,9 @@ def main() -> int:
         "device_launches_seen": bench["device_launches_seen"],
         "host_us": bench["host_us"],
         "bound_us": bound, "share_of_bound": bench["share_of_bound"],
-        "shape": [R, P], "per_scan": k1_runs}]}), flush=True)
+        "shape": [R, P], "per_scan": k1_runs,
+        "per_batch": {str(B): run for B, run in k1_batches.items()}}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,6 +20,9 @@ class RangeImage(NamedTuple):
     mask:  [R, P] validity. Valid points are compacted to the front of
            each ring and sorted by ascending atan2(y, x).
     count: [R] number of valid points per ring.
+
+    A batch of B scans has a leading [B] on every field
+    (``stack_range_images``).
     """
 
     xyz: torch.Tensor
@@ -28,11 +31,17 @@ class RangeImage(NamedTuple):
 
     @property
     def n_rings(self) -> int:
-        return self.xyz.shape[0]
+        return self.xyz.shape[-3]
 
     @property
     def max_points(self) -> int:
-        return self.xyz.shape[1]
+        return self.xyz.shape[-2]
+
+
+def stack_range_images(images) -> RangeImage:
+    """B range images of one shape as one batch: [B, R, P, 3] xyz,
+    [B, R, P] mask and [B, R] count."""
+    return RangeImage(*(torch.stack(field) for field in zip(*images)))
 
 
 def build_range_image(

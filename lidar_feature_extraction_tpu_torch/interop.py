@@ -88,6 +88,28 @@ def range_image_from_numpy(xyz, mask, count, device="cuda") -> RangeImage:
                       count=_t(count, torch.int32, device))
 
 
+def range_images_from_numpy(xyz, mask, count, device="cuda") -> RangeImage:
+    """A batch of B range images from stacked xyz [B, R, P, 3], mask
+    [B, R, P] and count [B, R] (``np.stack`` of B single images)."""
+    xyz, mask, count = np.asarray(xyz), np.asarray(mask), np.asarray(count)
+    if xyz.ndim != 4 or mask.shape != xyz.shape[:3] \
+            or count.shape != xyz.shape[:2]:
+        raise ValueError(f"range_images_from_numpy: needs [B, R, P, 3], "
+                         f"[B, R, P] and [B, R], got {xyz.shape}, "
+                         f"{mask.shape}, {count.shape}")
+    return range_image_from_numpy(xyz, mask, count, device)
+
+
+def poses_from_numpy(q, t, device="cuda") -> Pose:
+    """A batch of B poses from wxyz quaternions [B, 4] and translations
+    [B, 3]."""
+    q, t = np.asarray(q), np.asarray(t)
+    if q.ndim != 2 or q.shape[-1] != 4 or t.shape != q.shape[:1] + (3,):
+        raise ValueError(f"poses_from_numpy: needs [B, 4] and [B, 3], got "
+                         f"{q.shape} and {t.shape}")
+    return pose_from_numpy(q, t, device)
+
+
 def _auto(a, device) -> torch.Tensor | None:
     """An array as a tensor: booleans stay bool, integers become int32,
     floats float32. None stays None (an optional field)."""

@@ -410,7 +410,23 @@ def extract_features_compact(image: RangeImage, cfg: ExtractionConfig,
 
     With ``cfg.pallas_labeling`` the labels and columns come from
     ``label_and_columns`` (kernel K1 on CUDA tensors, its plain version
-    on CPU tensors); otherwise from the plain functions above."""
+    on CPU tensors); otherwise from the plain functions above.
+
+    A batch of B images ([B, R, P, 3] xyz) is extracted as one image of
+    B * R rings, every step working ring by ring: ONE K1 launch on the
+    [B * R, P] planes. The features come back per scan: labels
+    [B, R, P], edges [B, R * edges_per_ring, 3], surfaces
+    [B, R * surface_runs_per_ring, 3]."""
+    if image.xyz.dim() == 4:
+        B = image.mask.shape[0]
+        f = extract_features_compact(
+            RangeImage(*(a.flatten(0, 1) for a in image)), cfg,
+            surface_leaf, edges_per_ring, surface_runs_per_ring,
+            surface_centroid)
+        # Ring-major rows: scan b's rings (and their features) are the
+        # b-th block of R.
+        return CompactFeatures(*(a.reshape((B, -1) + a.shape[1:])
+                                 for a in f))
     xyz = image.xyz
     R, P = image.mask.shape
     ce, cs = edges_per_ring, surface_runs_per_ring

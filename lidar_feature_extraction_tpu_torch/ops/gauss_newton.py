@@ -7,6 +7,13 @@ reference's five status codes. The reference's ``lax.while_loop``
 becomes a Python loop around one fixed-shape device step
 (``_gn_body``); the loop reads the step's status back once per
 iteration to decide whether to go on.
+
+Every function here also takes a leading batch dimension: B scans
+registered in lock-step by ``run_gauss_newton_batched``, which does what
+JAX's ``vmap`` of the reference's while-loop does (the body runs while
+any lane's condition holds; a lane whose condition is false keeps its
+whole carry), with one read per iteration of "is any lane still
+running".
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ class GNResult(NamedTuple):
 
 
 class Problem(NamedTuple):
-    """Stacked correspondences in row form.
+    """Stacked correspondences in row form (a batch adds a leading
+    dimension to every tensor).
 
     jac_rows:  [M, 7] all jacobian rows (M = sum of N_b * D_b)
     res_rows:  [M] residual entries matching the rows
@@ -60,31 +68,35 @@ class Problem(NamedTuple):
 
 
 def rows_from_corr(problem: Problem, values: torch.Tensor) -> torch.Tensor:
-    """Broadcast a per-correspondence [N] vector to the [M] rows."""
+    """Broadcast a per-correspondence [..., N] vector to the [..., M]
+    rows."""
     out = []
     offset = 0
+    lead = values.shape[:-1]
     for n, d in problem.shape:
-        seg = values[offset:offset + n]
-        out.append(seg[:, None].expand(n, d).reshape(n * d))
+        seg = values[..., offset:offset + n]
+        out.append(seg[..., None].expand(lead + (n, d)).reshape(
+            lead + (n * d,)))
         offset += n
-    return torch.cat(out, dim=0)
+    return torch.cat(out, dim=-1)
 
 
 def make_problem(blocks) -> Problem:
     """Stack ResidualBlocks (possibly of different row-dims D) into one
-    row-form problem."""
+    row-form problem. Blocks of a batch ([..., N, D, 7] Jacobians) stack
+    lane by lane."""
     jacs, ress, errs, valids, shape = [], [], [], [], []
     for b in blocks:
-        n, d, _ = b.jacobian.shape
-        jacs.append(b.jacobian.reshape(n * d, 7))
-        ress.append(b.residual.reshape(n * d))
+        *lead, n, d, _ = b.jacobian.shape
+        jacs.append(b.jacobian.reshape(*lead, n * d, 7))
+        ress.append(b.residual.reshape(*lead, n * d))
         errs.append(torch.sum(b.residual * b.residual, dim=-1))
         valids.append(b.valid)
         shape.append((n, d))
-    return Problem(jac_rows=torch.cat(jacs, dim=0),
-                   res_rows=torch.cat(ress, dim=0),
-                   errors=torch.cat(errs, dim=0),
-                   valid=torch.cat(valids, dim=0),
+    return Problem(jac_rows=torch.cat(jacs, dim=-2),
+                   res_rows=torch.cat(ress, dim=-1),
+                   errors=torch.cat(errs, dim=-1),
+                   valid=torch.cat(valids, dim=-1),
                    shape=tuple(shape))
 
 
@@ -101,28 +113,49 @@ def make_m(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bot], dim=-2)
 
 
+def _lanewise(batched: bool, fn, *args):
+    """``fn`` of one problem's tensors; for a batch (``batched``: a
+    leading lane dimension on every argument), lane by lane on slices of
+    the very shapes a lone problem has, the results stacked.
+    The float sums of a reduction or a matmul run in an order that the
+    kernel picks from the whole tensor's shape (a batch of 32 is summed
+    otherwise than one problem), so only lane-by-lane calls give every
+    lane the bits of its lone run. Elementwise work needs none of
+    this."""
+    if not batched:
+        return fn(*args)
+    lanes = [fn(*(a[b] for a in args)) for b in range(args[0].shape[0])]
+    return tuple(torch.stack(out) for out in zip(*lanes))
+
+
+def _normal_equations(jv, jw, j, wr, M):
+    """(D, H, g) of one problem: the unweighted 7x7 Hessian, the
+    weighted manifold Hessian M^T A M and gradient M^T b."""
+    D = jv.T @ j
+    A = jw.T @ j
+    b = j.T @ wr
+    return D, M.T @ A @ M, M.T @ b
+
+
 def weighted_update(q: torch.Tensor, weights: torch.Tensor,
                     problem: Problem, degeneracy_threshold: float):
     """One GN solve: dx = -(M^T A M)^{-1} M^T b, or zero when the
     unweighted Hessian is degenerate or the solve is not finite.
-    Returns ``(dx [6], H [6, 6])``."""
+    Returns ``(dx [..., 6], H [..., 6, 6])``; a batch's normal equations
+    are summed lane by lane (``_lanewise``), the rest is batched."""
     w = torch.where(problem.valid, weights, 0.0)
     vf = problem.valid.to(problem.jac_rows.dtype)
-    w_rows = rows_from_corr(problem, w)[:, None]
-    v_rows = rows_from_corr(problem, vf)[:, None]
+    w_rows = rows_from_corr(problem, w)[..., None]
+    v_rows = rows_from_corr(problem, vf)[..., None]
     j = problem.jac_rows
-    D = (j * v_rows).T @ j
-    A = (j * w_rows).T @ j
-    b = j.T @ (w_rows[:, 0] * problem.res_rows)
-
-    M = make_m(q)
-    H = M.T @ A @ M
-    g = M.T @ b
+    D, H, g = _lanewise(j.dim() == 3, _normal_equations, j * v_rows,
+                        j * w_rows, j,
+                        w_rows[..., 0] * problem.res_rows, make_m(q))
     dx = -smallalg.cholesky_solve(H, g)
 
     degenerate = smallalg.min_eigval_below(D, degeneracy_threshold)
-    bad = degenerate | ~torch.all(torch.isfinite(dx))
-    return torch.where(bad, torch.zeros_like(dx), dx), H
+    bad = degenerate | ~torch.all(torch.isfinite(dx), dim=-1)
+    return torch.where(bad[..., None], torch.zeros_like(dx), dx), H
 
 
 class _GNState(NamedTuple):
@@ -137,23 +170,24 @@ class _GNState(NamedTuple):
 
 def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
              degeneracy_threshold, abort_on_increase) -> _GNState:
-    """One iteration of the reference's while-loop body, on the device."""
+    """One iteration of the reference's while-loop body, on the device
+    (for a batch, of every lane at once)."""
     q, t, prev_error, prev_scale = state.q, state.t, state.prev_error, \
         state.prev_scale
     problem = problem_fn(Pose(q, t))
 
-    n_valid = torch.sum(problem.valid.to(torch.int32))
+    n_valid = torch.sum(problem.valid, dim=-1, dtype=torch.int32)
     errors = torch.where(problem.valid, problem.errors, 0.0)
-    error = torch.sum(errors)
+    error, = _lanewise(errors.dim() == 2, lambda e: (torch.sum(e),), errors)
     scale = stats.masked_scale_bisect(problem.errors, problem.valid)
-    normalized = errors / (scale + 1e-16)
+    normalized = errors / (scale[..., None] + 1e-16)
 
     meds, off = [], 0
     for n_b, _ in problem.shape:
-        meds.append(stats._wide_median(problem.errors[off:off + n_b],
-                                       problem.valid[off:off + n_b]))
+        meds.append(stats._wide_median(problem.errors[..., off:off + n_b],
+                                       problem.valid[..., off:off + n_b]))
         off += n_b
-    block_meds = torch.stack(meds)
+    block_meds = torch.stack(meds, dim=-1)
 
     empty = n_valid == 0
     err_up = (error > prev_error) & abort_on_increase
@@ -161,15 +195,16 @@ def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
 
     weights = stats.huber_derivative(normalized, huber_k)
     dx, hess = weighted_update(q, weights, problem, degeneracy_threshold)
-    dq = quat.exp_so3(dx[:3])
-    dt = dx[3:]
+    dq = quat.exp_so3(dx[..., :3])
+    dt = dx[..., 3:]
     q_new = quat.quat_normalize(quat.quat_multiply(q, dq))
     t_new = t + dt
-    converged = ((quat._norm(dq[1:]) < convergence_tol)
+    converged = ((quat._norm(dq[..., 1:]) < convergence_tol)
                  & (quat._norm(dt) < convergence_tol))
 
     # Aborts keep the pre-update pose.
     abort = empty | err_up | scale_up
+    abort_v = abort[..., None]
     code = lambda c: torch.full_like(state.status, c)  # noqa: E731
     status = torch.where(
         empty, code(EMPTY_INPUT),
@@ -177,8 +212,8 @@ def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
                     torch.where(scale_up, code(SCALE_INCREASED),
                                 torch.where(converged, code(CONVERGED),
                                             code(-1)))))
-    return _GNState(q=torch.where(abort, q, q_new),
-                    t=torch.where(abort, t, t_new),
+    return _GNState(q=torch.where(abort_v, q, q_new),
+                    t=torch.where(abort_v, t, t_new),
                     prev_error=torch.where(abort, prev_error, error),
                     prev_scale=torch.where(abort, prev_scale, scale),
                     status=status, hess=hess, block_meds=block_meds)
@@ -224,3 +259,62 @@ def run_gauss_newton(
                                             device=dev),
                     error=state.prev_error, scale=state.prev_scale,
                     hessian=state.hess, block_errors=state.block_meds)
+
+
+def run_gauss_newton_batched(
+    problem_fn: Callable[[Pose], Problem],
+    initial_poses: Pose,
+    max_iterations: int,
+    convergence_tol: float = 1e-3,
+    huber_k: float = 1.345,
+    degeneracy_threshold: float = 0.1,
+    abort_on_increase: bool = True,
+) -> GNResult:
+    """``run_gauss_newton`` for B problems in lock-step: ``initial_poses``
+    holds q [B, 4] and t [B, 3], ``problem_fn`` maps such poses to a
+    Problem with a leading batch dimension. Returns a GNResult whose
+    fields have a leading [B].
+
+    The semantics of JAX's ``vmap`` over the reference's while-loop: the
+    body runs for every lane while any lane still runs (status < 0 and
+    fewer than ``max_iterations`` bodies), and a lane that has stopped
+    keeps its whole carry (pose, errors, status, Hessian, block
+    medians, iteration count). So each lane's result is the one it
+    would get alone. One host read per iteration."""
+    dtype = initial_poses.t.dtype
+    dev = initial_poses.t.device
+    B = initial_poses.t.shape[0]
+    big = torch.tensor(torch.finfo(dtype).max, dtype=dtype, device=dev)
+    state = _GNState(q=initial_poses.q.to(dtype),
+                     t=initial_poses.t.to(dtype),
+                     prev_error=big.expand(B).clone(),
+                     prev_scale=big.expand(B).clone(),
+                     status=torch.full((B,), -1, dtype=torch.int32,
+                                       device=dev),
+                     hess=torch.zeros((B, 6, 6), dtype=dtype, device=dev),
+                     block_meds=None)
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    for k in range(max_iterations):
+        # A lane still running has run exactly k bodies, so its
+        # "it < max_iterations" holds: running is status < 0.
+        running = state.status < 0
+        new = _gn_body(problem_fn, state, convergence_tol, huber_k,
+                       degeneracy_threshold, abort_on_increase)
+        # At k = 0 every lane runs.
+        state = new if k == 0 else _GNState(*(
+            torch.where(running.reshape((B,) + (1,) * (n.dim() - 1)), n, o)
+            for n, o in zip(new, state)))
+        it = it + running.to(torch.int32)
+        if not bool((state.status < 0).any()):   # the one readback
+            break
+    if state.block_meds is None:
+        # No body ran: the reference reports its initial carry.
+        n_blocks = len(problem_fn(initial_poses).shape)
+        state = state._replace(block_meds=big.expand(B, n_blocks).clone())
+    status = torch.where(state.status < 0,
+                         torch.full_like(state.status, MAX_ITERATIONS),
+                         state.status)
+    return GNResult(pose=Pose(state.q, state.t), status=status,
+                    iterations=it, error=state.prev_error,
+                    scale=state.prev_scale, hessian=state.hess,
+                    block_errors=state.block_meds)

@@ -270,11 +270,17 @@ def fused_rows_from_grids(edge_grid: GeometryGrid,
                           edge_pts, edge_valid, surf_pts, surf_valid,
                           pose: Pose, min_points: int):
     """Edge (point-to-line) and surface (point-to-plane) residual blocks
-    at ``pose`` with ONE record gather from ``fuse_record_tables``."""
+    at ``pose`` with ONE record gather from ``fuse_record_tables``.
+
+    Batched: points [B, N, 3] and poses q [B, 4], t [B, 3] give blocks
+    with a leading [B], all lanes gathering from the one shared table
+    (the reference's ``vmap`` with the maps unbatched)."""
     ce_cap = edge_grid.capacity
     cs_cap = surf_grid.capacity
     dump = ce_cap + cs_cap
 
+    # One pose per lane, broadcast over that lane's points.
+    pose = Pose(pose.q[..., None, :], pose.t[..., None, :])
     pe = pose.apply(edge_pts)
     ps = pose.apply(surf_pts)
     cells_e = _ravel(_cell_of(pe, edge_grid.voxel_size, edge_grid.origin),
@@ -285,10 +291,10 @@ def fused_rows_from_grids(edge_grid: GeometryGrid,
     in_s = cells_s < cs_cap
     idx = torch.cat([torch.where(in_e, cells_e, torch.full_like(cells_e,
                                                                  dump)),
-                     ce_cap + cells_s], dim=0)
+                     ce_cap + cells_s], dim=-1)
     rec = fused_rec[idx.to(torch.int64)]
-    qe = edge_pts.shape[0]
-    rec_e, rec_s = rec[:qe], rec[qe:]
+    qe = edge_pts.shape[-2]
+    rec_e, rec_s = rec[..., :qe, :], rec[..., qe:, :]
 
     # Edge rows: residual (p - p1) x (p - p2), Jacobian
     # [Hat(p2 - p1) DRpDq | Hat(p2 - p1)].

@@ -41,15 +41,16 @@ def solve3x3_sym(a: torch.Tensor, b: torch.Tensor,
 
 def cholesky_solve(a: torch.Tensor, b: torch.Tensor,
                    eps: float = 1e-30) -> torch.Tensor:
-    """Solve SPD ``a x = b`` (a [n, n], b [n]) by an unrolled Cholesky
-    factorization. Non-SPD input gives inf/nan, which the caller's
-    degeneracy guard turns into a zero update."""
+    """Solve SPD ``a x = b`` (a [..., n, n], b [..., n]) by an unrolled
+    Cholesky factorization, leading dimensions a batch. Non-SPD input
+    gives inf/nan, which the caller's degeneracy guard turns into a zero
+    update."""
     n = a.shape[-1]
-    rows = [a[i] for i in range(n)]
+    rows = [a[..., i, :] for i in range(n)]
     l = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
-            s = rows[i][j]
+            s = rows[i][..., j]
             for k in range(j):
                 s = s - l[i][k] * l[j][k]
             if i == j:
@@ -60,7 +61,7 @@ def cholesky_solve(a: torch.Tensor, b: torch.Tensor,
                                           torch.full_like(ljj, eps), ljj)
     y = [None] * n
     for i in range(n):
-        s = b[i]
+        s = b[..., i]
         for k in range(i):
             s = s - l[i][k] * y[k]
         y[i] = s / l[i][i]
@@ -70,21 +71,21 @@ def cholesky_solve(a: torch.Tensor, b: torch.Tensor,
         for k in range(i + 1, n):
             s = s - l[k][i] * x[k]
         x[i] = s / l[i][i]
-    return torch.stack(x)
+    return torch.stack(x, dim=-1)
 
 
 def min_eigval_below(a: torch.Tensor, tau: float) -> torch.Tensor:
-    """True iff the minimum eigenvalue of symmetric PSD ``a`` [n, n] is
-    below ``tau``: (a - tau I) fails an unrolled Cholesky exactly when a
-    pivot is not positive."""
+    """True iff the minimum eigenvalue of symmetric PSD ``a`` [..., n, n]
+    is below ``tau`` ([...]): (a - tau I) fails an unrolled Cholesky
+    exactly when a pivot is not positive."""
     n = a.shape[-1]
     a = a - tau * torch.eye(n, dtype=a.dtype, device=a.device)
-    rows = [a[i] for i in range(n)]
+    rows = [a[..., i, :] for i in range(n)]
     l = [[None] * n for _ in range(n)]
-    ok = torch.ones((), dtype=torch.bool, device=a.device)
+    ok = torch.ones(a.shape[:-2], dtype=torch.bool, device=a.device)
     for i in range(n):
         for j in range(i + 1):
-            s = rows[i][j]
+            s = rows[i][..., j]
             for k in range(j):
                 s = s - l[i][k] * l[j][k]
             if i == j:

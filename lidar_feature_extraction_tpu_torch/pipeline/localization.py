@@ -12,6 +12,8 @@ Port of ``lidar_feature_extraction_tpu/pipeline/localization.py:45-439``:
   ``lax.cond`` between rounds is one host read of the "run again?" flag
   per round;
 - ``localize_scan``: extraction + registration, for both map types;
+- ``localize_scans``: B scans at once, one extraction and one
+  lock-step Gauss-Newton loop (the compact + ``GeometryMaps`` branch);
 - ``HostLocalizer``: the same calls behind the reference's class
   interface. The reference splits it into small jitted programs because
   its TPU compiler is slow on the fused loop; here every loop is driven
@@ -106,8 +108,12 @@ def build_geometry_maps(edge_xyz, edge_mask, surface_xyz, surface_mask,
 
 def _gauss_newton(problem_fn, prior: Pose, cfg: PipelineConfig,
                   max_iterations: int) -> gn.GNResult:
+    """One Gauss-Newton loop; a batch of priors (t [B, 3]) runs the
+    lanes in lock-step."""
     reg = cfg.registration
-    return gn.run_gauss_newton(
+    run = (gn.run_gauss_newton_batched if prior.t.dim() == 2
+           else gn.run_gauss_newton)
+    return run(
         problem_fn, prior,
         max_iterations=max_iterations,
         convergence_tol=reg.convergence_tol,
@@ -122,7 +128,9 @@ def register_scan_geometry(maps: GeometryMaps, edge_pts, edge_valid,
     """Gauss-Newton registration against precomputed-geometry maps, the
     voxel lookup re-done every iteration. ``pre_downsampled`` skips the
     surface voxel downsample when the extraction already voxel-thinned
-    the surfaces (``extract_features_compact``)."""
+    the surfaces (``extract_features_compact``). With points [B, N, 3]
+    and priors q [B, 4], t [B, 3] (pre-downsampled), B scans register in
+    lock-step against the shared maps."""
     reg = cfg.registration
     if pre_downsampled:
         surf_ds, surf_ds_valid = surf_pts, surf_valid
@@ -234,6 +242,35 @@ def localize_scan(maps, image: RangeImage, prior: Pose,
     result = register(maps, feats.edge_xyz, feats.edge_valid,
                       feats.surface_xyz, feats.surface_valid, prior, cfg)
     return result, feats
+
+
+def localize_scans(maps, images: RangeImage, priors: Pose,
+                   cfg: PipelineConfig):
+    """B independent scans through one extraction and one lock-step
+    Gauss-Newton loop: ``images`` a batch ([B, R, P, 3] xyz,
+    ``core.scan.stack_range_images``), ``priors`` q [B, 4] and t [B, 3],
+    ``maps`` shared by every scan. Each scan's result is the one
+    ``localize_scan`` gives it alone (the reference's ``vmap`` of
+    ``localize_scan``). Returns (GNResult with [B] fields,
+    CompactFeatures with [B] fields).
+
+    The branch of ``kitti_hdl64()``: ``cfg.compact_extraction`` with
+    ``GeometryMaps``. The compact extraction is one K1 launch for the
+    batch on CUDA tensors. The full extraction with ``voxel_downsample``
+    and ``FeatureMaps`` with kNN rounds raise NotImplementedError
+    (ROADMAP.md item 12, the batched full-extraction and FeatureMaps
+    branches)."""
+    if not (cfg.compact_extraction and isinstance(maps, GeometryMaps)):
+        raise NotImplementedError(
+            "localize_scans: only cfg.compact_extraction with GeometryMaps "
+            "is ported; the batched full-extraction and FeatureMaps branches "
+            "are ROADMAP.md item 12")
+    if images.xyz.dim() != 4 or priors.t.shape != (images.xyz.shape[0], 3):
+        raise ValueError(f"localize_scans: needs a batch of images and "
+                         f"priors, got xyz {tuple(images.xyz.shape)} and "
+                         f"t {tuple(priors.t.shape)}")
+    # Every step of that branch takes the leading batch dimension.
+    return localize_scan(maps, images, priors, cfg)
 
 
 class HostLocalizer:

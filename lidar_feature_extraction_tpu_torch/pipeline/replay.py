@@ -9,8 +9,8 @@ filters stay on the pipeline's device; the host reads back the
 registration's status each Gauss-Newton iteration and nothing of the
 filter.
 
-``run_kitti_localization`` (KITTI replay) is not ported: it needs the
-``io/`` readers, still to port.
+``run_kitti_localization`` replays a KITTI velodyne sequence through
+the pipeline.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.core.scan import (RangeImage,
                                                           build_range_image)
 from lidar_feature_extraction_tpu_torch.fusion import ekf as ekf_mod
+from lidar_feature_extraction_tpu_torch.io import kitti
 from lidar_feature_extraction_tpu_torch.pipeline.localization import (
     localize_scan)
 
@@ -157,3 +158,20 @@ class FusedLocalizationPipeline:
                           measured_pose=Pose(mq, mt),
                           gn_status=int(result.status),
                           gn_iterations=int(result.iterations))
+
+
+def run_kitti_localization(sequence_dir: str, maps, cfg: PipelineConfig,
+                           limit: int | None = None,
+                           scan_period: float = 0.1,
+                           device="cuda") -> np.ndarray:
+    """Replay a KITTI velodyne sequence (its ``.bin`` scans in name
+    order, rings estimated from elevation) against pre-built maps on
+    ``device``, one scan every ``scan_period`` seconds and no twists.
+    Returns the [N, 3] fused positions."""
+    pipeline = FusedLocalizationPipeline(maps, cfg, device=device)
+    out = []
+    for i, scan in enumerate(kitti.iter_scans(sequence_dir, limit)):
+        ring = kitti.estimate_rings(scan[:, :3], cfg.extraction.n_rings)
+        res = pipeline.process_scan(scan[:, :3], ring, i * scan_period)
+        out.append(res.fused_pose.t)
+    return torch.stack(out).cpu().numpy()

@@ -199,3 +199,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in banned]
     assert not bad, f"{path.name} imports {bad}"
+
+
+_SLICE_MODULES = ("io/convert.py", "io/kitti.py", "ops/alignment.py",
+                  "ops/color.py", "parallel/distributed.py",
+                  "pipeline/launch.py", "pipeline/trajectory.py")
+
+
+@pytest.mark.parametrize("module", _SLICE_MODULES)
+def test_import_scan_covers_the_batch_and_entry_modules(module):
+    """The scan above reaches every module of the batched localizer and
+    the entry points (it globs the package; a module left out of the glob
+    would go unchecked)."""
+    assert _ROOT / "lidar_feature_extraction_tpu_torch" / module in \
+        _PORT_FILES

@@ -519,3 +519,126 @@ def test_mapping_pipeline_on_the_card_matches_the_cpu(cuda):
     assert len(want.constraints) > len(want.keyframes) - 1   # a closure
     np.testing.assert_allclose(got.trajectory, want.trajectory, rtol=0,
                                atol=1e-6)
+
+
+# ---- the batched localizer and the entry points -------------------------
+
+def _lanes(B, device):
+    """B lanes of chip_smoke's bench scan at kitti widths, lane b moved
+    by 1e-3 * b m: a batch of images [B, 64, 2304, 3] on ``device``."""
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+
+    kitti = kitti_hdl64().extraction
+    xyz = _full("bench", kitti)
+    R, P = xyz.shape[:2]
+    step = np.float32([1.0, -0.5, 0.2])
+    return stack_range_images([range_image_from_numpy(
+        xyz + np.float32(1e-3 * b) * step, np.ones((R, P), bool),
+        np.full(R, P, np.int32), device=device) for b in range(B)])
+
+
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_batched_k1_launch_matches_single_launches_and_plain(cuda, B):
+    """One launch on the batch's [B * 64, 2304] planes: bit-equal to B
+    single launches and to the plain version, counted once."""
+    kitti = kitti_hdl64().extraction
+    images = _lanes(B, cuda)
+    args = (kitti, 1.0, kitti.edges_per_ring, kitti.surface_runs_per_ring)
+    planes = [images.xyz.flatten(0, 1)[..., i].contiguous() for i in range(3)]
+    count = images.count.flatten()
+    before = extraction_cuda.label_and_columns_cuda.launches
+    got = extraction_cuda.label_and_columns_cuda(*planes, count, *args)
+    assert extraction_cuda.label_and_columns_cuda.launches == before + 1
+    singles = [extraction_cuda.label_and_columns_cuda(
+        *[p[b * 64:(b + 1) * 64] for p in planes], count[:64], *args)
+        for b in range(B)]
+    want = tex.label_and_columns_plain(*planes, count, *args)
+    torch.cuda.synchronize()
+    for n, name in enumerate(("labels", "curvature", "col")):
+        assert torch.equal(got[n], torch.cat([s[n] for s in singles])), name
+        assert torch.equal(got[n], want[n]), name
+
+
+def test_localize_scans_on_the_card_matches_lone_runs(cuda):
+    """Six lanes of the bench scene at kitti widths, each with its own
+    prior, through the batched localizer on the card: each lane's status
+    and iterations those of its lone ``localize_scan`` on the card, its
+    pose within 1e-4; one K1 launch for the batch."""
+    from lidar_feature_extraction_tpu_torch.parallel.distributed import (
+        make_batched_localizer)
+    from lidar_feature_extraction_tpu_torch.pipeline import localization
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        keyframe_copies)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = kitti_hdl64()
+    B = 6
+    images = _lanes(B, cuda)
+    one = range_image_from_numpy(*(a[0].cpu().numpy() for a in images),
+                                 device=cuda)
+    f = tex.extract_features(one, cfg.extraction)
+    rng = np.random.default_rng(0)
+    bench_scan(rng, 64, 2304)             # the map's draws follow the scan's
+    edge = torch.as_tensor(keyframe_copies(rng, f.edge_xyz[
+        f.edge_valid].cpu().numpy()), dtype=torch.float32, device=cuda)
+    surf = torch.as_tensor(keyframe_copies(rng, f.surface_xyz[
+        f.surface_valid].cpu().numpy()), dtype=torch.float32, device=cuda)
+    ones = lambda a: torch.ones(len(a), dtype=torch.bool, device=cuda)  # noqa: E731
+    maps = localization.build_geometry_maps(edge, ones(edge), surf,
+                                            ones(surf), cfg)
+    prng = np.random.default_rng(7)
+    yaw = np.radians(1.0) * prng.normal(size=B)
+    d = prng.normal(size=(B, 3))
+    q = torch.as_tensor(np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw,
+                                  np.sin(yaw / 2)], -1), dtype=torch.float32,
+                        device=cuda)
+    t = torch.as_tensor(np.float32([0.3, -0.2, 0.05]) + 0.2 * d
+                        / np.linalg.norm(d, axis=-1, keepdims=True),
+                        dtype=torch.float32, device=cuda)
+    before = extraction_cuda.label_and_columns_cuda.launches
+    got, feats = make_batched_localizer(cfg)(maps, images, Pose(q, t))
+    assert extraction_cuda.label_and_columns_cuda.launches == before + 1
+    assert feats.labels.shape == images.mask.shape
+    for b in range(B):
+        lone, _ = localization.localize_scan(
+            maps, localization.RangeImage(*(a[b] for a in images)),
+            Pose(q[b], t[b]), cfg)
+        assert (int(got.status[b]), int(got.iterations[b])) == (
+            int(lone.status), int(lone.iterations)), b
+        assert float((got.pose.t[b] - lone.pose.t).abs().max()) <= 1e-4
+        assert float((got.pose.q[b] - lone.pose.q).abs().max()) <= 1e-4
+
+
+def test_batched_localizer_and_launchers_default_to_the_card(cuda,
+                                                             tmp_path):
+    from lidar_feature_extraction_tpu_torch.interop import (
+        geometry_maps_from_numpy, poses_from_numpy, range_images_from_numpy)
+    from lidar_feature_extraction_tpu_torch.io.pcd import save_pcd
+    from lidar_feature_extraction_tpu_torch.parallel.distributed import (
+        make_batched_localizer)
+    from lidar_feature_extraction_tpu_torch.pipeline import launch
+
+    cfg = launch.load_config("kitti_hdl64", overrides={
+        "extraction": {"n_rings": 4, "max_points_per_ring": 64}})
+    rec = np.zeros((5, 8), np.float32)
+    maps = geometry_maps_from_numpy(
+        rec, np.float32(0.5), np.zeros(3, np.float32), (2, 2, 1), rec,
+        np.float32(0.5), np.zeros(3, np.float32), (2, 2, 1))
+    assert maps.fused.is_cuda
+    images = range_images_from_numpy(
+        np.ones((2, 4, 64, 3), np.float32), np.ones((2, 4, 64), bool),
+        np.full((2, 4), 64), device="cpu")
+    priors = poses_from_numpy(np.float32([[1, 0, 0, 0]] * 2),
+                              np.zeros((2, 3), np.float32), device="cpu")
+    result, feats = make_batched_localizer(cfg)(maps, images, priors)
+    assert result.pose.t.is_cuda and feats.labels.is_cuda
+    rng = np.random.default_rng(0)
+    edge, surf = str(tmp_path / "edge.pcd"), str(tmp_path / "surface.pcd")
+    save_pcd(edge, np.float32(rng.uniform(-5, 5, (200, 3))))
+    save_pcd(surf, np.float32(rng.uniform(-5, 5, (400, 3))))
+    assert launch.load_maps(edge, surf, cfg).fused.is_cuda
+    pipe = launch.launch_localization(edge, surf, cfg)
+    assert pipe.device.type == "cuda" and pipe.maps.fused.is_cuda
+    assert launch.launch_mapping(cfg).odometry.state.pose_t.is_cuda
+    assert launch.launch_odometry(cfg).state.pose_t.is_cuda

@@ -22,7 +22,14 @@ Tolerances:
   registration Hessian differing in float32 rounding only);
 - the map builder: accept decisions, cursor and masks exactly, points
   within 1e-5 m.
+
+The reference's linearization and the IMU graph's keyframe
+preintegration run jitted (the noise densities static): one program
+instead of a compile per eager operation or call; the IMU graph's
+problem is built once.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -117,7 +124,7 @@ def test_constraint_linearization_matches_jacfwd():
     (q, t), cons = _looped_graph(0)
     i, j, z_q, z_t = cons[:4]
     args = (q[i], t[i], q[j], t[j], z_q, z_t)
-    want = jpg._linearize(*[jnp.asarray(a) for a in args])
+    want = jax.jit(jpg._linearize)(*[jnp.asarray(a) for a in args])
     got = tpg._linearize(*[torch.as_tensor(a) for a in args])
     for a, b in zip(got, want):
         _close(a, b, 1e-5, RTOL)
@@ -153,6 +160,11 @@ def test_optimize_pose_graph_matches_reference(solver, with_info,
     assert np.abs(np.asarray(want.poses_t) - t).max() > 0.05
 
 
+_preintegrate = jax.jit(jimu.preintegrate,
+                        static_argnames=("gyro_noise", "accel_noise"))
+
+
+@functools.cache
 def _imu_graph_problem(bias=(0.0, 0.0, 0.02)):
     """An arc driven for 2 s, keyframes every 0.2 s, the gyro biased by
     ``bias``; factors preintegrated at zero bias (with their Jacobians),
@@ -169,7 +181,7 @@ def _imu_graph_problem(bias=(0.0, 0.0, 0.02)):
     gyro = jnp.asarray(np32(np.asarray(gyro) + np32(bias)))
     kf = list(range(0, n, every))
     zero = jnp.zeros(3, jnp.float32)
-    pres = [jimu.preintegrate(gyro[a:b], accel[a:b], dts[a:b], zero, zero)
+    pres = [_preintegrate(gyro[a:b], accel[a:b], dts[a:b], zero, zero)
             for a, b in zip(kf[:-1], kf[1:])]
     k = len(kf)
     w_rot, w_vel, w_pos = jig.weights_from_covariance(

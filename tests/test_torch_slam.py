@@ -8,11 +8,12 @@ test_torch_pose_graph.py.
 The pipeline runs test_slam's loop-closure scenario (an out-and-back
 drive over test_pipeline's world) with the odometry grid cut to
 32 x 32 x 8 voxels; the reference's runs are computed once per module.
-The reference runs its graph solvers and its keyframe preintegration
-eagerly, which compiles their loops again at every call; here they are
-jitted with their iteration counts and noise densities static, so the
-run reuses one program per shape bucket (the same functions on the same
-inputs).
+The reference runs its graph solvers, its keyframe preintegration and
+its loop-closure registrations eagerly, which compiles their loops
+again at every call; here they are jitted (iteration counts and noise
+densities static; a registration's problem closure with its arrays as
+arguments), so the runs reuse one program per shape (the same functions
+on the same inputs).
 
 Tolerances:
 - keyframe count, every constraint's (i, j) and IMU factor count
@@ -32,6 +33,7 @@ Tolerances:
 
 import contextlib
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -46,6 +48,7 @@ from test_pipeline import (  # noqa: E402
     make_world, pad_to, sample_scan_features, small_cfg)
 from lidar_feature_extraction_tpu.core.pose import Pose as JPose  # noqa: E402
 from lidar_feature_extraction_tpu.fusion import imu as jimu  # noqa: E402
+from lidar_feature_extraction_tpu.ops import gauss_newton as jgn  # noqa: E402
 from lidar_feature_extraction_tpu.parallel import imu_graph as jig  # noqa: E402
 from lidar_feature_extraction_tpu.parallel import pose_graph as jpg  # noqa: E402
 from lidar_feature_extraction_tpu.pipeline import slam as jslam  # noqa: E402
@@ -114,12 +117,57 @@ def _drive():
     return out, windows
 
 
+def _compiled_once(run):
+    """``run(problem_fn, pose, **kw)`` jitted once per kind of problem:
+    the arrays of the problem closure (its cells and defaults) become
+    arguments of one compiled program, keyed by the closure's code, its
+    other (static) contents, the arrays' shapes and the keywords. Every
+    loop-closure registration of one pyramid stage then reuses it."""
+    cache = {}
+
+    def cached(problem_fn, initial_pose, **kw):
+        leaves, tree = jax.tree_util.tree_flatten((
+            [c.cell_contents for c in problem_fn.__closure__ or ()],
+            problem_fn.__defaults__ or ()))
+        traced = [isinstance(x, (jax.Array, np.ndarray, float))
+                  for x in leaves]
+        key = (problem_fn.__code__, tree, tuple(
+            (jnp.shape(x), jnp.result_type(x)) if t else x
+            for x, t in zip(leaves, traced)), tuple(sorted(kw.items())))
+        if key not in cache:
+            static = list(leaves)
+
+            def program(pose, arrays):
+                it = iter(arrays)
+                cells, defaults = jax.tree_util.tree_unflatten(
+                    tree, [next(it) if t else x
+                           for x, t in zip(static, traced)])
+                fn = types.FunctionType(
+                    problem_fn.__code__, problem_fn.__globals__,
+                    problem_fn.__name__, tuple(defaults) or None,
+                    tuple(types.CellType(c) for c in cells) or None)
+                return run(fn, pose, **kw)
+            cache[key] = jax.jit(program)
+        return cache[key](initial_pose,
+                          [x for x, t in zip(leaves, traced) if t])
+    return cached
+
+
+_REF_GN = types.SimpleNamespace(**{
+    **vars(jgn), "run_gauss_newton": _compiled_once(jgn.run_gauss_newton)})
+
+
 @contextlib.contextmanager
 def _jitted_reference():
-    """The reference's graph solvers and keyframe preintegration, jitted
-    (iteration counts, kernel width and noise densities static)."""
-    static = ("n_iterations", "robust_delta")
+    """The reference's graph solvers, keyframe preintegration and
+    loop-closure registrations, jitted (iteration counts and noise
+    densities static). The kernel width stays a Python float argument:
+    with x64 on it is traced as a weak float64, so its square is rounded
+    as the float's is, and one program serves all three stages of the
+    graduated schedule of a given length."""
+    static = ("n_iterations",)
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jslam, "gn", _REF_GN)
         mp.setattr(jslam, "optimize_pose_graph", jax.jit(
             jpg.optimize_pose_graph, static_argnames=static))
         mp.setattr(jig, "optimize_imu_graph", jax.jit(
