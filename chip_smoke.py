@@ -1,7 +1,7 @@
 """Drive the PyTorch port's scan-to-map localization step, its closed
 loop (registration + EKF), its odometry, its keyframe SLAM pipeline, its
-batched localizer and its KITTI entry point on a CUDA card and check
-them.
+batched localizer on every branch, its KITTI entry point and its
+voxel-hash map on a CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -86,14 +86,43 @@ Phases, each of which must pass (any failure exits non-zero):
    ``run_kitti_localization`` (no twists) on the card; the fused
    positions' ATE must be at most 1.25 x the JAX package's on the same
    files + 0.005 m, K1 launched once per scan;
-9. k1, after the main paths (localize, drive, odometry, slam, batch,
-   kitti): a ``torch.profiler`` session leaves the host's kernel launches
-   slower for the rest of the process, so no profiler runs before the
-   host-bound loops. K1 against its plain PyTorch version on the card at
-   64 x 2304, on the bench scan and on the street scan, and on the bench
-   batches of 8 and 32 scans: labels, curvature and compaction columns
-   bit-equal. K1's device time per
-   launch comes from ``torch.profiler`` over 200 launches after warm-up
+9. determinism (ROADMAP §C16): the drive's GeometryMaps built again and
+   the production drive of phase 4 replayed on them; the maps' records,
+   every scan's measured and fused pose and the ATE must equal the first
+   run's bit for bit. Then each float scatter-add of the port, called
+   twice on this run's inputs (the drive map's moments, a drive scan's
+   surface downsample alone, as a batch of 8 and over the dense grid, a
+   40-keyframe pose graph's normal equations and CG rows), must give the
+   same bits both times;
+10. batch_full: the batched full-extraction branches through
+   ``make_batched_localizer`` at B = 1 and 8 on the drive's scans (lane
+   b is scan b, its prior the true pose moved by 0.1-0.9 m with a yaw
+   error): the faithful variant over the drive's FeatureMaps (kNN rounds
+   refitting every iteration) and ``kitti_hdl64()`` with the full
+   extraction over its GeometryMaps. Every lane's status and iterations
+   must equal its lone ``localize_scan`` on the card, its pose within
+   1e-4; one K1 launch per batch; at B = 8 the lanes stop at different
+   iterations and, in the kNN case, some lanes run the second search
+   round and some do not (recorded on an untimed batch). Per case and B:
+   scans/s and ms per batch (``utils.profiling.StageTimer`` over
+   ``BATCH_REPS`` batches after an untimed one), GN iterations (max,
+   mean), the lanes that reran and ``torch.cuda.max_memory_allocated``;
+11. voxel_map: ``build_voxel_map`` of the drive's edge and surface map
+   clouds on the card (``VoxelMapConfig``'s 2^18 buckets, 8 slots, 16
+   probes) in the dense grids' frames; its ``knn`` must equal the dense
+   grids' ``knn`` on the middle drive scan's features at its true pose
+   (neighbours, validity, squared distances bit for bit), and so must
+   ``edge_residuals`` / ``surface_residuals`` through ``lookup_knn``.
+   Build time, buckets used and both kNN times (CUDA events) are
+   printed; one ``export_labeled_scan`` PLY's header and size checked;
+12. k1, after the main paths (localize, drive, odometry, slam, batch,
+   kitti, determinism, batch_full, voxel_map): a ``torch.profiler``
+   session leaves the host's kernel launches slower for the rest of the
+   process, so no profiler runs before the host-bound loops. K1 against
+   its plain PyTorch version on the card at 64 x 2304, on the bench scan
+   and on the street scan, and on the bench batches of 8 and 32 scans:
+   labels, curvature and compaction columns bit-equal. K1's device time
+   per launch comes from ``torch.profiler`` over 200 launches after warm-up
    (no host work in it; the launches the profiler saw are printed beside
    it), its wrapper's host time per call from the host clock around 200
    calls with no synchronisation inside (the median of 5 such windows);
@@ -106,9 +135,10 @@ Phases, each of which must pass (any failure exits non-zero):
    launches in all and per GN iteration, device busy time, profiled
    wall), ``slam_profile``: the odometry chain's last step, one
    registration of each SLAM run's last closing pair and one
-   ``optimize()`` of each run's final graph, and ``batch_profile``: one
+   ``optimize()`` of each run's final graph, ``batch_profile``: one
    batch of each size on each scene (launches per GN iteration of the
-   batch, device busy against profiled wall), measured the same way.
+   batch, device busy against profiled wall), and ``batch_full_profile``:
+   one batch of each size and case of phase 10, measured the same way.
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -156,6 +186,9 @@ SLAM_KEYFRAMES, SLAM_KEYFRAME_SLACK = 40, 2
 # one such lane per 32 may end otherwise than its lone run.
 BATCH_SIZES = (1, 8, 32)
 BATCH_REPS = 5
+# The batched full-extraction branches: batch sizes (lane b is drive
+# scan b, so at most DRIVE_SCANS).
+BATCH_FULL_SIZES = (1, 8)
 BATCH_T_ATOL = BATCH_Q_ATOL = 1e-4
 TIE_MARGIN = 1e-5
 # The KITTI replay's limit: the JAX package's run_kitti_localization ATE
@@ -334,8 +367,9 @@ def profile_call(fn) -> dict:
 def drive_run(maps, cfg, scans, twists, gt, device, k1):
     """The closed loop over the drive on ``device``, K1's count read over
     exactly this run; then the last scan's localize_scan alone, again
-    from the previous scan's fused pose. Returns the run's metrics and
-    (maps, image, prior, cfg) of that last registration."""
+    from the previous scan's fused pose. Returns the run's metrics,
+    (maps, image, prior, cfg) of that last registration, and every
+    scan's measured and fused pose ([scans, 14] float32: q, t, q, t)."""
     import torch
     from lidar_feature_extraction_tpu_torch.core.pose import Pose
     from lidar_feature_extraction_tpu_torch.pipeline.localization import (
@@ -359,6 +393,8 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1):
     launches = k1.label_and_columns_cuda.launches
 
     est = np.stack([r.measured_pose.t.cpu().numpy() for r in results])
+    poses = np.stack([np.concatenate([p.cpu().numpy().ravel() for p in (
+        *r.measured_pose, *r.fused_pose)]) for r in results])
     finite = all(bool(torch.isfinite(p).all()) for r in results
                  for p in (*r.measured_pose, *r.fused_pose))
     status = [r.gn_status for r in results]
@@ -386,7 +422,7 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1):
             set(status))},
         "last_scan_localize_ms": last_ms,
         "last_scan_gn_iterations": int(res.iterations),
-    }, (maps, image, prior, cfg)
+    }, (maps, image, prior, cfg), poses
 
 
 def drive_profile(maps, image, prior, cfg) -> dict:
@@ -553,21 +589,24 @@ def slam_run(cfg, world, rng, with_imu: bool, device, k1):
 
 
 def gn_iterations_of(fn):
-    """``fn()`` and the Gauss-Newton iterations its registrations ran."""
+    """``fn()`` and the Gauss-Newton iterations its registrations ran (a
+    lock-step batch runs as many as its slowest lane)."""
     from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
 
-    results, run = [], gn.run_gauss_newton
+    results, runs = [], (gn.run_gauss_newton, gn.run_gauss_newton_batched)
 
-    def counted(*args, **kwargs):
-        results.append(run(*args, **kwargs))
-        return results[-1]
+    def counting(run):
+        def counted(*args, **kwargs):
+            results.append(run(*args, **kwargs))
+            return results[-1]
+        return counted
 
-    gn.run_gauss_newton = counted
+    gn.run_gauss_newton, gn.run_gauss_newton_batched = map(counting, runs)
     try:
         out = fn()
     finally:
-        gn.run_gauss_newton = run
-    return out, sum(int(r.iterations) for r in results)
+        gn.run_gauss_newton, gn.run_gauss_newton_batched = runs
+    return out, sum(int(r.iterations.max()) for r in results)
 
 
 def slam_profile(odometry_last, slam_runs, cfg) -> list:
@@ -834,6 +873,297 @@ def kitti_run(edges, surfs, scans, gt, k1) -> dict:
             "ms_per_scan": 1e3 * wall / len(fused)}
 
 
+def seeded_graph(device, k: int = 40, seed: int = 3):
+    """A pose graph of ``k`` keyframes around a circle with chain and
+    loop constraints, drawn with numpy (the SLAM drives' size)."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.parallel.pose_graph import (
+        Constraints, PoseGraph)
+
+    rng = np.random.default_rng(seed)
+    yaw = np.linspace(0, 2 * np.pi, k, endpoint=False)
+    q = np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw, np.sin(yaw / 2)], -1)
+    t = np.stack([10 * np.cos(yaw), 10 * np.sin(yaw), 0 * yaw], -1)
+    i = np.concatenate([np.arange(k - 1), np.arange(0, k - 10, 4)])
+    j = np.concatenate([np.arange(1, k), np.arange(10, k, 4)])
+    dyaw = yaw[j] - yaw[i] + 0.01 * rng.normal(size=len(i))
+    z_q = np.stack([np.cos(dyaw / 2), 0 * dyaw, 0 * dyaw, np.sin(dyaw / 2)],
+                   -1)
+    z_t = rng.normal(scale=0.5, size=(len(i), 3))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    noisy = t + rng.normal(scale=0.1, size=t.shape)
+    return (PoseGraph(f32(q), f32(noisy)),
+            Constraints(torch.as_tensor(i, dtype=torch.int32, device=device),
+                        torch.as_tensor(j, dtype=torch.int32, device=device),
+                        f32(z_q), f32(z_t), f32(np.ones(len(i)))))
+
+
+def scatter_sites_twice(args, maps, cfg, feats) -> dict:
+    """Every float scatter-add of the port (ROADMAP §C16) called twice
+    on the card on this run's inputs: for each, whether the two results
+    have the same bits. ``args`` are the drive's map clouds and masks,
+    ``maps`` its GeometryMaps, ``feats`` a full extraction of a batch of
+    drive scans."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.ops import geometry_grid as gg
+    from lidar_feature_extraction_tpu_torch.ops.downsample import (
+        voxel_downsample, voxel_downsample_dense)
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph as pg
+
+    reg = cfg.registration
+    edge, emask, surf, smask = args
+    leaf, cap = reg.surface_downsample_leaf, reg.max_surface_points
+    graph, cons = seeded_graph(edge.device)
+    k = graph.poses_q.shape[0]
+    calls = {
+        "voxel_moments_edge": lambda: gg.voxel_moments(
+            edge, emask, maps.edge.voxel_size, maps.edge.origin,
+            maps.edge.dims),
+        "voxel_moments_surface": lambda: gg.voxel_moments(
+            surf, smask, maps.surface.voxel_size, maps.surface.origin,
+            maps.surface.dims),
+        "voxel_downsample": lambda: voxel_downsample(
+            feats.surface_xyz[0], feats.surface_valid[0], leaf, cap)[0],
+        "voxel_downsample_batch": lambda: voxel_downsample(
+            feats.surface_xyz, feats.surface_valid, leaf, cap)[0],
+        "voxel_downsample_dense": lambda: voxel_downsample_dense(
+            feats.surface_xyz[0], feats.surface_valid[0], leaf, cap,
+            reg.odometry_grid_dims)[0],
+        "scatter_normal_equations": lambda: torch.cat([
+            a.reshape(-1) for a in pg._local_normal_equations(graph, cons,
+                                                              k)]),
+        "pose_graph_cg_rows": lambda: pg.optimize_pose_graph_cg(
+            graph, cons, n_iterations=2, n_cg=10).poses_t,
+    }
+    return {name: bool(torch.equal(fn(), fn())) for name, fn in calls.items()}
+
+
+def batch_full_lanes(scans, cfg, n: int, device):
+    """``n`` lanes of the drive: lane b is drive scan b's range image,
+    its prior the scan's true pose (``worldsim.straight_drive(b)``) moved
+    by 0.1, 0.3, 0.6 or 0.9 m (cycling) in a random horizontal direction,
+    with a yaw error of N(0, 1 degree), drawn with numpy. The larger
+    errors carry a lane past the kNN path's candidate refresh distance
+    (0.5 m) in its first search round, the smaller ones do not."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    rng = np.random.default_rng(11)
+    images, poses = [], []
+    for b in range(n):
+        images.append(scan_range_image(*scans[b], cfg, device))
+        truth = worldsim.straight_drive(b)
+        d = rng.normal(size=3) * np.array([1.0, 1.0, 0.0])
+        yaw = np.radians(1.0) * rng.normal()
+        dq = torch.tensor([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)],
+                          dtype=torch.float32)
+        dt = (0.1, 0.3, 0.6, 0.9)[b % 4] * d / np.linalg.norm(d)
+        poses.append(Pose(quat.quat_multiply(truth.q.float(), dq).to(device),
+                          (truth.t.float() + torch.as_tensor(
+                              dt, dtype=torch.float32)).to(device)))
+    return images, poses
+
+
+def batch_full_phase(cases, scans, dev, k1) -> tuple[int, list]:
+    """The batched full-extraction branches through
+    ``make_batched_localizer`` at the ``BATCH_FULL_SIZES`` on the drive's
+    lanes: ``cases`` maps a name to (maps, config). Every lane held to
+    its lone ``localize_scan`` on the card (status, iterations exactly,
+    pose within 1e-4), one K1 launch per batch, the lanes stopping at
+    different iterations; the kNN case's lanes deciding their search
+    rounds apart (one runs the second round, one does not). Timed with
+    ``utils.profiling.StageTimer``: ``BATCH_REPS`` batches after an
+    untimed one. Returns K1's launches and what the profiler is to run
+    later."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    from lidar_feature_extraction_tpu_torch.parallel.distributed import (
+        make_batched_localizer)
+    from lidar_feature_extraction_tpu_torch.pipeline import localization
+    from lidar_feature_extraction_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    launches, later = 0, []
+    for case, (maps, c) in cases.items():
+        run = make_batched_localizer(c)
+        images, poses = batch_full_lanes(scans, c, max(BATCH_FULL_SIZES), dev)
+        lone = []
+        for im, pose in zip(images, poses):
+            r, _ = localization.localize_scan(maps, im, pose, c)
+            lone.append((int(r.status), int(r.iterations), r.pose.q.cpu(),
+                         r.pose.t.cpu()))
+        for B in BATCH_FULL_SIZES:
+            stacked = stack_range_images(images[:B])
+            prior = Pose(torch.stack([p.q for p in poses[:B]]),
+                         torch.stack([p.t for p in poses[:B]]))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k1.label_and_columns_cuda.launches = 0
+            # The untimed batch records each round's per-lane decision.
+            reruns, select = [], localization._select_scans
+
+            def recording(take, new, old):
+                reruns.append(take.tolist())
+                return select(take, new, old)
+
+            localization._select_scans = recording
+            try:
+                result, feats = run(maps, stacked, prior)
+            finally:
+                localization._select_scans = select
+            key = f"{case} {B}"
+            for _ in range(BATCH_REPS):
+                out = []
+                with timer.stage(key, block_on=out):
+                    out.append(run(maps, stacked, prior))
+            torch.cuda.synchronize()
+            count = k1.label_and_columns_cuda.launches
+            peak = torch.cuda.max_memory_allocated()
+            launches += count
+            check(count == 1 + BATCH_REPS,
+                  f"batch_full {case} {B}: K1 launched {count} times for "
+                  f"{1 + BATCH_REPS} batches")
+            check(bool(torch.isfinite(result.pose.t).all())
+                  and bool(torch.isfinite(result.pose.q).all()),
+                  f"batch_full {case} {B}: non-finite pose")
+            check(feats.labels.shape == stacked.mask.shape,
+                  f"batch_full {case} {B}: labels {tuple(feats.labels.shape)}")
+            status = result.status.tolist()
+            iters = result.iterations.tolist()
+            q, t = result.pose.q.cpu(), result.pose.t.cpu()
+            differ = [
+                b for b in range(B) if (status[b], iters[b]) != lone[b][:2]
+                or float((q[b] - lone[b][2]).abs().max()) > BATCH_Q_ATOL
+                or float((t[b] - lone[b][3]).abs().max()) > BATCH_T_ATOL]
+            rep = timer.report()[key]
+            rerun_lanes = [b for b in range(B) if any(r[b] for r in reruns)]
+            emit("batch_full", case=case, batch=B,
+                 scans_per_s=rep["per_sec"] * B, ms_per_batch=rep["mean_ms"],
+                 ms_per_scan=rep["mean_ms"] / B, batches_timed=rep["count"],
+                 gn_iterations_max=max(iters),
+                 gn_iterations_mean=statistics.fmean(iters),
+                 distinct_iteration_counts=len(set(iters)),
+                 status_counts={str(v): status.count(v) for v in sorted(
+                     set(status))},
+                 rounds_rerun=reruns, lanes_rerun=rerun_lanes,
+                 k1_launches_per_batch=count / (1 + BATCH_REPS),
+                 max_memory_allocated=peak,
+                 lanes_equal_to_lone_runs=B - len(differ),
+                 lanes_otherwise=differ)
+            check(not differ, f"batch_full {case} {B}: lanes {differ} differ "
+                              f"from their lone runs")
+            if B > 1:
+                check(len(set(iters)) > 1,
+                      f"batch_full {case} {B}: every lane ran {iters[0]} "
+                      f"iterations; the freeze is not exercised")
+                knn_refit = (not c.compact_extraction
+                             and c.registration.refit_per_iteration)
+                if knn_refit:
+                    check(0 < len(rerun_lanes) < B,
+                          f"batch_full {case} {B}: lanes {rerun_lanes} ran "
+                          f"the second search round; need some, not all")
+            later.append((case, B, lambda r=run, m=maps, s=stacked, p=prior:
+                          r(m, s, p)))
+    return launches, later
+
+
+def voxel_map_phase(args, fmaps, cfg, scan, pose, dev, k1) -> dict:
+    """The voxel-hash map on the card: the drive's edge and surface map
+    clouds inserted with ``VoxelMapConfig``'s table sizes, in the dense
+    grids' map-local frames (their origins), so that both structures
+    voxelize every point alike. ``knn`` from it must equal the dense
+    grid's ``knn`` on one drive scan's features at its true pose (the
+    same neighbours, validity and squared distances, bit for bit), and so
+    must ``edge_residuals`` / ``surface_residuals`` through
+    ``lookup_knn``. One ``export_labeled_scan`` PLY of the scan: its
+    header and vertex count checked."""
+    import tempfile
+
+    import torch
+    from lidar_feature_extraction_tpu_torch.ops import residuals as res
+    from lidar_feature_extraction_tpu_torch.ops import voxel_grid as vg
+    from lidar_feature_extraction_tpu_torch.ops import voxel_map as vm
+    from lidar_feature_extraction_tpu_torch.ops.extraction import (
+        extract_features)
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils.visualize import (
+        export_labeled_scan)
+
+    reg = cfg.registration
+    k = reg.n_neighbors
+    edge, emask, surf, smask = args
+    image = scan_range_image(*scan, cfg, dev)
+    k1.label_and_columns_cuda.launches = 0
+    feats = extract_features(image, cfg.extraction)
+    torch.cuda.synchronize()
+    out = {"k1_launches": k1.label_and_columns_cuda.launches}
+    hmaps = {}
+    for name, pts, mask, mc, grid, q, qv in (
+            ("edge", edge, emask, reg.edge_map, fmaps.edge, feats.edge_xyz,
+             feats.edge_valid),
+            ("surface", surf, smask, reg.surface_map, fmaps.surface,
+             feats.surface_xyz, feats.surface_valid)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        hm = hmaps[name] = vm.build_voxel_map(
+            pts, mask, mc.voxel_size, mc.table_capacity, mc.points_per_voxel,
+            mc.max_probes, origin=grid.origin)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - start
+        queries = pose.apply(q)
+        got = vm.knn(hm, queries, k, mc.max_probes)
+        want = vg.knn(grid, queries, k)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        stored, grid_stored = int(hm.n_pts.sum()), int(grid.n_pts.sum())
+        out[name] = {
+            "map_points": len(pts), "build_s": build_s,
+            "buckets": mc.table_capacity,
+            "buckets_used": int((hm.keys != vm._EMPTY).sum()),
+            "points_stored": stored, "grid_points_stored": grid_stored,
+            "queries": int(qv.sum()),
+            "valid_neighbours": int(got[2][qv].sum()),
+            "knn_equal_to_grid": same,
+            "knn_ms": time_ms(lambda: vm.knn(hm, queries, k, mc.max_probes)),
+            "grid_knn_ms": time_ms(lambda: vg.knn(grid, queries, k))}
+        check(stored == grid_stored,
+              f"voxel_map {name}: {stored} points stored, the grid "
+              f"{grid_stored}")
+        check(same, f"voxel_map {name}: knn differs from the dense grid's")
+    for name, fn, pts, valid in (
+            ("edge_residuals", res.edge_residuals, feats.edge_xyz,
+             feats.edge_valid),
+            ("surface_residuals", res.surface_residuals, feats.surface_xyz,
+             feats.surface_valid)):
+        m = "edge" if name.startswith("edge") else "surface"
+        got = fn(hmaps[m], pts, valid, pose, k)
+        want = fn(getattr(fmaps, m), pts, valid, pose, k)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        out[name] = {"rows_valid": int(got.valid.sum()), "equal_to_grid": same}
+        check(same, f"voxel_map: {name} through the hash map differ from "
+                    f"the dense grid's")
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "scan.ply")
+        export_labeled_scan(path, image.xyz, image.mask, feats.labels)
+        with open(path, "rb") as f:
+            data = f.read()
+    n = int(image.mask.sum())
+    head, _, body = data.partition(b"end_header\n")
+    lines = head.decode("ascii").splitlines()
+    out["ply"] = {"bytes": len(data), "vertices": n, "header": lines}
+    check(lines[:3] == ["ply", "format binary_little_endian 1.0",
+                        f"element vertex {n}"] and len(body) == 15 * n,
+          f"voxel_map: PLY header {lines} with {len(body)} body bytes for "
+          f"{n} points")
+    return out
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -995,10 +1325,10 @@ def main() -> int:
          map_edge_points=len(edges), map_surface_points=len(surfs),
          build_geometry_maps_s=build_s["production"],
          build_feature_maps_s=build_s["faithful"])
-    drive, last_scans = {}, {}
+    drive, last_scans, drive_poses = {}, {}, {}
     for name, c in (("production", cfg), ("faithful", faithful)):
-        run, last_scans[name] = drive_run(maps[name], c, scans, twists, gt,
-                                          dev, k1)
+        run, last_scans[name], drive_poses[name] = drive_run(
+            maps[name], c, scans, twists, gt, dev, k1)
         drive[name] = run
         limit = ATE_FACTOR * ATE_REFERENCE_M[name] + ATE_MARGIN_M
         emit("drive", config=name, ate_limit_m=limit,
@@ -1084,7 +1414,76 @@ def main() -> int:
     launches += kitti["k1_launches"]
     launches_by_phase["kitti"] = kitti["k1_launches"]
 
-    # 9. k1 against its plain version at full width, on both scans and on
+    # 9. determinism: the production drive again on maps built again, and
+    # every float scatter-add twice on this run's inputs (ROADMAP §C16).
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    from lidar_feature_extraction_tpu_torch.ops.extraction import (
+        extract_features)
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    start = time.perf_counter()
+    maps_again = build_geometry_maps(*args, cfg)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - start
+    first = maps["production"]
+    maps_equal = {name: torch.equal(a, b) for name, a, b in (
+        ("edge", maps_again.edge.rec, first.edge.rec),
+        ("surface", maps_again.surface.rec, first.surface.rec),
+        ("fused", maps_again.fused, first.fused))}
+    again, _, poses_again = drive_run(maps_again, cfg, scans, twists, gt, dev,
+                                      k1)
+    feats8 = extract_features(stack_range_images(
+        [scan_range_image(*scans[b], cfg, dev) for b in range(8)]), ex)
+    sites = scatter_sites_twice(args, first, cfg, feats8)
+    del feats8
+    same_poses = bool(np.array_equal(poses_again, drive_poses["production"]))
+    emit("determinism", build_geometry_maps_s=rebuild_s,
+         maps_equal=maps_equal, poses_equal=same_poses,
+         ate_rmse_m=again["ate_rmse_m"],
+         first_ate_rmse_m=drive["production"]["ate_rmse_m"],
+         gn_iterations=again["gn_iterations"],
+         first_gn_iterations=drive["production"]["gn_iterations"],
+         ms_per_scan_mean=again["ms_per_scan_mean"],
+         ms_per_scan_median=again["ms_per_scan_median"],
+         k1_launches=again["k1_launches"], scatter_sites_same_bits=sites)
+    check(all(maps_equal.values()),
+          f"determinism: maps built again differ: {maps_equal}")
+    check(same_poses and again["ate_rmse_m"] == drive["production"][
+        "ate_rmse_m"], "determinism: the production drive's poses differ "
+                       "from its first run")
+    check(all(sites.values()),
+          f"determinism: scatter sites with other bits on a second call: "
+          f"{[n for n, ok in sites.items() if not ok]}")
+    launches += again["k1_launches"]
+    launches_by_phase["determinism"] = again["k1_launches"]
+
+    # 10. batch_full: the batched full-extraction branches on the drive's
+    # scans, the faithful kNN variant over FeatureMaps and the full
+    # extraction over GeometryMaps.
+    full_geometry = dataclasses.replace(cfg, compact_extraction=False)
+    bf_launches, bf_later = batch_full_phase(
+        {"faithful_feature_maps": (maps["faithful"], faithful),
+         "full_geometry_maps": (maps["production"], full_geometry)},
+        scans, dev, k1)
+    launches += bf_launches
+    launches_by_phase["batch_full"] = bf_launches
+
+    # 11. voxel_map: the hash map of the drive's map clouds against the
+    # dense grids, on one drive scan's features at its true pose.
+    mid = DRIVE_SCANS // 2
+    truth = worldsim.straight_drive(mid)
+    vmap = voxel_map_phase(args, maps["faithful"], faithful, scans[mid],
+                           Pose(truth.q.float().to(dev),
+                                truth.t.float().to(dev)), dev, k1)
+    emit("voxel_map", scan=mid, **vmap)
+    launches += vmap["k1_launches"]
+    launches_by_phase["voxel_map"] = vmap["k1_launches"]
+
+    # 12. k1 against its plain version at full width, on both scans and on
     # the bench scene's batches, and timed: the first profiler sessions
     # of the process.
     nbytes, flops = k1_work(R, P, ex.padding)
@@ -1133,6 +1532,14 @@ def main() -> int:
         _, prof = profile_call(fn)
         emit("batch_profile", scene=scene, batch=B, gn_iterations_max=iters,
              launches_per_gn_iteration=prof["launches"] / max(iters, 1),
+             device_idle_share=1.0 - prof["device_busy_ms"]
+             / prof["profiled_wall_ms"], **prof)
+
+    # One batch of each size and branch of batch_full, under the profiler.
+    for case, B, fn in bf_later:
+        (_, its), prof = profile_call(lambda: gn_iterations_of(fn))
+        emit("batch_full_profile", case=case, batch=B, gn_iterations=its,
+             launches_per_gn_iteration=prof["launches"] / max(its, 1),
              device_idle_share=1.0 - prof["device_busy_ms"]
              / prof["profiled_wall_ms"], **prof)
 

@@ -27,6 +27,12 @@ class Pose(NamedTuple):
         """Transform points [..., 3]."""
         return quat.quat_rotate(self.q, p) + self.t
 
+    def apply_each(self, p: torch.Tensor) -> torch.Tensor:
+        """Transform each scan's points [..., N, 3] by its own pose
+        (q [..., 4], t [..., 3]): one pose and its scan, or one pose per
+        scan of a batch."""
+        return quat.quat_rotate(self.q[..., None, :], p) + self.t[..., None, :]
+
     def compose(self, other: "Pose") -> "Pose":
         """``self @ other``: first apply ``other``, then ``self``."""
         return Pose(

@@ -42,6 +42,8 @@ PARALLEL_BEAM = 7
 
 
 class ExtractionResult(NamedTuple):
+    """One scan's features; a batch adds a leading [B] to each field."""
+
     labels: torch.Tensor        # [R, P] int32 PointLabel codes
     curvature: torch.Tensor     # [R, P] float
     edge_xyz: torch.Tensor      # [max_edges, 3]
@@ -250,43 +252,58 @@ def label_range_image(image: RangeImage, cfg: ExtractionConfig
 def compact_by_mask(xyz: torch.Tensor, mask: torch.Tensor,
                     capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked points of [R, P, 3] in scan order, packed into a
-    fixed-capacity [capacity, 3] array + validity mask. Positions come
-    from a cumsum, so nothing is read back to the host."""
-    flat = mask.reshape(-1)
-    pts = xyz.reshape(-1, 3)
-    pos = torch.cumsum(flat.to(torch.int64), 0) - 1
+    fixed-capacity [capacity, 3] array + validity mask; a batch of scans
+    [B, R, P, 3] is packed scan by scan ([B, capacity, 3], [B, capacity]).
+    Positions come from a cumsum per scan, so nothing is read back to the
+    host."""
+    lead = mask.shape[:-2]
+    flat = mask.reshape(-1, mask.shape[-2] * mask.shape[-1])   # [L, R * P]
+    pts = xyz.reshape(flat.shape + (3,))
+    pos = torch.cumsum(flat.to(torch.int64), 1) - 1
     dest = torch.where(flat & (pos < capacity), pos,
                        torch.full_like(pos, capacity))
-    gathered = torch.zeros((capacity + 1, 3), dtype=xyz.dtype,
-                           device=xyz.device)
-    gathered[dest] = pts          # row ``capacity`` takes the rest
-    n = torch.sum(flat.to(torch.int64))
-    valid = torch.arange(capacity, device=xyz.device) < n
-    return gathered[:capacity], valid
+    gathered = torch.zeros((flat.shape[0], capacity + 1, 3),
+                           dtype=xyz.dtype, device=xyz.device)
+    # Row ``capacity`` of each scan takes the rest.
+    gathered[torch.arange(flat.shape[0], device=xyz.device)[:, None],
+             dest] = pts
+    n = torch.sum(flat.to(torch.int64), dim=1)
+    valid = torch.arange(capacity, device=xyz.device) < n[:, None]
+    return (gathered[:, :capacity].reshape(lead + (capacity, 3)),
+            valid.reshape(lead + (capacity,)))
 
 
 def extract_features(image: RangeImage,
                      cfg: ExtractionConfig) -> ExtractionResult:
     """Full feature-extraction step for one organized scan (the map
-    build's and the faithful path's extraction).
+    build's and the faithful path's extraction), or for a batch of B
+    scans ([B, R, P, 3] xyz, the reference's ``vmap``): labels
+    [B, R, P], edges [B, max_edges, 3], surfaces [B, max_surfaces, 3].
 
     With ``cfg.pallas_labeling`` the labels and curvature of a CUDA
-    image come from kernel K1 (its compaction columns are not used
-    here); CPU images, and ``pallas_labeling=False``, take
-    ``label_range_image``. Both give the same labels and curvature,
-    bit for bit, where the image's mask is ``lane < count`` (K1's mask),
-    as in every image ``build_range_image`` makes."""
+    image come from kernel K1, ONE launch on the [B * R, P] planes of a
+    batch (its compaction columns are not used here); CPU images, and
+    ``pallas_labeling=False``, take ``label_range_image``. Both give the
+    same labels and curvature, bit for bit, where the image's mask is
+    ``lane < count`` (K1's mask), as in every image ``build_range_image``
+    makes. Every labelling step works ring by ring; the compaction runs
+    scan by scan."""
+    # The batch's rings as one image [B * R, P].
+    rings = RangeImage(*(a.reshape((-1,) + a.shape[a.dim() - k:])
+                         for a, k in zip(image, (2, 1, 0))))
     if cfg.pallas_labeling and image.xyz.device.type == "cuda":
         from lidar_feature_extraction_tpu_torch.ops.extraction_cuda import (
             label_and_columns_cuda)
 
-        xyz = image.xyz
+        xyz = rings.xyz
         labels, curv, _ = label_and_columns_cuda(
             xyz[..., 0].contiguous(), xyz[..., 1].contiguous(),
-            xyz[..., 2].contiguous(), image.count, cfg, 1.0,
+            xyz[..., 2].contiguous(), rings.count, cfg, 1.0,
             cfg.edges_per_ring, cfg.surface_runs_per_ring)
     else:
-        labels, curv = label_range_image(image, cfg)
+        labels, curv = label_range_image(rings, cfg)
+    labels = labels.reshape(image.mask.shape)
+    curv = curv.reshape(image.mask.shape)
     edge_xyz, edge_valid = compact_by_mask(
         image.xyz, (labels == EDGE) & image.mask, cfg.max_edges)
     surf_xyz, surf_valid = compact_by_mask(

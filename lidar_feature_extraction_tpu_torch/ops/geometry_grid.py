@@ -4,7 +4,7 @@
 Port of ``lidar_feature_extraction_tpu/ops/geometry_grid.py``:
 
 1. scatter point moments (count, sum, second moment, local to the
-   voxel centre) into the dense grid — ``index_add_`` into a
+   voxel centre) into the dense grid — a scatter-add into a
    ``capacity + 1`` table whose last row takes masked points; a weight
    of -1 removes points, and ``recenter_moments`` rolls the grid after
    the vehicle (the incremental odometry map);
@@ -15,9 +15,9 @@ Port of ``lidar_feature_extraction_tpu/ops/geometry_grid.py``:
 
 Registration then needs one 8-float record gather per scan point per
 Gauss-Newton iteration (``fused_rows_from_grids``, or one grid at a
-time: ``edge_rows_from_grid`` / ``surface_rows_from_grid``). On a GPU
-the scatter-add uses atomics, so moment sums can differ from the CPU's
-in the last bits.
+time: ``edge_rows_from_grid`` / ``surface_rows_from_grid``). On the card
+the scatter-add sums each voxel's points in a fixed order
+(``ops/scatter.py``): the same bits every run, though not the CPU's.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.ops.eig3 import eigh3x3
 from lidar_feature_extraction_tpu_torch.ops.residuals import ResidualBlock
+from lidar_feature_extraction_tpu_torch.ops.scatter import index_add_rows
 from lidar_feature_extraction_tpu_torch.ops.voxel_grid import (
     _cell_of, _ravel)
 
@@ -104,7 +105,7 @@ def voxel_moments(xyz: torch.Tensor, mask: torch.Tensor, voxel_size,
         feats = feats * weight[:, None].to(dtype)
 
     m = torch.zeros((capacity + 1, 10), dtype=dtype, device=dev)
-    m.index_add_(0, cell.to(torch.int64), feats)
+    index_add_rows(m, cell.to(torch.int64), feats)
     return m[:capacity]
 
 

@@ -12,6 +12,12 @@ Port of ``lidar_feature_extraction_tpu/ops/residuals.py:44-261``:
 Invalid lanes (masked scan points, starved neighbourhoods) carry zero
 Jacobians and residuals, so they drop out of the normal equations.
 
+Every function takes a batch of scans too (points [B, N, 3], one pose
+per scan: q [B, 4], t [B, 3]; candidates and neighbours with the same
+leading [B]) against one shared map. Each float reduction runs point by
+point over that point's K neighbours, so a lane gets the bits of its
+lone call.
+
 Retrieval paths: ``*_residuals`` run the full kNN against a map
 structure; ``*_residuals_from_candidates`` select the top k from a
 candidate set gathered once per search round; ``fit_*_geometry`` +
@@ -28,6 +34,7 @@ import torch
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.ops import voxel_grid as vg
+from lidar_feature_extraction_tpu_torch.ops import voxel_map as vm
 from lidar_feature_extraction_tpu_torch.ops.eig3 import eigh3x3
 from lidar_feature_extraction_tpu_torch.ops.smallalg import solve3x3_sym
 
@@ -45,13 +52,15 @@ class ResidualBlock(NamedTuple):
 
 
 def lookup_knn(map_struct, queries: torch.Tensor, k: int):
-    """kNN against a map structure. Only the dense voxel grid is ported;
-    the voxel-hash map (``ops/voxel_map.py``) raises."""
+    """kNN against a map structure: the dense voxel grid
+    (``ops/voxel_grid.py``) or the voxel-hash map (``ops/voxel_map.py``)."""
     if isinstance(map_struct, vg.DenseVoxelGrid):
         return vg.knn(map_struct, queries, k)
+    if isinstance(map_struct, vm.VoxelHashMap):
+        return vm.knn(map_struct, queries, k)
     raise NotImplementedError(
-        f"kNN against {type(map_struct).__name__}: only DenseVoxelGrid is "
-        f"ported (the voxel-hash map is still to port)")
+        f"kNN against {type(map_struct).__name__}: the map structures are "
+        f"DenseVoxelGrid and VoxelHashMap")
 
 
 def masked_mean_and_cov(pts: torch.Tensor, valid: torch.Tensor):
@@ -73,7 +82,8 @@ def _principal_line(nbrs, nvalid):
 
 
 def _drpdq_rows(pose: Pose, scan_pts):
-    return quat.drpdq(pose.q.expand(scan_pts.shape[:-1] + (4,)), scan_pts)
+    return quat.drpdq(pose.q[..., None, :].expand(scan_pts.shape[:-1]
+                                                  + (4,)), scan_pts)
 
 
 def _masked_block(jac, res, ok) -> ResidualBlock:
@@ -90,7 +100,7 @@ def edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                              pose: Pose, min_neighbors: int
                              ) -> ResidualBlock:
     """Linearize point-to-line residuals given the k neighbourhoods."""
-    p_map = pose.apply(scan_pts)
+    p_map = pose.apply_each(scan_pts)
     p1, p2 = _principal_line(nbrs, nvalid)
     khat = quat.hat(p2 - p1)                           # [N, 3, 3]
     jac = torch.cat([khat @ _drpdq_rows(pose, scan_pts), khat], dim=-1)
@@ -117,7 +127,7 @@ def _unit_normal(w):
 
 
 def _surface_block(w, u, wnorm, scan_pts, pose: Pose, ok) -> ResidualBlock:
-    p_map = pose.apply(scan_pts)
+    p_map = pose.apply_each(scan_pts)
     ju = torch.einsum("...i,...ij->...j", u, _drpdq_rows(pose, scan_pts))
     jac = torch.cat([ju, u], dim=-1)[..., None, :]     # [N, 1, 7]
     res = ((torch.sum(w * p_map, dim=-1, keepdim=True) + 1.0)
@@ -159,7 +169,7 @@ def fit_edge_geometry(cand, cand_ok, scan_pts, scan_valid, pose: Pose,
                       k: int, min_neighbors: int = 5) -> EdgeGeometry:
     """Select the k nearest candidates at the round pose and fit lines."""
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply(scan_pts), k)
+                                              pose.apply_each(scan_pts), k)
     p1, p2 = _principal_line(nbrs, nvalid)
     return EdgeGeometry(p1=p1, p2=p2, khat=quat.hat(p2 - p1),
                         valid=_enough(scan_valid, nvalid, min_neighbors))
@@ -169,7 +179,7 @@ def fit_surface_geometry(cand, cand_ok, scan_pts, scan_valid, pose: Pose,
                          k: int, min_neighbors: int = 5) -> SurfaceGeometry:
     """Select the k nearest candidates at the round pose and fit planes."""
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply(scan_pts), k)
+                                              pose.apply_each(scan_pts), k)
     w = fit_plane(nbrs, nvalid)
     u, wnorm = _unit_normal(w)
     return SurfaceGeometry(w=w, u=u, wnorm=wnorm,
@@ -179,7 +189,7 @@ def fit_surface_geometry(cand, cand_ok, scan_pts, scan_valid, pose: Pose,
 def edge_rows_from_geometry(geom: EdgeGeometry, scan_pts,
                             pose: Pose) -> ResidualBlock:
     """Pose-dependent half of the edge linearization (inner GN loop)."""
-    p_map = pose.apply(scan_pts)
+    p_map = pose.apply_each(scan_pts)
     jac = torch.cat([geom.khat @ _drpdq_rows(pose, scan_pts), geom.khat],
                     dim=-1)
     res = quat._cross(p_map - geom.p1, p_map - geom.p2)
@@ -197,14 +207,14 @@ def surface_rows_from_geometry(geom: SurfaceGeometry, scan_pts,
 
 def edge_residuals(edge_map, scan_pts, scan_valid, pose: Pose, k: int,
                    min_neighbors: int = 5) -> ResidualBlock:
-    nbrs, _, nvalid = lookup_knn(edge_map, pose.apply(scan_pts), k)
+    nbrs, _, nvalid = lookup_knn(edge_map, pose.apply_each(scan_pts), k)
     return edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                     pose, min_neighbors)
 
 
 def surface_residuals(surface_map, scan_pts, scan_valid, pose: Pose,
                       k: int, min_neighbors: int = 5) -> ResidualBlock:
-    nbrs, _, nvalid = lookup_knn(surface_map, pose.apply(scan_pts), k)
+    nbrs, _, nvalid = lookup_knn(surface_map, pose.apply_each(scan_pts), k)
     return surface_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                        pose, min_neighbors)
 
@@ -215,7 +225,7 @@ def edge_residuals_from_candidates(cand, cand_ok, scan_pts, scan_valid,
                                    pose: Pose, k: int,
                                    min_neighbors: int = 5) -> ResidualBlock:
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply(scan_pts), k)
+                                              pose.apply_each(scan_pts), k)
     return edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                     pose, min_neighbors)
 
@@ -225,6 +235,6 @@ def surface_residuals_from_candidates(cand, cand_ok, scan_pts, scan_valid,
                                       min_neighbors: int = 5
                                       ) -> ResidualBlock:
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply(scan_pts), k)
+                                              pose.apply_each(scan_pts), k)
     return surface_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                        pose, min_neighbors)

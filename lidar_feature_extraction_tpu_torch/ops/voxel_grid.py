@@ -111,31 +111,36 @@ _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
 
 
 def neighborhood_candidates(grid: DenseVoxelGrid, queries: torch.Tensor):
-    """The 27-voxel candidate sets around each query: (cand
-    [Q, 27*S, 3], cand_ok [Q, 27*S])."""
+    """The 27-voxel candidate sets around each query [..., Q, 3] (a batch
+    of scans shares the one grid): (cand [..., Q, 27*S, 3], cand_ok
+    [..., Q, 27*S])."""
     slots = grid.points.shape[1]
     dev = queries.device
-    qc = _cell_of(queries, grid.voxel_size, grid.origin)        # [Q, 3]
+    qc = _cell_of(queries, grid.voxel_size, grid.origin)     # [..., Q, 3]
     offs = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
-    cells = _ravel(qc[:, None, :] + offs[None, :, :], grid.dims).long()
-    cand = grid.points[cells]                                   # [Q, 27, S, 3]
-    cnt = grid.n_pts[cells]                                     # [Q, 27]
-    slot_idx = torch.arange(slots, device=dev)[None, None, :]
+    cells = _ravel(qc[..., None, :] + offs, grid.dims).long()
+    cand = grid.points[cells]                           # [..., Q, 27, S, 3]
+    cnt = grid.n_pts[cells]                             # [..., Q, 27]
+    slot_idx = torch.arange(slots, device=dev)
     ok = (cells[..., None] < grid.capacity) & (slot_idx < cnt[..., None])
-    q = queries.shape[0]
-    return cand.reshape(q, 27 * slots, 3), ok.reshape(q, 27 * slots)
+    lead = queries.shape[:-1]
+    return (cand.reshape(lead + (27 * slots, 3)),
+            ok.reshape(lead + (27 * slots,)))
 
 
 def topk_from_candidates(cand, cand_ok, queries, k: int):
-    """The k nearest candidates of each query, nearest first, ties to
-    the lower candidate index: (nbrs [Q, k, 3], sq_dists [Q, k],
-    valid [Q, k]); invalid neighbours are zero at +inf."""
-    d = cand - queries[:, None, :]
+    """The k nearest candidates of each query [..., Q, 3], nearest first,
+    ties to the lower candidate index: (nbrs [..., Q, k, 3], sq_dists
+    [..., Q, k], valid [..., Q, k]); invalid neighbours are zero at
+    +inf. Every step works query by query, so a batch's lane gets the
+    bits of its lone call."""
+    d = cand - queries[..., None, :]
     sq = torch.sum(d * d, dim=-1)
     sq = torch.where(cand_ok, sq, torch.full_like(sq, float("inf")))
-    sq_sorted, order = torch.sort(sq, dim=1, stable=True)
-    sq_k, top_idx = sq_sorted[:, :k], order[:, :k]
-    nbrs = torch.gather(cand, 1, top_idx[..., None].expand(-1, -1, 3))
+    sq_sorted, order = torch.sort(sq, dim=-1, stable=True)
+    sq_k, top_idx = sq_sorted[..., :k], order[..., :k]
+    nbrs = torch.gather(cand, -2, top_idx[..., None].expand(
+        top_idx.shape + (3,)))
     valid = torch.isfinite(sq_k)
     nbrs = torch.where(valid[..., None], nbrs, 0.0)
     return nbrs, sq_k, valid

@@ -4,13 +4,15 @@ Port of ``lidar_feature_extraction_tpu/parallel/distributed.py``. The
 reference's ``make_batched_localizer`` is ``jax.vmap(localize_scan)``
 over B scans with the maps shared, the batch sharded over a device
 mesh. Here the batch is an explicit leading dimension on one card
-(``pipeline/localization.py::localize_scans``): one K1 launch labels
-every ring of the batch, and one Gauss-Newton loop registers every scan
-in lock-step, each scan getting the result it would get alone. It serves
-the independent scans of several vehicles, or of offline mapping shards.
+(``pipeline/localization.py::localize_scans``), on every branch of
+``localize_scan`` (compact or full extraction, ``GeometryMaps`` or
+``FeatureMaps``): one K1 launch labels every ring of the batch, and one
+Gauss-Newton loop registers every scan in lock-step, each scan getting
+the result it would get alone. It serves the independent scans of
+several vehicles, or of offline mapping shards.
 
 The mesh has no counterpart on one card; batching over several cards
-with ``torch.distributed`` is still to port (ROADMAP.md item 12).
+with ``torch.distributed`` is ROADMAP.md item 12.4.
 """
 
 from __future__ import annotations

@@ -10,10 +10,13 @@ its Jacobians with respect to right tangent perturbations of T_i and T_j
 are ``torch.func.jacfwd`` at zero under ``torch.func.vmap``, the
 reference's ``jax.vmap(jax.jacfwd(...))``, cast back to the state's
 dtype (``_jac``). The 6x6 blocks scatter into
-the normal equations with ``index_put(accumulate=True)``; the dense
-solve is ``torch.linalg.solve_ex`` (``solve`` would read the device to
-check for errors). The reference's ``fori_loop`` / ``scan`` are Python
-loops of device steps with no host read.
+the normal equations with ``index_put(accumulate=True)``, and the CG
+solver's rows through ``ops/scatter.py``: both sort by destination on
+the card and sum each destination in that order, so a solve gives the
+same bits every run. The dense solve is ``torch.linalg.solve_ex``
+(``solve`` would read the device to check for errors). The reference's
+``fori_loop`` / ``scan`` are Python loops of device steps with no host
+read.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+from lidar_feature_extraction_tpu_torch.ops.scatter import index_add_rows
 
 
 class PoseGraph(NamedTuple):
@@ -189,8 +193,8 @@ def optimize_pose_graph(graph: PoseGraph, cons: Constraints,
 def _scatter_rows(k: int, cons: Constraints, a, b, like):
     """[K, 6]: a's rows added at cons.i, b's at cons.j."""
     out = torch.zeros((k, 6), dtype=like.dtype, device=like.device)
-    out = out.index_add(0, cons.i.long(), a)
-    return out.index_add(0, cons.j.long(), b)
+    index_add_rows(out, cons.i.long(), a)
+    return index_add_rows(out, cons.j.long(), b)
 
 
 def optimize_pose_graph_cg(graph: PoseGraph, cons: Constraints,

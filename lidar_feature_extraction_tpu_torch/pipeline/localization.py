@@ -10,10 +10,11 @@ Port of ``lidar_feature_extraction_tpu/pipeline/localization.py:45-439``:
   reference (the faithful path), over ``n_search_rounds`` rounds that
   each gather the 27-voxel candidate sets once. The reference's
   ``lax.cond`` between rounds is one host read of the "run again?" flag
-  per round;
-- ``localize_scan``: extraction + registration, for both map types;
+  per round (for a batch, "does any scan run again?");
+- ``localize_scan``: extraction + registration, for both map types, of
+  one scan or of a batch;
 - ``localize_scans``: B scans at once, one extraction and one
-  lock-step Gauss-Newton loop (the compact + ``GeometryMaps`` branch);
+  lock-step Gauss-Newton loop, on every branch;
 - ``HostLocalizer``: the same calls behind the reference's class
   interface. The reference splits it into small jitted programs because
   its TPU compiler is slow on the fused loop; here every loop is driven
@@ -172,9 +173,9 @@ def register_scan(maps: FeatureMaps, edge_pts, edge_valid, surf_pts,
 
     def one_round(pose: Pose) -> gn.GNResult:
         cand_e, ok_e = vg.neighborhood_candidates(maps.edge,
-                                                  pose.apply(edge_pts))
+                                                  pose.apply_each(edge_pts))
         cand_s, ok_s = vg.neighborhood_candidates(maps.surface,
-                                                  pose.apply(surf_ds))
+                                                  pose.apply_each(surf_ds))
         if reg.refit_per_iteration:
             def problem_fn(p: Pose) -> gn.Problem:
                 eb = edge_residuals_from_candidates(
@@ -204,15 +205,31 @@ def register_scan(maps: FeatureMaps, edge_pts, edge_valid, surf_pts,
         # Run again when the round moved the pose out of its candidate
         # neighbourhoods, or (fits frozen per round) ended at an error-
         # or scale-increase abort, which may be an artifact of the
-        # frozen problem.
+        # frozen problem. Per scan of a batch.
         moved = quat._norm(result.pose.t - prev_pose.t) > refresh_threshold
         aborted = ((result.status == gn.ERROR_INCREASED)
                    | (result.status == gn.SCALE_INCREASED))
         rerun = moved | (aborted & (not reg.refit_per_iteration))
         prev_pose = result.pose
-        if bool(rerun):   # the one readback per round
-            result = one_round(result.pose)
+        if bool(rerun.any()):   # the one readback per round
+            # Under the reference's vmap the cond is a select per scan:
+            # every scan runs the round, and one that does not run again
+            # keeps its whole result.
+            result = _select_scans(rerun, one_round(result.pose), result)
     return result
+
+
+def _select_scans(take: torch.Tensor, new: gn.GNResult,
+                  old: gn.GNResult) -> gn.GNResult:
+    """``new`` where ``take`` (0-d, or [B] for a batch), else ``old``,
+    field by field."""
+    def pick(n, o):
+        return torch.where(take.reshape(take.shape + (1,) * (
+            n.dim() - take.dim())), n, o)
+
+    return gn.GNResult(Pose(pick(new.pose.q, old.pose.q),
+                            pick(new.pose.t, old.pose.t)),
+                       *(pick(n, o) for n, o in zip(new[1:], old[1:])))
 
 
 def localize_scan(maps, image: RangeImage, prior: Pose,
@@ -251,25 +268,17 @@ def localize_scans(maps, images: RangeImage, priors: Pose,
     ``core.scan.stack_range_images``), ``priors`` q [B, 4] and t [B, 3],
     ``maps`` shared by every scan. Each scan's result is the one
     ``localize_scan`` gives it alone (the reference's ``vmap`` of
-    ``localize_scan``). Returns (GNResult with [B] fields,
-    CompactFeatures with [B] fields).
+    ``localize_scan``). Returns (GNResult with [B] fields, features with
+    [B] fields).
 
-    The branch of ``kitti_hdl64()``: ``cfg.compact_extraction`` with
-    ``GeometryMaps``. The compact extraction is one K1 launch for the
-    batch on CUDA tensors. The full extraction with ``voxel_downsample``
-    and ``FeatureMaps`` with kNN rounds raise NotImplementedError
-    (ROADMAP.md item 12, the batched full-extraction and FeatureMaps
-    branches)."""
-    if not (cfg.compact_extraction and isinstance(maps, GeometryMaps)):
-        raise NotImplementedError(
-            "localize_scans: only cfg.compact_extraction with GeometryMaps "
-            "is ported; the batched full-extraction and FeatureMaps branches "
-            "are ROADMAP.md item 12")
+    Every branch of ``localize_scan`` takes the batch: the compact or
+    the full extraction (on CUDA tensors one K1 launch for the batch),
+    then ``register_scan_geometry`` (``GeometryMaps``) or the kNN rounds
+    of ``register_scan`` (``FeatureMaps``)."""
     if images.xyz.dim() != 4 or priors.t.shape != (images.xyz.shape[0], 3):
         raise ValueError(f"localize_scans: needs a batch of images and "
                          f"priors, got xyz {tuple(images.xyz.shape)} and "
                          f"t {tuple(priors.t.shape)}")
-    # Every step of that branch takes the leading batch dimension.
     return localize_scan(maps, images, priors, cfg)
 
 

@@ -1,2 +1,2 @@
-"""Host-side helpers: synthetic scenes, the drive simulator and
-trajectory evaluation."""
+"""Host-side helpers: synthetic scenes, the drive simulator, trajectory
+evaluation, checkpoints, stage timers and traces, PLY exports."""

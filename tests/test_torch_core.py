@@ -177,7 +177,7 @@ _ROOT = Path(__file__).resolve().parents[1]
 _PORT_FILES = sorted(
     [p for p in (_ROOT / "lidar_feature_extraction_tpu_torch").rglob("*.py")]
     + [_ROOT / name for name in ("chip_smoke.py", "k1_check.py",
-                                 "profile_k1.py")])
+                                 "profile_k1.py", "scatter_probe.py")])
 
 
 def _imported_modules(path: Path):
@@ -203,13 +203,16 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 _SLICE_MODULES = ("io/convert.py", "io/kitti.py", "ops/alignment.py",
                   "ops/color.py", "parallel/distributed.py",
-                  "pipeline/launch.py", "pipeline/trajectory.py")
+                  "pipeline/launch.py", "pipeline/trajectory.py",
+                  "ops/scatter.py", "ops/voxel_map.py",
+                  "utils/profiling.py", "utils/visualize.py")
 
 
 @pytest.mark.parametrize("module", _SLICE_MODULES)
 def test_import_scan_covers_the_batch_and_entry_modules(module):
-    """The scan above reaches every module of the batched localizer and
-    the entry points (it globs the package; a module left out of the glob
-    would go unchecked)."""
+    """The scan above reaches every module of the batched localizer, the
+    entry points, the fixed-order scatter, the hash map and the
+    profiling and PLY utilities (it globs the package; a module left out
+    of the glob would go unchecked)."""
     assert _ROOT / "lidar_feature_extraction_tpu_torch" / module in \
         _PORT_FILES

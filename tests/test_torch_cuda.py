@@ -1,7 +1,10 @@
 """Kernel K1 on the card against its plain PyTorch version, and the paths
 that run it (full extraction, one closed-loop scan, the odometry step,
 IMU preintegration, the pose-graph and IMU-graph solvers, a short
-mapping run with a loop closure) against the CPU.
+mapping run with a loop closure, the batched localizer on every branch,
+the voxel-hash map) against the CPU or their lone runs; and every float
+scatter-add of the port giving the same bits on two calls (ROADMAP
+§C16).
 
 Needs a CUDA device and ``nvcc``; every test here is marked ``gpu`` and
 skips elsewhere. The file imports neither JAX nor the JAX package, so on
@@ -21,7 +24,9 @@ graph solvers and the mapping run in float64 (the float32 graph normal
 equations have a condition number near 1e12, where LU and
 conjugate-gradient rounding on two devices part visibly): positions
 within 1e-6, the mapping run's keyframes and constraints exactly and its
-trajectory within 1e-6 m.
+trajectory within 1e-6 m. The hash map on the card: keys, slots,
+occupancies, neighbours and validity as on the CPU exactly, squared
+distances within 1e-6 relative.
 """
 
 import dataclasses
@@ -642,3 +647,150 @@ def test_batched_localizer_and_launchers_default_to_the_card(cuda,
     assert pipe.device.type == "cuda" and pipe.maps.fused.is_cuda
     assert launch.launch_mapping(cfg).odometry.state.pose_t.is_cuda
     assert launch.launch_odometry(cfg).state.pose_t.is_cuda
+
+
+# ---- fixed-order scatter-adds, the batched branches, the hash map -------
+
+def _scatter_calls(dev):
+    """Every float scatter-add site of the port on seeded inputs of map
+    and scan size: name -> a call whose result must not change."""
+    from lidar_feature_extraction_tpu_torch.ops import geometry_grid as gg
+    from lidar_feature_extraction_tpu_torch.ops.downsample import (
+        voxel_downsample, voxel_downsample_dense)
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph
+
+    rng = np.random.default_rng(4)
+    pts = torch.as_tensor(np.float32(rng.uniform(-30, 30, (200000, 3))),
+                          device=dev)
+    scans = torch.as_tensor(np.float32(rng.uniform(-20, 20, (4, 30000, 3))),
+                            device=dev)
+    mask = torch.as_tensor(rng.random((4, 30000)) < 0.9, device=dev)
+    (q, t), cons = _looped_graph_np(k=40, seed=2)
+    graph = pose_graph.PoseGraph(torch.as_tensor(q, device=dev),
+                                 torch.as_tensor(t, device=dev))
+    cons = pose_graph.Constraints(*[torch.as_tensor(a, device=dev)
+                                    for a in cons])
+    ones = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    return {
+        "voxel_moments": lambda: gg.voxel_moments(
+            pts, ones, 1.0, [-32.0, -32.0, -32.0], (64, 64, 64)),
+        "voxel_downsample": lambda: voxel_downsample(
+            scans[0], mask[0], 1.0, 4096)[0],
+        "voxel_downsample_batch": lambda: voxel_downsample(
+            scans, mask, 1.0, 4096)[0],
+        "voxel_downsample_dense": lambda: voxel_downsample_dense(
+            scans[0], mask[0], 1.0, 4096, (64, 64, 64))[0],
+        "scatter_normal_equations": lambda: torch.cat([
+            a.reshape(-1) for a in pose_graph._local_normal_equations(
+                graph, cons, 40)]),
+        "pose_graph_cg": lambda: pose_graph.optimize_pose_graph_cg(
+            graph, cons, n_iterations=2, n_cg=10).poses_t,
+    }
+
+
+@pytest.mark.parametrize("site", ["voxel_moments", "voxel_downsample",
+                                  "voxel_downsample_batch",
+                                  "voxel_downsample_dense",
+                                  "scatter_normal_equations",
+                                  "pose_graph_cg"])
+def test_scatter_site_gives_the_same_bits_twice(cuda, site):
+    fn = _scatter_calls(cuda)[site]
+    first = fn()
+    for _ in range(3):
+        assert torch.equal(fn(), first)
+
+
+def test_batched_full_extraction_lanes_equal_lone_calls(cuda):
+    """The full extraction of three kitti-width scans: one K1 launch for
+    the batch, every lane's labels and compacted features those of its
+    lone call."""
+    cfg = kitti_hdl64().extraction
+    images = _lanes(3, cuda)
+    before = extraction_cuda.label_and_columns_cuda.launches
+    got = tex.extract_features(images, cfg)
+    assert extraction_cuda.label_and_columns_cuda.launches == before + 1
+    for b in range(3):
+        one = tex.extract_features(
+            type(images)(*(a[b] for a in images)), cfg)
+        for name, g, w in zip(one._fields, got, one):
+            assert torch.equal(g[b], w), (b, name)
+
+
+@pytest.mark.parametrize("branch", ["full_geometry", "feature_refit",
+                                    "feature_frozen"])
+def test_localize_scans_branches_on_the_card_match_lone_runs(cuda, branch):
+    """Four lanes of the bench scene at kitti widths through the full
+    extraction over GeometryMaps or over FeatureMaps (refitting every
+    iteration or once per round): each lane's status and iterations those
+    of its lone ``localize_scan`` on the card, its pose within 1e-4; one
+    K1 launch for the batch."""
+    from lidar_feature_extraction_tpu_torch.parallel.distributed import (
+        make_batched_localizer)
+    from lidar_feature_extraction_tpu_torch.pipeline import localization
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        keyframe_copies)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(kitti_hdl64(), compact_extraction=False)
+    if branch != "full_geometry":
+        cfg = dataclasses.replace(cfg, registration=dataclasses.replace(
+            cfg.registration, refit_per_iteration=branch == "feature_refit"))
+    B = 4
+    images = _lanes(B, cuda)
+    one = localization.RangeImage(*(a[0] for a in images))
+    f = tex.extract_features(one, cfg.extraction)
+    rng = np.random.default_rng(0)
+    bench_scan(rng, 64, 2304)             # the map's draws follow the scan's
+    clouds = [torch.as_tensor(keyframe_copies(rng, c[v].cpu().numpy()),
+                              dtype=torch.float32, device=cuda)
+              for c, v in ((f.edge_xyz, f.edge_valid),
+                           (f.surface_xyz, f.surface_valid))]
+    ones = [torch.ones(len(c), dtype=torch.bool, device=cuda) for c in clouds]
+    build = (localization.build_geometry_maps if branch == "full_geometry"
+             else localization.build_feature_maps)
+    maps = build(clouds[0], ones[0], clouds[1], ones[1], cfg)
+    prng = np.random.default_rng(9)
+    yaw = np.radians(1.0) * prng.normal(size=B)
+    d = prng.normal(size=(B, 3)) * [1.0, 1.0, 0.0]
+    q = torch.as_tensor(np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw,
+                                  np.sin(yaw / 2)], -1), dtype=torch.float32,
+                        device=cuda)
+    t = torch.as_tensor(np.float32([0.3, -0.2, 0.05]) + np.float32(
+        [0.1, 0.3, 0.6, 0.9])[:, None] * d
+        / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32,
+        device=cuda)
+    before = extraction_cuda.label_and_columns_cuda.launches
+    got, feats = make_batched_localizer(cfg)(maps, images, Pose(q, t))
+    assert extraction_cuda.label_and_columns_cuda.launches == before + 1
+    assert feats.labels.shape == images.mask.shape
+    for b in range(B):
+        lone, _ = localization.localize_scan(
+            maps, localization.RangeImage(*(a[b] for a in images)),
+            Pose(q[b], t[b]), cfg)
+        assert (int(got.status[b]), int(got.iterations[b])) == (
+            int(lone.status), int(lone.iterations)), b
+        assert float((got.pose.t[b] - lone.pose.t).abs().max()) <= 1e-4
+        assert float((got.pose.q[b] - lone.pose.q).abs().max()) <= 1e-4
+
+
+def test_hash_map_on_the_card_matches_the_cpu(cuda):
+    from lidar_feature_extraction_tpu_torch.ops import voxel_map
+
+    rng = np.random.default_rng(5)
+    pts = np.float32(rng.uniform(-40, 40, (60000, 3)))
+    mask = rng.random(60000) < 0.95
+    queries = np.float32(rng.uniform(-38, 38, (2, 3000, 3)))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        m = voxel_map.build_voxel_map(torch.as_tensor(pts, device=dev),
+                                      torch.as_tensor(mask, device=dev),
+                                      1.0, 1 << 16, 8)
+        out.append((m, voxel_map.knn(m, torch.as_tensor(queries, device=dev),
+                                     15)))
+    (gm, (gn, gsq, gv)), (wm, (wn, wsq, wv)) = out
+    for name in ("keys", "points", "n_pts"):
+        assert torch.equal(getattr(gm, name).cpu(), getattr(wm, name)), name
+    assert torch.equal(gv.cpu(), wv) and torch.equal(gn.cpu(), wn)
+    assert int(wv.sum()) > 1000
+    np.testing.assert_allclose(gsq.cpu()[wv].numpy(), wsq[wv].numpy(),
+                               rtol=1e-6, atol=0)

@@ -14,7 +14,8 @@ Tolerances:
   exact), point grids exactly (a stable sort moves the points);
 - the KITTI replay (3 ray-cast scans of 8 x 256 written as ``.bin``):
   fused positions within 1e-3 m scan by scan;
-- the alignment: status and iterations equal, pose within 1e-5.
+- the alignment: status and iterations equal, pose within 1e-5;
+- PLY files: byte for byte.
 """
 
 import dataclasses
@@ -39,6 +40,8 @@ from lidar_feature_extraction_tpu.pipeline import launch as jlaunch  # noqa: E40
 from lidar_feature_extraction_tpu.pipeline import replay as jreplay  # noqa: E402
 from lidar_feature_extraction_tpu.pipeline import (  # noqa: E402
     trajectory as jtraj)
+from lidar_feature_extraction_tpu.utils import profiling as jprof  # noqa: E402
+from lidar_feature_extraction_tpu.utils import visualize as jvis  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core.pose import Pose  # noqa: E402
 from lidar_feature_extraction_tpu_torch.io import convert as tconv  # noqa: E402
 from lidar_feature_extraction_tpu_torch.io import kitti as tkitti  # noqa: E402
@@ -53,6 +56,8 @@ from lidar_feature_extraction_tpu_torch.pipeline import (  # noqa: E402
 from lidar_feature_extraction_tpu_torch.pipeline import replay as treplay  # noqa: E402
 from lidar_feature_extraction_tpu_torch.pipeline import (  # noqa: E402
     trajectory as ttraj)
+from lidar_feature_extraction_tpu_torch.utils import profiling as tprof  # noqa: E402
+from lidar_feature_extraction_tpu_torch.utils import visualize as tvis  # noqa: E402
 from lidar_feature_extraction_tpu_torch.utils import worldsim as tws  # noqa: E402
 
 CPU = "cpu"
@@ -448,6 +453,78 @@ def test_write_velodyne_bin_writes_kitti_records(tmp_path):
     assert not raw.reshape(-1, 4)[:, 3].any()
 
 
+# ---- stage timer, trace, PLY exports ----------------------------------
+
+def test_stage_timer_reports_as_the_reference():
+    """test_misc.py's StageTimer case on both timers: the same stages,
+    counts and report fields; ``block_on`` takes a tree of tensors."""
+    reports = []
+    for timer in (jprof.StageTimer(), tprof.StageTimer()):
+        with timer.stage("a"):
+            sum(range(1000))
+        with timer.stage("a", block_on=None):
+            pass
+        with timer.stage("b", block_on=(torch.ones(3),
+                                         {"x": [torch.zeros(2)]})):
+            pass
+        reports.append(timer.report())
+    want, got = reports
+    assert got["a"]["count"] == 2 and got["a"]["total_s"] > 0
+    assert {k: sorted(v) for k, v in got.items()} == {
+        k: sorted(v) for k, v in want.items()}
+    assert [got[k]["count"] for k in sorted(got)] == [
+        want[k]["count"] for k in sorted(want)]
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    with tprof.trace(str(tmp_path / "trace")) as path:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert path.startswith(str(tmp_path)) and len(events) > 0
+
+
+def _ply_inputs():
+    rng = np.random.default_rng(8)
+    xyz = np32(rng.normal(size=(4, 16, 3)))
+    mask = rng.random((4, 16)) < 0.7
+    labels = rng.integers(0, 8, size=(4, 16)).astype(np.int32)
+    return xyz, mask, labels
+
+
+# name -> write(module, path, xyz, mask, labels)
+_PLY = {
+    "save_ply": lambda m, path, xyz, mask, labels: m.save_ply(
+        path, xyz.reshape(-1, 3)),
+    "save_ply_rgb": lambda m, path, xyz, mask, labels: m.save_ply(
+        path, xyz.reshape(-1, 3),
+        np.uint8(np.arange(xyz.size).reshape(-1, 3) % 256)),
+    "export_labeled_scan": lambda m, path, xyz, mask, labels:
+        m.export_labeled_scan(path, xyz, mask, labels),
+    "export_trajectory": lambda m, path, xyz, mask, labels:
+        m.export_trajectory(path, xyz[0], color=(1, 2, 3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLY))
+def test_ply_writers_match_reference(tmp_path, name):
+    """The port's PLY files are the reference's byte for byte (the
+    labelled scan from torch tensors on the port's side)."""
+    xyz, mask, labels = _ply_inputs()
+    out = []
+    for tag, module, args in (
+            ("want", jvis, (xyz, mask, labels)),
+            ("got", tvis, (torch.as_tensor(xyz), torch.as_tensor(mask),
+                           torch.as_tensor(labels))
+             if name == "export_labeled_scan" else (xyz, mask, labels))):
+        path = str(tmp_path / f"{tag}.ply")
+        _PLY[name](module, path, *args)
+        with open(path, "rb") as f:
+            out.append(f.read())
+    assert out[0] == out[1]
+    assert out[1].startswith(b"ply\nformat binary_little_endian 1.0\n")
+
+
 def kitti_drive_reference_ate() -> float:
     """The JAX package's ``run_kitti_localization`` ATE-RMSE on
     chip_smoke.py's ``kitti`` phase input (eval_ate.py's 20-scan drive,
@@ -475,3 +552,4 @@ def kitti_drive_reference_ate() -> float:
 if __name__ == "__main__":
     print(json.dumps({"kitti_drive_reference_ate_m":
                       kitti_drive_reference_ate()}))
+

@@ -287,7 +287,8 @@ def test_lookup_knn_dispatches_on_the_dense_grid():
     got = tres.lookup_knn(g, t32(xyz[:10]), 3)
     want = tvg.knn(g, t32(xyz[:10]), 3)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    with pytest.raises(NotImplementedError, match="voxel-hash"):
+    with pytest.raises(NotImplementedError,
+                       match="DenseVoxelGrid and VoxelHashMap"):
         tres.lookup_knn(object(), t32(xyz[:10]), 3)
 
 
