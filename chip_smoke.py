@@ -1,7 +1,9 @@
 """Drive the PyTorch port's scan-to-map localization step, its closed
 loop (registration + EKF), its odometry, its keyframe SLAM pipeline, its
-batched localizer on every branch, its KITTI entry point and its
-voxel-hash map on a CUDA card and check them.
+batched localizer on every branch, its KITTI entry point, its voxel-hash
+map, its multi-device code (process group, sharded localizer and graph
+solvers) and its chunked mapping front end on a CUDA card and check
+them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -115,8 +117,36 @@ Phases, each of which must pass (any failure exits non-zero):
    ``edge_residuals`` / ``surface_residuals`` through ``lookup_knn``.
    Build time, buckets used and both kNN times (CUDA events) are
    printed; one ``export_labeled_scan`` PLY's header and size checked;
-12. k1, after the main paths (localize, drive, odometry, slam, batch,
-   kitti, determinism, batch_full, voxel_map): a ``torch.profiler``
+12. multi: ``multihost.spawn`` starts 2 gloo ranks on the one card
+   (``spawn`` processes: this one has started CUDA; K1 is only loaded
+   there, built here). Each builds the bench scene, replicates the maps
+   (``replicate_to_global``, checksums all-reduced) and runs the batched
+   localizer over the mesh at a global B = 8 (its 4 lanes, one K1 launch
+   per batch, ``BATCH_REPS`` timed batches after an untimed one): every
+   lane equal to its lone ``localize_scan`` bit for bit, the whole batch
+   through ``gather_to_host``. Then the dense and CG pose-graph solves of
+   ``seeded_graph`` (40 keyframes, 47 constraints and one zero-weight
+   lane) through ``make_distributed_pose_graph_optimizer`` in float32, and
+   a seeded 40-keyframe IMU graph sharded through ``group=`` in float64,
+   each twice: the same bits both times and on both ranks, within
+   ``SOLVE_ATOL`` of the one-rank solve (the IMU graph's float32 gap is
+   printed). A one-rank NCCL group runs the dense solve (equal to the
+   solve without a group), and two ranks try a NCCL group on the one card
+   (what NCCL does is printed, nothing depends on it). Per rank: ms per
+   batch, ms per solve;
+13. chunk: slam_loop's 80 scans (phase 6's first drive, drawn again from
+   its generator state) through ``ChunkedMappingPipeline`` in blocks of 8:
+   one K1 launch per block (10), and one per scan of a block that the
+   odometry's gate sends back to the host ladder (the blocks replayed are
+   printed); the keyframe and constraint counts of the per-scan run, the
+   keyframe trajectory within 1e-3 m of it and the ATE under slam_loop's
+   limit; ms per scan (a block's host time over its scans: mean,
+   median). Then 16 of the scans with scan 11 dead (every point
+   invalid): its block is replayed scan by scan through the host ladder
+   (8 more K1 launches), and so is any block the clean run replayed;
+14. k1, after the main paths (localize, drive, odometry, slam, batch,
+   kitti, determinism, batch_full, voxel_map, multi, chunk): a
+   ``torch.profiler``
    session leaves the host's kernel launches slower for the rest of the
    process, so no profiler runs before the host-bound loops. K1 against
    its plain PyTorch version on the card at 64 x 2304, on the bench scan
@@ -148,6 +178,7 @@ repository, it fails before printing any result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -196,6 +227,22 @@ TIE_MARGIN = 1e-5
 # the CPU by `PYTHONPATH=. python tests/test_torch_entry.py`), with the
 # drive's factor and margin.
 KITTI_ATE_REFERENCE_M = 4.77979214851624
+# The multi phase: gloo ranks on the one card and the global batch (the
+# bench scene's lanes, split evenly); the largest position or quaternion
+# difference of a sharded graph solve from the one-rank solve: the pose
+# graphs in float32 at tests/test_parallel.py's own tolerance for a
+# sharded float32 solve, the IMU graph in float64 (its float32 gap is
+# printed, not held: see multi_rank); how long the ranks may take before
+# they are killed.
+MULTI_RANKS, MULTI_BATCH = 2, 8
+SOLVE_ATOL = {"dense": 1e-3, "cg": 1e-3, "imu": 1e-6}
+MULTI_TIMEOUT_S, PROBE_TIMEOUT_S = 480.0, 90.0
+# The chunk phase: scans per block; the keyframe trajectory's tolerance
+# against the per-scan slam_loop run (tests/test_mapping_chunk.py's);
+# the suspect-block run: its scans and the dead one (in the second block).
+CHUNK_BLOCK = 8
+CHUNK_TRAJ_ATOL_M = 1e-3
+CHUNK_SUSPECT_SCANS, CHUNK_DEAD = 16, 11
 
 
 class SmokeFailure(RuntimeError):
@@ -1164,6 +1211,383 @@ def voxel_map_phase(args, fmaps, cfg, scan, pose, dev, k1) -> dict:
     return out
 
 
+def padded_seeded_graph(device):
+    """``seeded_graph`` (40 keyframes, 47 constraints) with one
+    zero-weight constraint lane, so that its 48 divide over the ranks,
+    and identity information."""
+    import torch
+
+    graph, cons = seeded_graph(device)
+    one = lambda a, v: torch.cat([a, torch.full((1,) + a.shape[1:], v,  # noqa: E731
+                                                dtype=a.dtype,
+                                                device=a.device)])
+    z_q = torch.cat([cons.z_q, torch.tensor([[1.0, 0, 0, 0]],
+                                            device=device)])
+    m = cons.i.shape[0] + 1
+    # The identity information the distributed optimizer materializes, so
+    # that a solve without a group does the same arithmetic.
+    return graph, cons._replace(i=one(cons.i, 0), j=one(cons.j, 1), z_q=z_q,
+                                z_t=one(cons.z_t, 0.0),
+                                weight=one(cons.weight, 0.0),
+                                info=torch.eye(6, device=device).expand(
+                                    m, 6, 6))
+
+
+def seeded_imu_graph(device, k: int = 40, kf_every: int = 3, seed: int = 5):
+    """A 40-keyframe IMU graph: tests/test_parallel.py's arc (2 m/s on a
+    20 m radius, IMU at 20 Hz with a gyro bias of (0.01, -0.008, 0.02)
+    rad/s) with numpy noise on the samples and the initial positions, a
+    keyframe every ``kf_every`` samples; its 39 IMU factors and chain
+    constraints padded with one zero-weight lane to 40."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.fusion import imu as imu_mod
+    from lidar_feature_extraction_tpu_torch.parallel.imu_graph import (
+        ImuFactors, ImuGraph, weights_from_covariance)
+    from lidar_feature_extraction_tpu_torch.parallel.pose_graph import (
+        Constraints)
+
+    rng = np.random.default_rng(seed)
+    n, dt = (k - 1) * kf_every + 1, 0.05
+    theta = 2.0 * dt * np.arange(n) / 20.0
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                    device=device)
+    q = f32(np.stack([np.cos(theta / 2), 0 * theta, 0 * theta,
+                      np.sin(theta / 2)], -1))
+    t = f32(np.stack([20 * np.sin(theta), 20 * (1 - np.cos(theta)),
+                      0 * theta], -1))
+    gyro, accel, dts, _ = imu_mod.synthesize_imu(q, t, dt)
+    gyro = gyro + f32([0.01, -0.008, 0.02]) + f32(
+        rng.normal(scale=1e-3, size=tuple(gyro.shape)))
+    accel = accel + f32(rng.normal(scale=1e-2, size=tuple(accel.shape)))
+    kf = list(range(0, n, kf_every))
+    zero = torch.zeros(3, device=device)
+    pres = [imu_mod.preintegrate(gyro[a:b], accel[a:b], dts[a:b], zero,
+                                 zero) for a, b in zip(kf[:-1], kf[1:])]
+    rels = [Pose(q[a], t[a]).inverse().compose(Pose(q[b], t[b]))
+            for a, b in zip(kf[:-1], kf[1:])]
+    w = weights_from_covariance(torch.stack([p.cov for p in pres]))
+
+    def padded(rows, fill=0.0):
+        x = torch.stack(list(rows))
+        return torch.cat([x, torch.full((1,) + tuple(x.shape[1:]), fill,
+                                        dtype=x.dtype, device=device)])
+
+    m = k - 1
+    ident = torch.tensor([1.0, 0, 0, 0], device=device)
+    i = torch.tensor(list(range(m)) + [0], dtype=torch.int32, device=device)
+    j = torch.tensor(list(range(1, k)) + [1], dtype=torch.int32,
+                     device=device)
+    ones = torch.ones(m, device=device)
+    cons = Constraints(i, j, torch.cat([torch.stack([r.q for r in rels]),
+                                        ident[None]]),
+                       padded(r.t for r in rels), padded(ones),
+                       padded(torch.eye(6, device=device).expand(m, 6, 6)))
+    field = lambda name: padded(getattr(p, name) for p in pres)  # noqa: E731
+    imu = ImuFactors(i, j, torch.cat([torch.stack([p.dq for p in pres]),
+                                      ident[None]]),
+                     field("dv"), field("dp"), field("dt"), padded(w[0]),
+                     padded(w[1]), padded(w[2]), padded(ones),
+                     field("dq_dbg"), field("dv_dbg"), field("dv_dba"),
+                     field("dp_dbg"), field("dp_dba"))
+    idx = torch.tensor(kf, device=device)
+    v_init = f32(np.gradient(t[idx].cpu().numpy(), axis=0) / (kf_every * dt))
+    graph = ImuGraph(q[idx], t[idx] + f32(rng.normal(scale=0.05,
+                                                     size=(k, 3))),
+                     v_init, torch.zeros(3, device=device), None)
+    return graph, cons, imu
+
+
+def _timed(fn):
+    """``fn()`` and its wall ms (host clock ending in synchronize())."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - start)
+
+
+def multi_rank(reps: int) -> dict:
+    """One rank of the ``multi`` phase (``multihost.spawn``, a gloo group
+    on the one card): the bench scene's batch of MULTI_BATCH lanes through
+    ``make_batched_localizer`` over the mesh (this rank's shard, one K1
+    launch per batch, every lane bit for bit its lone ``localize_scan``,
+    the whole batch through ``gather_to_host``), then the sharded dense
+    and CG pose-graph solves of ``padded_seeded_graph`` and the sharded
+    IMU-graph solve of ``seeded_imu_graph``, each twice, beside the
+    one-rank solve. Raises SmokeFailure on a failed check; returns the
+    figures and the solved states (numpy) for the cross-rank check."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.config import kitti_hdl64
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    from lidar_feature_extraction_tpu_torch.ops import extraction_cuda as k1
+    from lidar_feature_extraction_tpu_torch.parallel import imu_graph as ig
+    from lidar_feature_extraction_tpu_torch.parallel import multihost
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph as pg
+    from lidar_feature_extraction_tpu_torch.parallel.distributed import (
+        make_batched_localizer)
+    from lidar_feature_extraction_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch)
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k1.load()          # built by the parent: only loaded here
+    mesh = make_mesh()
+    dev = mesh.device
+    tag = f"multi rank {mesh.rank}"
+    cfg = kitti_hdl64()
+    img, edge, surf = bench_scene(cfg, dev)
+    maps = multihost.replicate_to_global(mesh, build_maps(edge, surf, cfg))
+    images, poses = batch_lanes(img, MULTI_BATCH)
+    stacked = stack_range_images(images)
+    prior = Pose(torch.stack([p.q for p in poses]),
+                 torch.stack([p.t for p in poses]))
+    run = make_batched_localizer(cfg, mesh=mesh)
+    run(maps, stacked, prior)                      # untimed
+    torch.cuda.synchronize()
+    k1.label_and_columns_cuda.launches = 0
+    ms = []
+    for _ in range(reps):
+        (result, feats), t = _timed(lambda: run(maps, stacked, prior))
+        ms.append(t)
+    launches = k1.label_and_columns_cuda.launches
+    check(launches == reps, f"{tag}: K1 launched {launches} times for "
+                            f"{reps} batches")
+    per = MULTI_BATCH // mesh.size
+    lanes = range(mesh.rank * per, (mesh.rank + 1) * per)
+    check(feats.edge_xyz.shape[0] == per, f"{tag}: features of "
+                                          f"{feats.edge_xyz.shape[0]} scans")
+    for n, b in enumerate(lanes):
+        lone, _ = localize_scan(maps, images[b], poses[b], cfg)
+        same = all(torch.equal(x, y) for x, y in (
+            (result.status[n], lone.status),
+            (result.iterations[n], lone.iterations),
+            (result.pose.q[n], lone.pose.q), (result.pose.t[n], lone.pose.t)))
+        check(same, f"{tag}: lane {b} differs from its lone localize_scan")
+    fields = (result.status, result.iterations, result.pose.q, result.pose.t)
+    whole = multihost.gather_to_host(mesh, fields)
+    check(all(torch.equal(w[mesh.rank * per:(mesh.rank + 1) * per], f.cpu())
+              for w, f in zip(whole, fields)),
+          f"{tag}: gather_to_host differs from the rank's shard")
+
+    out = {"rank": mesh.rank, "k1_launches": launches,
+           "ms_per_batch": statistics.median(ms), "ms_batches": ms,
+           "lanes": list(lanes),
+           "gn_iterations": result.iterations.tolist(),
+           "gathered": [w.numpy() for w in whole]}
+    graph, cons = padded_seeded_graph(dev)
+    k = graph.poses_q.shape[0]
+    for solver, single in (("dense", pg.optimize_pose_graph),
+                           ("cg", pg.optimize_pose_graph_cg)):
+        opt = pg.make_distributed_pose_graph_optimizer(mesh, k, solver)
+        (a, ta), (b, tb) = (_timed(lambda: opt(graph, cons))
+                            for _ in range(2))
+        one, t1 = _timed(lambda: single(graph, cons))
+        out[solver] = _solve_figures(a, b, one, (ta, tb), t1)
+    # The IMU graph in float64, where its sharded sum may differ from the
+    # one-rank sum only in rounding; in float32 its 40-keyframe solve
+    # moves by centimetres with the order of summation alone, so that gap
+    # is printed, not held.
+    f64 = lambda nt: type(nt)(*(  # noqa: E731
+        None if x is None else x.double() if x.is_floating_point() else x
+        for x in nt))
+    for name, cast in (("imu", f64), ("imu_float32", lambda nt: nt)):
+        igraph, icons, imu = (cast(x) for x in seeded_imu_graph(dev))
+
+        def sharded():
+            return ig.optimize_imu_graph(
+                igraph, type(icons)(*(shard_batch(mesh, x) for x in icons)),
+                type(imu)(*(shard_batch(mesh, x) for x in imu)),
+                n_iterations=10, group=mesh.group)
+
+        (a, ta), (b, tb) = (_timed(sharded) for _ in range(2))
+        one, t1 = _timed(lambda: ig.optimize_imu_graph(igraph, icons, imu,
+                                                       n_iterations=10))
+        out[name] = _solve_figures(a, b, one, (ta, tb), t1)
+        out[name]["gyro_bias"] = a.bg.tolist()
+    return out
+
+
+def _solve_figures(a, b, one, ms, ms_one) -> dict:
+    """A sharded solve's first and second results ``a``, ``b`` against the
+    one-rank ``one``: same bits twice, the largest position / quaternion
+    difference, times, and the state (numpy) for the cross-rank check."""
+    import torch
+
+    state = [x for x in a if x is not None]
+    return {"same_bits_twice": all(torch.equal(x, y) for x, y in zip(
+                state, [y for y in b if y is not None])),
+            "max_dt_m": float((a.poses_t - one.poses_t).abs().max()),
+            "max_dq": float((a.poses_q - one.poses_q).abs().max()),
+            "ms_per_solve": list(ms), "ms_one_rank": ms_one,
+            "state": [x.cpu().numpy() for x in state]}
+
+
+def nccl_one_rank() -> dict:
+    """A one-rank NCCL group (``multihost.initialize`` starts nothing at
+    one process, so it is started here) and the dense solve of
+    ``padded_seeded_graph`` sharded over it: the all-reduce of one rank
+    is the identity, so it must equal the solve without a group."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph as pg
+    from lidar_feature_extraction_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://", world_size=1,
+                            rank=0, timeout=timedelta(seconds=120))
+    mesh = make_mesh()
+    graph, cons = padded_seeded_graph(mesh.device)
+    want, ms_no_group = _timed(lambda: pg.optimize_pose_graph(graph, cons))
+    opt = pg.make_distributed_pose_graph_optimizer(mesh, 40)
+    got, ms_first = _timed(lambda: opt(graph, cons))
+    got, ms = _timed(lambda: opt(graph, cons))
+    return {"backend": str(dist.get_backend()), "ms_per_solve": ms,
+            "ms_first_solve": ms_first, "ms_no_group_first": ms_no_group,
+            "equal_to_no_group": torch.equal(got.poses_t, want.poses_t)
+            and torch.equal(got.poses_q, want.poses_q)}
+
+
+def nccl_two_ranks_probe() -> dict:
+    """What NCCL does with two ranks on one card: a NCCL group over the
+    two ranks of a gloo group, both on cuda:0, and one all-reduce.
+    Recorded, never relied on."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        group = dist.new_group(backend="nccl")
+        x = torch.ones(4, device="cuda:0")
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+    except RuntimeError as e:      # the outcome is the finding
+        return {"outcome": "raised", "error": f"{type(e).__name__}: "
+                                              f"{str(e)[:300]}"}
+    return {"outcome": "ran", "sum": x.tolist()}
+
+
+def multi_phase(k1) -> dict:
+    """The ``multi`` phase: MULTI_RANKS gloo ranks on the one card
+    (``multi_rank``), their results held against each other bit for bit;
+    a one-rank NCCL group's dense solve; the NCCL probe of two ranks on
+    one card (recorded). Returns the phase's figures."""
+    from lidar_feature_extraction_tpu_torch.parallel import multihost
+
+    start = time.perf_counter()
+    ranks = multihost.spawn(multi_rank, MULTI_RANKS, BATCH_REPS,
+                            backend="gloo", timeout_s=MULTI_TIMEOUT_S)
+    wall = time.perf_counter() - start
+    for name in ("dense", "cg", "imu", "imu_float32"):
+        for r in ranks:
+            fig = r[name]
+            check(fig["same_bits_twice"],
+                  f"multi rank {r['rank']} {name}: a second call gave other "
+                  f"bits")
+            atol = SOLVE_ATOL.get(name)
+            check(atol is None or max(fig["max_dt_m"], fig["max_dq"]) <= atol,
+                  f"multi rank {r['rank']} {name}: {fig['max_dt_m']} m / "
+                  f"{fig['max_dq']} from the one-rank solve")
+        check(all(np.array_equal(a, b) for a, b in zip(
+            ranks[0][name]["state"], ranks[1][name]["state"])),
+              f"multi {name}: the ranks' solves differ")
+    check(all(np.array_equal(a, b) for a, b in zip(ranks[0]["gathered"],
+                                                   ranks[1]["gathered"])),
+          "multi: the ranks gathered different batches")
+    one = multihost.spawn(nccl_one_rank, 1, backend="nccl",
+                          timeout_s=MULTI_TIMEOUT_S)[0]
+    check(one["backend"] == "nccl" and one["equal_to_no_group"],
+          f"multi: one-rank NCCL solve {one}")
+    try:
+        probe = multihost.spawn(nccl_two_ranks_probe, 2, backend="gloo",
+                                timeout_s=PROBE_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        probe = f"{type(e).__name__}: {str(e)[-300:]}"
+    for r in ranks:
+        for name in ("dense", "cg", "imu", "imu_float32"):
+            r[name].pop("state")
+        r.pop("gathered")
+    return {"ranks": ranks, "wall_s": wall,
+            "k1_launches": sum(r["k1_launches"] for r in ranks),
+            "nccl_one_rank": one, "nccl_two_ranks_one_card": probe}
+
+
+def chunk_scans(world, rng, cfg, device, n: int):
+    """The first ``n`` of ``slam_loop``'s 80 scans as range images on
+    ``device``: ``rng`` in the state the slam phase's first drive found
+    it, drawn as ``worldsim.run_mapping_drive`` draws without IMU."""
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    return [scan_range_image(*worldsim.raycast_scan(
+        world, worldsim.circle_pose(i, SLAM_SCANS, 10.0), rng, n_rings=64,
+        n_az=2048, elev_deg=(2.0, -24.8)), cfg, device) for i in range(n)]
+
+
+def chunk_run(images, cfg, k1, dead: int | None = None):
+    """``ChunkedMappingPipeline`` over ``images`` in blocks of
+    CHUNK_BLOCK with slam_loop's settings, each block timed (host clock
+    ending in synchronize()), then the final optimize(); with ``dead`` that
+    scan's points all invalid. K1's count is read over exactly the run.
+    Returns the pipeline (``replayed``: the scans it replayed), K1's
+    launches, the ms of each block and the blocks it replayed."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    from lidar_feature_extraction_tpu_torch.pipeline.mapping_chunk import (
+        ChunkedMappingPipeline)
+
+    class Counted(ChunkedMappingPipeline):
+        replayed = 0
+        gate = []       # per suspect block: statuses, edge medians (m)
+
+        def _extract(self, image):
+            self.replayed += 1
+            return super()._extract(image)
+
+        def _block_suspect(self, status, edge_errors):
+            out = super()._block_suspect(status, edge_errors)
+            if out:
+                self.gate = self.gate + [{
+                    "status": status.tolist(),
+                    "edge_median_m": (np.sqrt(np.maximum(edge_errors, 0.0))
+                                      / 2.0).tolist()}]
+            return out
+
+    if dead is not None:
+        im = images[dead]
+        images = list(images)
+        images[dead] = im._replace(xyz=torch.zeros_like(im.xyz),
+                                   mask=torch.zeros_like(im.mask),
+                                   count=torch.zeros_like(im.count))
+    pipeline = Counted(cfg, device=images[0].xyz.device, loop_radius=6.0,
+                       loop_min_gap=10, optimize_every=8)
+    torch.cuda.synchronize()
+    k1.label_and_columns_cuda.launches = 0
+    ms, replayed = [], []
+    for s in range(0, len(images), CHUNK_BLOCK):
+        block = images[s:s + CHUNK_BLOCK]
+        before = pipeline.replayed
+        _, t = _timed(lambda: pipeline.process_block(
+            stack_range_images(block), [0.1 * (s + n)
+                                        for n in range(len(block))]))
+        ms.append(t)
+        if pipeline.replayed > before:
+            replayed.append(s // CHUNK_BLOCK)
+    pipeline.optimize()
+    torch.cuda.synchronize()
+    return pipeline, k1.label_and_columns_cuda.launches, ms, replayed
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -1371,10 +1795,12 @@ def main() -> int:
 
     # 6. slam: eval_ate.py's two slam_loop drives, drawing on after the
     # drive's twists as eval_ate.py does.
-    slam_runs = {}
+    slam_runs, slam_ate = {}, {}
+    slam_rng = copy.deepcopy(rng)   # the chunk phase draws slam_loop's scans
     for name, with_imu in (("slam_loop", False), ("slam_loop_imu", True)):
         run, pipeline, pair = slam_run(cfg, world, rng, with_imu, dev, k1)
         slam_runs[name] = (pipeline, pair)
+        slam_ate[name] = run["ate_rmse_m"]
         limit = ATE_FACTOR * SLAM_ATE_REFERENCE_M[name] + ATE_MARGIN_M
         emit("slam", run=name, ate_limit_m=limit,
              ate_reference_m=SLAM_ATE_REFERENCE_M[name], **run)
@@ -1483,7 +1909,92 @@ def main() -> int:
     launches += vmap["k1_launches"]
     launches_by_phase["voxel_map"] = vmap["k1_launches"]
 
-    # 12. k1 against its plain version at full width, on both scans and on
+    # 12. multi: the batched localizer and the graph solvers sharded over
+    # gloo ranks on the one card; a one-rank NCCL group.
+    multi = multi_phase(k1)
+    emit("multi", n_ranks=MULTI_RANKS, batch=MULTI_BATCH,
+         solve_atol=SOLVE_ATOL, **multi)
+    launches += multi["k1_launches"]
+    launches_by_phase["multi"] = multi["k1_launches"]
+
+    # 13. chunk: slam_loop's 80 scans through ChunkedMappingPipeline in
+    # blocks of CHUNK_BLOCK, against the slam phase's per-scan run; then a
+    # block with a dead scan.
+    from lidar_feature_extraction_tpu_torch.utils.evaluation import ate_rmse
+
+    start = time.perf_counter()
+    chunk_images = chunk_scans(world, slam_rng, cfg, dev, SLAM_SCANS)
+    scans_s = time.perf_counter() - start
+    chunked, chunk_launches, block_ms, replayed = chunk_run(chunk_images,
+                                                            cfg, k1)
+    per_scan = slam_runs["slam_loop"][0]
+    n_blocks = len(block_ms)
+    chunk_gt = np.stack([worldsim.circle_pose(
+        round(kf.stamp / 0.1), SLAM_SCANS, 10.0).t.numpy()
+        for kf in chunked.keyframes])
+    same_shape = chunked.trajectory.shape == per_scan.trajectory.shape
+    traj_err = float(np.abs(chunked.trajectory - per_scan.trajectory).max()) \
+        if same_shape else float("inf")
+    chunk_ate = ate_rmse(chunked.trajectory, chunk_gt, align=False)
+    chunk_limit = ATE_FACTOR * SLAM_ATE_REFERENCE_M["slam_loop"] \
+        + ATE_MARGIN_M
+    ms_scan = [m / CHUNK_BLOCK for m in block_ms]
+    suspect, suspect_launches, suspect_ms, suspect_replayed = chunk_run(
+        chunk_images[:CHUNK_SUSPECT_SCANS], cfg, k1, dead=CHUNK_DEAD)
+    dead_block = CHUNK_DEAD // CHUNK_BLOCK
+    # The blocks the dead-scan run must replay: the dead scan's, and those
+    # of its blocks that the clean run replayed (the same scans).
+    want_replayed = sorted({dead_block} | {b for b in replayed
+                                           if b < len(suspect_ms)})
+    del chunk_images
+    emit("chunk", scans=SLAM_SCANS, block=CHUNK_BLOCK, blocks=n_blocks,
+         raycast_s=scans_s, k1_launches=chunk_launches,
+         replayed_scans=chunked.replayed, replayed_blocks=replayed,
+         replayed_gate=chunked.gate,
+         keyframes=len(chunked.keyframes),
+         per_scan_keyframes=len(per_scan.keyframes),
+         constraints=len(chunked.constraints),
+         per_scan_constraints=len(per_scan.constraints),
+         trajectory_max_diff_m=traj_err, ate_rmse_m=chunk_ate,
+         ate_limit_m=chunk_limit,
+         per_scan_ate_rmse_m=slam_ate["slam_loop"],
+         ms_per_scan_mean=statistics.fmean(ms_scan),
+         ms_per_scan_median=statistics.median(ms_scan), ms_blocks=block_ms,
+         suspect_run={"scans": CHUNK_SUSPECT_SCANS, "dead": CHUNK_DEAD,
+                      "k1_launches": suspect_launches,
+                      "replayed_scans": suspect.replayed,
+                      "replayed_blocks": suspect_replayed,
+                      "keyframes": len(suspect.keyframes),
+                      "finite": bool(np.isfinite(suspect.trajectory).all()),
+                      "ms_blocks": suspect_ms})
+    # One launch per block, and one per scan of a block the odometry's
+    # gate sent back to the host ladder (the per-scan run's ladder took
+    # the same scans: the trajectories are held equal below).
+    check(chunked.replayed == CHUNK_BLOCK * len(replayed)
+          and chunk_launches == n_blocks + chunked.replayed,
+          f"chunk: K1 launched {chunk_launches} times for {n_blocks} blocks "
+          f"and {chunked.replayed} replayed scans (blocks {replayed})")
+    check(len(chunked.keyframes) == len(per_scan.keyframes)
+          and len(chunked.constraints) == len(per_scan.constraints),
+          f"chunk: {len(chunked.keyframes)} keyframes, "
+          f"{len(chunked.constraints)} constraints; per scan "
+          f"{len(per_scan.keyframes)}, {len(per_scan.constraints)}")
+    check(traj_err <= CHUNK_TRAJ_ATOL_M,
+          f"chunk: trajectory {traj_err} m from the per-scan run's")
+    check(chunk_ate <= chunk_limit,
+          f"chunk: ATE {chunk_ate} m above {chunk_limit} m")
+    check(suspect_replayed == want_replayed
+          and suspect.replayed == CHUNK_BLOCK * len(want_replayed)
+          and suspect_launches == len(suspect_ms) + suspect.replayed
+          and bool(np.isfinite(suspect.trajectory).all()),
+          f"chunk: the dead-scan run replayed blocks {suspect_replayed} "
+          f"({suspect.replayed} scans, {suspect_launches} K1 launches); "
+          f"want {want_replayed}")
+    launches += chunk_launches + suspect_launches
+    launches_by_phase["chunk"] = chunk_launches
+    launches_by_phase["chunk_suspect"] = suspect_launches
+
+    # 14. k1 against its plain version at full width, on both scans and on
     # the bench scene's batches, and timed: the first profiler sessions
     # of the process.
     nbytes, flops = k1_work(R, P, ex.padding)

@@ -1,5 +1,6 @@
 """State carried across from numpy arrays: maps, pose, scan, odometry
-state, pose and IMU graphs, their factors and preintegrated windows.
+state, the chunked front end's carry, pose and IMU graphs, their factors
+and preintegrated windows.
 
 The arrays are what ``np.asarray`` gives from the JAX package's
 ``GeometryMaps`` / ``FeatureMaps`` / ``Pose`` / ``RangeImage`` (or any
@@ -27,6 +28,8 @@ from lidar_feature_extraction_tpu_torch.parallel.pose_graph import (
     Constraints, PoseGraph)
 from lidar_feature_extraction_tpu_torch.pipeline.localization import (
     FeatureMaps, GeometryMaps)
+from lidar_feature_extraction_tpu_torch.pipeline.mapping_chunk import (
+    ChunkCarry)
 from lidar_feature_extraction_tpu_torch.pipeline.odometry import (
     GeometryOdometryState, OdometryState)
 
@@ -187,3 +190,11 @@ def geometry_odometry_state_from_numpy(edge_m, surf_m, edge_origin,
                                 edge_window, edge_mask, surf_window,
                                 surf_mask, slot, n_scans, pose_q, pose_t),
         device)
+
+
+def chunk_carry_from_numpy(odo, prev_q, prev_t, device="cuda") -> ChunkCarry:
+    """ChunkCarry from a GeometryOdometryState's fields (``odo``, in its
+    order) and the pose before the latest update ([4], [3])."""
+    return ChunkCarry(odo=geometry_odometry_state_from_numpy(
+        *odo, device=device), prev_q=_auto(prev_q, device),
+        prev_t=_auto(prev_t, device))

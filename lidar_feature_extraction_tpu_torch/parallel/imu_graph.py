@@ -1,10 +1,16 @@
-"""IMU-aware keyframe graph on one device: poses + velocities,
-relative-pose constraints and preintegrated-IMU factors.
+"""IMU-aware keyframe graph: poses + velocities, relative-pose
+constraints and preintegrated-IMU factors, on one device or sharded over
+a process group.
 
-Port of ``lidar_feature_extraction_tpu/parallel/imu_graph.py`` (the
-``axis_name`` / ``psum`` sharding is not ported). Both factor families
-are linearized with ``torch.func.jacfwd`` under ``torch.func.vmap`` and
-reduced to dense [9K, 9K] normal equations as in ``pose_graph.py``.
+Port of ``lidar_feature_extraction_tpu/parallel/imu_graph.py``. Both
+factor families are linearized with ``torch.func.jacfwd`` under
+``torch.func.vmap`` and reduced to dense [9K, 9K] normal equations as in
+``pose_graph.py``. With ``group=`` (the reference's ``axis_name``) each
+rank holds the graph whole and its shard of the factors and constraints
+(each IMU factor on the same rank as the chain constraint over its
+pair), and the sums are ``all_reduce``d where the reference ``psum``s:
+the gyro-bias normal equations, H and g, and the cost that decides the
+Levenberg-Marquardt accept, so every rank takes the same decision.
 
 The numerical choices are the reference's: the shared gyro bias is
 estimated first by the decoupled rotation-only solve
@@ -25,6 +31,7 @@ from torch.func import vmap
 
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.fusion.imu import GRAVITY
+from lidar_feature_extraction_tpu_torch.parallel.mesh import psum
 from lidar_feature_extraction_tpu_torch.parallel.pose_graph import (
     Constraints, _jac, _robust_weights, _weighted_jacobians,
     constraint_residual, scatter_normal_equations)
@@ -154,7 +161,7 @@ _bias_linearize = vmap(_bias_linearize_one, in_dims=(0, 0, 0, None))
 
 def estimate_gyro_bias(imu: ImuFactors, cons: Constraints, bg0=None,
                        prior_weight: float = 2500.0,
-                       n_iterations: int = 8) -> torch.Tensor:
+                       n_iterations: int = 8, group=None) -> torch.Tensor:
     """Decoupled rotation-only gyro-bias estimate (the VINS-Mono
     initialization scheme): Newton steps on
 
@@ -162,7 +169,8 @@ def estimate_gyro_bias(imu: ImuFactors, cons: Constraints, bg0=None,
             + prior_weight ||bg||^2
 
     with z_q_m the measured rotation of the chain constraint over the
-    same keyframe pair (factors with none drop out)."""
+    same keyframe pair (factors with none drop out). With ``group`` the
+    3x3 normal equations are summed over its ranks."""
     dtype, dev = imu.dq.dtype, imu.dq.device
     bg = torch.zeros(3, dtype=dtype, device=dev) if bg0 is None else bg0
     same = (cons.i[None, :] == imu.i[:, None]) \
@@ -175,8 +183,10 @@ def estimate_gyro_bias(imu: ImuFactors, cons: Constraints, bg0=None,
     eye = torch.eye(3, dtype=dtype, device=dev)
     for _ in range(n_iterations):
         r, j = _bias_linearize(imu.dq, imu.dq_dbg, z_q, bg)
-        h = torch.einsum("mki,m,mkj->ij", j, w, j) + prior_weight * eye
-        g = torch.einsum("mki,m,mk->i", j, w, r) + prior_weight * bg
+        h = psum(torch.einsum("mki,m,mkj->ij", j, w, j), group) \
+            + prior_weight * eye
+        g = psum(torch.einsum("mki,m,mk->i", j, w, r), group) \
+            + prior_weight * bg
         bg = bg - torch.linalg.solve_ex(h, g)[0]
     return bg
 
@@ -199,12 +209,15 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
                        prior_weight: float = 1e6,
                        damping: float = 1e-4,
                        robust_delta: float | None = None,
-                       bias_prior_weight: float = 2500.0) -> ImuGraph:
+                       bias_prior_weight: float = 2500.0,
+                       group=None) -> ImuGraph:
     """Gauss-Newton over (pose, velocity) keyframe states with
     relative-pose constraints and IMU factors: the gauge prior on pose 0,
     Levenberg damping, an optional Geman-McClure kernel on the pose
     constraints, and, with ``graph.bg`` set, the decoupled gyro-bias
-    estimate folded into the factors first."""
+    estimate folded into the factors first. With ``group`` (``cons``
+    and ``imu`` this rank's shards) the bias solve, H, g and the accept
+    cost are summed over its ranks."""
     k = graph.poses_q.shape[0]
     dim = 9 * k
     dtype, dev = graph.poses_t.dtype, graph.poses_t.device
@@ -218,7 +231,8 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
         ba = zero3 if graph.ba is None else graph.ba
         if graph.bg is not None and cons is not None:
             bg_out = estimate_gyro_bias(imu, cons, bg0=graph.bg,
-                                        prior_weight=bias_prior_weight)
+                                        prior_weight=bias_prior_weight,
+                                        group=group)
         imu = fold_bias_into_factors(
             imu, zero3 if bg_out is None else bg_out, ba)
 
@@ -240,7 +254,8 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
                 g.poses_t[j], g.vels[j], imu.dq, imu.dv, imu.dp, imu.dt)
 
     def cost(g, w_cons):
-        """Weighted squared cost at frozen IRLS weights."""
+        """Weighted squared cost at frozen IRLS weights, summed over the
+        ranks (the same on each, so the accept below is too)."""
         c = torch.zeros((), dtype=dtype, device=dev)
         if cons is not None:
             r = constraint_residual(*pose_args(g))
@@ -252,7 +267,7 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
         if imu is not None:
             r = vmap(imu_residual_9)(*imu_args(g))
             c = c + torch.sum(imu_w9() * r * r)
-        return c
+        return psum(c, group)
 
     prior = torch.zeros(dim, dtype=dtype, device=dev)
     prior[:6] = prior_weight
@@ -275,7 +290,8 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
             h, g = _scatter(h, g, imu.i, imu.j, r, ji, jj,
                             w9[:, :, None] * ji, w9[:, :, None] * jj)
 
-        h = h + diag
+        h = psum(h, group) + diag
+        g = psum(g, group)
         # Jacobi equilibration: the raw system spans ~10 orders of
         # magnitude (gauge prior 1e6, IMU information ~1e5, damping 1e-4),
         # beyond a float32 solve; LM's lam rides on the unit diagonal.

@@ -1,7 +1,7 @@
-"""Keyframe pose-graph optimization on one device.
+"""Keyframe pose-graph optimization, on one device or sharded over a
+mesh.
 
-Port of ``lidar_feature_extraction_tpu/parallel/pose_graph.py:33-296``
-(the mesh-sharded optimizer, ``axis_name`` / ``psum``, is not ported).
+Port of ``lidar_feature_extraction_tpu/parallel/pose_graph.py``.
 
 State: poses [K] as (wxyz quaternion, translation). Constraints: (i, j,
 Z_ij), Z_ij the measured relative pose i -> j. Residual per constraint
@@ -9,14 +9,23 @@ r = log(Z_ij^-1 (T_i^-1 T_j)) in R^6 (rotation, local translation);
 its Jacobians with respect to right tangent perturbations of T_i and T_j
 are ``torch.func.jacfwd`` at zero under ``torch.func.vmap``, the
 reference's ``jax.vmap(jax.jacfwd(...))``, cast back to the state's
-dtype (``_jac``). The 6x6 blocks scatter into
-the normal equations with ``index_put(accumulate=True)``, and the CG
-solver's rows through ``ops/scatter.py``: both sort by destination on
-the card and sum each destination in that order, so a solve gives the
-same bits every run. The dense solve is ``torch.linalg.solve_ex``
+dtype (``_jac``). The 6x6 blocks scatter into the normal equations, and
+the CG solver's rows through ``ops/scatter.py``, in a fixed order on
+the card and on the CPU (``scatter_normal_equations``), so a solve gives
+the same bits every run. The dense solve is ``torch.linalg.solve_ex``
 (``solve`` would read the device to check for errors). The reference's
 ``fori_loop`` / ``scan`` are Python loops of device steps with no host
 read.
+
+Sharded (the reference's ``axis_name``): with ``group=`` a process
+group, each rank holds the poses whole and its own shard of the
+constraints, assembles its part of the normal equations, and the global
+system is their ``all_reduce`` sum over the group (``mesh.psum``), at the
+reference's places: H and g in the dense solver; the Hessian-vector
+product, g and the Jacobi diagonal in the CG solver. Every rank then
+solves the same system and takes the same step.
+``make_distributed_pose_graph_optimizer`` shards the constraints of one
+call over a ``mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from torch.func import jacfwd, vmap
 
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.ops.scatter import index_add_rows
+from lidar_feature_extraction_tpu_torch.parallel.mesh import (
+    Mesh, psum, replicated, shard_batch)
 
 
 class PoseGraph(NamedTuple):
@@ -116,6 +127,21 @@ def _block_index(bi, bj, d: int):
             cols[:, None, :].expand(-1, d, d))
 
 
+def _scatter_add(out: torch.Tensor, index: tuple, src: torch.Tensor):
+    """``out`` with ``src`` added at ``index`` (index grids of ``src``'s
+    shape), out of place, in a fixed order: on the card
+    ``index_put(accumulate=True)`` (sorted by destination, ROADMAP §C16);
+    on the CPU ``index_add`` on the flattened tensor, which adds in index
+    order, where ``index_put`` splits a large input between threads."""
+    if out.is_cuda:
+        return out.index_put(index, src, accumulate=True)
+    flat = index[0]
+    for idx, n in zip(index[1:], out.shape[1:]):
+        flat = flat * n + idx
+    return out.reshape(-1).index_add(0, flat.reshape(-1),
+                                     src.reshape(-1)).reshape(out.shape)
+
+
 def scatter_normal_equations(h, g, bi, bj, r, ji, jj, wji, wjj, d: int):
     """Accumulate one factor family's blocks into H [dK, dK] and g [dK]:
     H_ii = Ji^T Lambda Ji etc., ``wji = Lambda Ji``."""
@@ -124,14 +150,13 @@ def scatter_normal_equations(h, g, bi, bj, r, ji, jj, wji, wjj, d: int):
     hjj = torch.einsum("mki,mkj->mij", wjj, jj)
     gi = torch.einsum("mki,mk->mi", wji, r)
     gj = torch.einsum("mki,mk->mi", wjj, r)
-    h = h.index_put(_block_index(bi, bi, d), hii, accumulate=True)
-    h = h.index_put(_block_index(bi, bj, d), hij, accumulate=True)
-    h = h.index_put(_block_index(bj, bi, d), hij.transpose(1, 2),
-                    accumulate=True)
-    h = h.index_put(_block_index(bj, bj, d), hjj, accumulate=True)
+    h = _scatter_add(h, _block_index(bi, bi, d), hii)
+    h = _scatter_add(h, _block_index(bi, bj, d), hij)
+    h = _scatter_add(h, _block_index(bj, bi, d), hij.transpose(1, 2))
+    h = _scatter_add(h, _block_index(bj, bj, d), hjj)
     ar = torch.arange(d, device=bi.device)
-    g = g.index_put((bi.long()[:, None] * d + ar,), gi, accumulate=True)
-    g = g.index_put((bj.long()[:, None] * d + ar,), gj, accumulate=True)
+    g = _scatter_add(g, (bi.long()[:, None] * d + ar,), gi)
+    g = _scatter_add(g, (bj.long()[:, None] * d + ar,), gj)
     return h, g
 
 
@@ -172,11 +197,13 @@ def optimize_pose_graph(graph: PoseGraph, cons: Constraints,
                         n_iterations: int = 10,
                         prior_weight: float = 1e6,
                         damping: float = 1e-6,
-                        robust_delta: float | None = None) -> PoseGraph:
+                        robust_delta: float | None = None,
+                        group=None) -> PoseGraph:
     """Gauss-Newton over the whole pose graph with a dense [6K, 6K]
     solve per iteration. Pose 0 is gauge-fixed by a strong prior; the
     robust weights are recomputed every iteration at the current
-    estimate."""
+    estimate. With ``group`` (a process group; ``cons`` this rank's
+    shard) H and g are summed over its ranks."""
     k = graph.poses_q.shape[0]
     dtype, dev = graph.poses_t.dtype, graph.poses_t.device
     prior = torch.zeros(6 * k, dtype=dtype, device=dev)
@@ -185,6 +212,7 @@ def optimize_pose_graph(graph: PoseGraph, cons: Constraints,
     for _ in range(n_iterations):
         h, g = _local_normal_equations(graph, cons, k,
                                        robust_delta=robust_delta)
+        h, g = psum(h, group), psum(g, group)
         dx = -torch.linalg.solve_ex(h + diag, g)[0]
         graph = _apply_update(graph, dx)
     return graph
@@ -202,12 +230,15 @@ def optimize_pose_graph_cg(graph: PoseGraph, cons: Constraints,
                            n_cg: int = 50,
                            prior_weight: float = 1e6,
                            damping: float = 1e-6,
-                           robust_delta: float | None = None) -> PoseGraph:
+                           robust_delta: float | None = None,
+                           group=None) -> PoseGraph:
     """Matrix-free Gauss-Newton, the large-K companion of
     ``optimize_pose_graph``: each step solves the normal equations by
     ``n_cg`` Jacobi-preconditioned conjugate-gradient steps, one
     Hessian-vector product being two block einsums and a scatter-add;
-    H is never formed."""
+    H is never formed. With ``group`` each CG step sums one [K, 6]
+    vector over the ranks instead of the dense path's [6K, 6K]
+    matrix."""
     k = graph.poses_q.shape[0]
     dtype, dev = graph.poses_t.dtype, graph.poses_t.device
     prior_diag = torch.zeros((k, 6), dtype=dtype, device=dev)
@@ -223,16 +254,17 @@ def optimize_pose_graph_cg(graph: PoseGraph, cons: Constraints,
         def hvp(x):                     # x: [K, 6] -> H x
             y = torch.einsum("mab,mb->ma", ji, x[i]) \
                 + torch.einsum("mab,mb->ma", jj, x[j])
-            return _scatter_rows(k, cons, torch.einsum("mab,ma->mb", wji, y),
-                                 torch.einsum("mab,ma->mb", wjj, y),
-                                 x) + prior_diag * x
+            return psum(_scatter_rows(
+                k, cons, torch.einsum("mab,ma->mb", wji, y),
+                torch.einsum("mab,ma->mb", wjj, y), x),
+                group) + prior_diag * x
 
-        g = _scatter_rows(k, cons, torch.einsum("mab,ma->mb", wji, r),
-                          torch.einsum("mab,ma->mb", wjj, r), r)
+        g = psum(_scatter_rows(k, cons, torch.einsum("mab,ma->mb", wji, r),
+                                torch.einsum("mab,ma->mb", wjj, r), r), group)
         # Jacobi preconditioner: diag(H) per tangent coordinate.
-        dh = _scatter_rows(k, cons, torch.einsum("mab,mab->mb", wji, ji),
-                           torch.einsum("mab,mab->mb", wjj, jj),
-                           r) + prior_diag
+        dh = psum(_scatter_rows(
+            k, cons, torch.einsum("mab,mab->mb", wji, ji),
+            torch.einsum("mab,mab->mb", wjj, jj), r), group) + prior_diag
 
         # CG on H dx = -g from x0 = 0.
         x = torch.zeros_like(g)
@@ -250,3 +282,35 @@ def optimize_pose_graph_cg(graph: PoseGraph, cons: Constraints,
             p = z + beta * p
         graph = _apply_update(graph, x.reshape(-1))
     return graph
+
+
+def make_distributed_pose_graph_optimizer(mesh: Mesh, n_poses: int,
+                                          solver: str = "dense"):
+    """``run(graph, cons)`` sharded over ``mesh``: the poses replicated,
+    the constraints split by rank (their number must divide over the
+    mesh; pad with zero-weight lanes), the normal equations summed over
+    the ranks. ``solver="dense"`` sums the [6K, 6K] system once per GN
+    step (right at mapping scale, K <= 512); ``"cg"`` runs the
+    matrix-free solver, one [K, 6] sum per CG step (K in the thousands).
+    Every rank makes the same call with the whole graph and constraints
+    and gets the same optimized graph."""
+    if solver not in ("dense", "cg"):
+        raise ValueError(f"solver {solver!r}: 'dense' or 'cg'")
+    optimize = optimize_pose_graph_cg if solver == "cg" \
+        else optimize_pose_graph
+
+    def run(graph: PoseGraph, cons: Constraints) -> PoseGraph:
+        if graph.poses_q.shape[0] != n_poses:
+            raise ValueError(f"the optimizer was made for {n_poses} poses, "
+                             f"the graph has {graph.poses_q.shape[0]}")
+        if cons.info is None:
+            # Identity information is the scalar-weight path exactly;
+            # materialized so every rank's shard has the same fields.
+            m = cons.i.shape[0]
+            cons = cons._replace(info=torch.eye(
+                6, dtype=cons.z_t.dtype, device=cons.z_t.device).expand(
+                    m, 6, 6))
+        return optimize(replicated(mesh, graph), shard_batch(mesh, cons),
+                        group=mesh.group)
+
+    return run

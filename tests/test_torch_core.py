@@ -177,7 +177,8 @@ _ROOT = Path(__file__).resolve().parents[1]
 _PORT_FILES = sorted(
     [p for p in (_ROOT / "lidar_feature_extraction_tpu_torch").rglob("*.py")]
     + [_ROOT / name for name in ("chip_smoke.py", "k1_check.py",
-                                 "profile_k1.py", "scatter_probe.py")])
+                                 "profile_k1.py", "scatter_probe.py",
+                                 "tests/torch_parallel_worker.py")])
 
 
 def _imported_modules(path: Path):
@@ -205,14 +206,18 @@ _SLICE_MODULES = ("io/convert.py", "io/kitti.py", "ops/alignment.py",
                   "ops/color.py", "parallel/distributed.py",
                   "pipeline/launch.py", "pipeline/trajectory.py",
                   "ops/scatter.py", "ops/voxel_map.py",
-                  "utils/profiling.py", "utils/visualize.py")
+                  "utils/profiling.py", "utils/visualize.py",
+                  "parallel/mesh.py", "parallel/multihost.py",
+                  "pipeline/mapping_chunk.py")
 
 
 @pytest.mark.parametrize("module", _SLICE_MODULES)
 def test_import_scan_covers_the_batch_and_entry_modules(module):
     """The scan above reaches every module of the batched localizer, the
-    entry points, the fixed-order scatter, the hash map and the
-    profiling and PLY utilities (it globs the package; a module left out
-    of the glob would go unchecked)."""
+    entry points, the fixed-order scatter, the hash map, the profiling
+    and PLY utilities, the mesh and process group and the chunked front
+    end (it globs the package; a module left out of the glob would go
+    unchecked), and the worker script the multi-device tests spawn."""
     assert _ROOT / "lidar_feature_extraction_tpu_torch" / module in \
         _PORT_FILES
+    assert _ROOT / "tests" / "torch_parallel_worker.py" in _PORT_FILES

@@ -1,9 +1,10 @@
 """Kernel K1 on the card against its plain PyTorch version, and the paths
 that run it (full extraction, one closed-loop scan, the odometry step,
 IMU preintegration, the pose-graph and IMU-graph solvers, a short
-mapping run with a loop closure, the batched localizer on every branch,
-the voxel-hash map) against the CPU or their lone runs; and every float
-scatter-add of the port giving the same bits on two calls (ROADMAP
+mapping run with a loop closure, the chunked front end's one launch per
+block, the batched localizer on every branch, the voxel-hash map)
+against the CPU, their lone runs or the per-scan pipeline; and every
+float scatter-add of the port giving the same bits on two calls (ROADMAP
 §C16).
 
 Needs a CUDA device and ``nvcc``; every test here is marked ``gpu`` and
@@ -524,6 +525,79 @@ def test_mapping_pipeline_on_the_card_matches_the_cpu(cuda):
     assert len(want.constraints) > len(want.keyframes) - 1   # a closure
     np.testing.assert_allclose(got.trajectory, want.trajectory, rtol=0,
                                atol=1e-6)
+
+
+def _chunk_scans(cfg, device, n=12, dead=None):
+    """test_mapping_chunk.py's construction: ``n`` scans of a ray-cast
+    circle (24 scans around 5 m, 16 rings x 512 azimuths) as range images
+    on ``device``; with ``dead`` that scan's points all invalid."""
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    rng = np.random.default_rng(3)
+    world = worldsim.make_world(rng, n_poles=30, extent=25.0)
+    out = []
+    for i in range(n):
+        pts, ring = worldsim.raycast_scan(
+            world, worldsim.circle_pose(i, 24, 5.0), rng, n_rings=16,
+            n_az=512, elev_deg=(2.0, -24.8))
+        im = scan_range_image(pts, ring, cfg, device)
+        if i == dead:
+            im = im._replace(xyz=torch.zeros_like(im.xyz),
+                             mask=torch.zeros_like(im.mask),
+                             count=torch.zeros_like(im.count))
+        out.append(im)
+    return out
+
+
+def _chunk_cfg():
+    cfg = _mapping_cfg()
+    return dataclasses.replace(cfg, extraction=dataclasses.replace(
+        cfg.extraction, n_rings=16, max_points_per_ring=512))
+
+
+@pytest.mark.parametrize("dead", [None, 7])
+def test_chunked_front_end_launches_k1_once_per_block(cuda, dead):
+    """``ChunkedMappingPipeline`` on the card, 12 scans in blocks of 6
+    (the odometry's edge gate off, as in test_torch_mapping_chunk.py, so
+    that a block replays only when a scan fails outright): one K1 launch
+    per block; a block with a dead scan is replayed scan by scan, one
+    launch per scan more. Its keyframes, constraints and trajectory equal
+    the per-scan pipeline's on the card, bit for bit."""
+    from lidar_feature_extraction_tpu_torch.core.scan import (
+        stack_range_images)
+    from lidar_feature_extraction_tpu_torch.pipeline.mapping_chunk import (
+        ChunkedMappingPipeline)
+    from lidar_feature_extraction_tpu_torch.pipeline.slam import (
+        MappingPipeline)
+
+    cfg = _chunk_cfg()
+    images = _chunk_scans(cfg, cuda, dead=dead)
+    kw = dict(loop_radius=4.0, loop_min_gap=5, optimize_every=6,
+              device=cuda)
+    chunked = ChunkedMappingPipeline(cfg, **kw)
+    chunked.odometry.edge_gate_distance = None
+    launches = []
+    for s in (0, 6):
+        extraction_cuda.label_and_columns_cuda.launches = 0
+        chunked.process_block(stack_range_images(images[s:s + 6]),
+                              [0.1 * (s + k) for k in range(6)])
+        torch.cuda.synchronize()
+        launches.append(extraction_cuda.label_and_columns_cuda.launches)
+    chunked.optimize()
+    assert launches == ([1, 1] if dead is None else [1, 1 + 6])
+    per_scan = MappingPipeline(cfg, **kw)
+    per_scan.odometry.edge_gate_distance = None
+    for n, im in enumerate(images):
+        f = tex.extract_features(im, cfg.extraction)
+        per_scan.process_scan(f.edge_xyz, f.edge_valid, f.surface_xyz,
+                              f.surface_valid, stamp=0.1 * n)
+    per_scan.optimize()
+    assert len(chunked.keyframes) == len(per_scan.keyframes)
+    assert [c[:2] for c in chunked.constraints] == \
+        [c[:2] for c in per_scan.constraints]
+    np.testing.assert_array_equal(chunked.trajectory, per_scan.trajectory)
 
 
 # ---- the batched localizer and the entry points -------------------------
