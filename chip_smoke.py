@@ -2,8 +2,8 @@
 loop (registration + EKF), its odometry, its keyframe SLAM pipeline, its
 batched localizer on every branch, its KITTI entry point, its voxel-hash
 map, its multi-device code (process group, sharded localizer and graph
-solvers) and its chunked mapping front end on a CUDA card and check
-them.
+solvers), its chunked mapping front end and its host-stepped localizer
+on a CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -87,7 +87,9 @@ Phases, each of which must pass (any failure exits non-zero):
    ``launch.load_config("kitti_hdl64")``, ``launch.load_maps`` and
    ``run_kitti_localization`` (no twists) on the card; the fused
    positions' ATE must be at most 1.25 x the JAX package's on the same
-   files + 0.005 m, K1 launched once per scan;
+   files + 0.005 m, K1 launched once per scan. The written ``.bin``
+   files, read once through ``io/native_io.ScanPrefetcher``, must equal
+   ``io/kitti.read_velodyne_bin``'s reads;
 9. determinism (ROADMAP §C16): the drive's GeometryMaps built again and
    the production drive of phase 4 replayed on them; the maps' records,
    every scan's measured and fused pose and the ATE must equal the first
@@ -144,8 +146,25 @@ Phases, each of which must pass (any failure exits non-zero):
    median). Then 16 of the scans with scan 11 dead (every point
    invalid): its block is replayed scan by scan through the host ladder
    (8 more K1 launches), and so is any block the clean run replayed;
-14. k1, after the main paths (localize, drive, odometry, slam, batch,
-   kitti, determinism, batch_full, voxel_map, multi, chunk): a
+14. host: ``HostLocalizer.localize`` (the reference's host-stepped loop
+   control) on the card. The localize phase's 80 stored inputs over
+   their GeometryMaps: status, iterations and pose equal to the stored
+   ``localize_scan`` results bit for bit. The drive's 20 scans over its
+   FeatureMaps with the faithful configuration, each prior the true pose
+   moved by phase 3's noisy offsets: poses finite, statuses valid, none
+   farther from the truth than its prior; never more search rounds than
+   ``localize_scan`` on the same input, and where the rounds are equal
+   the same status, iterations and pose (how many ran fewer is
+   printed). K1's count is reset just before these 100 calls and read
+   just after, and must equal 100. Then, in turns, ``localize_scan``
+   twice and the host loop again on the same inputs; ms/scan of both
+   drivers (host clock ending in ``synchronize()``: mean, median and
+   each pass's median), and the synchronizing operations of one
+   ``register`` of each kind through each driver as torch's sync debug
+   mode counts them (beside what it counts for one scalar read as
+   ``localize_scan``'s loop makes it and for one ``.tolist()``);
+15. k1, after the main paths (localize, drive, odometry, slam, batch,
+   kitti, determinism, batch_full, voxel_map, multi, chunk, host): a
    ``torch.profiler``
    session leaves the host's kernel launches slower for the rest of the
    process, so no profiler runs before the host-bound loops. K1 against
@@ -167,8 +186,11 @@ Phases, each of which must pass (any failure exits non-zero):
    registration of each SLAM run's last closing pair and one
    ``optimize()`` of each run's final graph, ``batch_profile``: one
    batch of each size on each scene (launches per GN iteration of the
-   batch, device busy against profiled wall), and ``batch_full_profile``:
-   one batch of each size and case of phase 10, measured the same way.
+   batch, device busy against profiled wall), ``batch_full_profile``:
+   one batch of each size and case of phase 10, measured the same way,
+   and ``host_profile``: one noisy street scan of phase 3 through
+   ``HostLocalizer`` and through ``localize_scan`` (launches per GN
+   iteration, device idle share).
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -902,6 +924,7 @@ def kitti_run(edges, surfs, scans, gt, k1) -> dict:
 
     with tempfile.TemporaryDirectory() as root:
         seq, edge, surf = write_kitti_drive(root, edges, surfs, scans)
+        prefetched = prefetch_equal(seq)
         cfg = launch.load_config("kitti_hdl64")
         start = time.perf_counter()
         maps = launch.load_maps(edge, surf, cfg)
@@ -914,10 +937,29 @@ def kitti_run(edges, surfs, scans, gt, k1) -> dict:
         wall = time.perf_counter() - start
         launches = k1.label_and_columns_cuda.launches
     return {"scans": len(fused), "k1_launches": launches,
+            "prefetched_scans_equal": prefetched,
             "finite": bool(np.isfinite(fused).all()),
             "ate_rmse_m": ate_rmse(fused, gt, align=False),
             "load_maps_s": maps_s, "replay_s": wall,
             "ms_per_scan": 1e3 * wall / len(fused)}
+
+
+def prefetch_equal(seq: str) -> int:
+    """Read a sequence's ``.bin`` files once through ``ScanPrefetcher``
+    and once through ``io/kitti.read_velodyne_bin``; returns how many of
+    them came back the same (float32 contents bit for bit)."""
+    from lidar_feature_extraction_tpu_torch.io import kitti
+    from lidar_feature_extraction_tpu_torch.io.native_io import (
+        ScanPrefetcher)
+
+    paths = kitti.scan_files(seq)
+    prefetcher = ScanPrefetcher(paths)
+    try:
+        return sum(np.array_equal(prefetcher.get(i).reshape(-1, 4),
+                                  kitti.read_velodyne_bin(p))
+                   for i, p in enumerate(paths))
+    finally:
+        prefetcher.close()
 
 
 def seeded_graph(device, k: int = 40, seed: int = 3):
@@ -1588,6 +1630,224 @@ def chunk_run(images, cfg, k1, dead: int | None = None):
     return pipeline, k1.label_and_columns_cuda.launches, ms, replayed
 
 
+def count_syncs(fn):
+    """``fn()`` under torch's sync debug mode: its result and the number
+    of operations in it that made the host wait for the card (reads back
+    to the host)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def host_phase(chains, scene_maps, cfg, fmaps, faithful, scans, dev,
+               k1) -> tuple[dict, list]:
+    """``HostLocalizer.localize`` on the card: the localize phase's stored
+    inputs over GeometryMaps (status, iterations and pose held bit for bit
+    against the stored ``localize_scan`` results), then the drive's scans
+    over its FeatureMaps with the faithful configuration, each prior the
+    true pose moved by the localize phase's noisy offsets. K1 counted over
+    exactly these calls. Then, in turns, ``localize_scan`` twice and the
+    host loop again on the same inputs (timed, the search rounds counted),
+    and the synchronizing operations of one registration of each kind
+    through both drivers. Returns the figures and, for the profiler
+    later, one street scan's localization through each driver."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+    from lidar_feature_extraction_tpu_torch.pipeline import (
+        localization as loc)
+    from lidar_feature_extraction_tpu_torch.pipeline.replay import (
+        scan_range_image)
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    hosts = {scene: loc.HostLocalizer(m, cfg)
+             for scene, m in scene_maps.items()}
+    images, drive_priors, truths = [], [], []
+    for i, (dq, dt) in enumerate(priors(True, len(scans))):
+        truth = worldsim.straight_drive(i)
+        images.append(scan_range_image(*scans[i], faithful, dev))
+        drive_priors.append(Pose(
+            quat.quat_multiply(truth.q.float(), torch.as_tensor(
+                dq, dtype=torch.float32)).to(dev),
+            (truth.t.float() + torch.as_tensor(dt, dtype=torch.float32)
+             ).to(dev)))
+        truths.append(truth.t.float().to(dev))
+    fhost = loc.HostLocalizer(fmaps, faithful)
+    # Search rounds: the host loop gathers candidates once per round
+    # (refitting every iteration, the faithful configuration calls
+    # _gather itself); localize_scan reruns a round through one call of
+    # _select_scans.
+    calls = {"gather": 0, "select": 0}
+
+    def counting(name, fn):
+        def wrapped(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapped
+
+    fhost._gather = counting("gather", fhost._gather)
+    select = loc._select_scans
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - start)
+
+    def rounds_of(name, fn):
+        before = calls[name]
+        out = fn()
+        return out, calls[name] - before + (name == "select")
+
+    inputs = [(key[0], im, prior) for key, runs in chains.items()
+              for (im, prior), _, _ in runs]
+    drive = list(zip(images, drive_priors))
+
+    # Each pass keeps the results (not the features) and the times.
+    def host_pass():
+        geo = [timed(lambda: hosts[scene].localize(im, prior)[0])
+               for scene, im, prior in inputs]
+        feat = [timed(lambda: rounds_of("gather", lambda: fhost.localize(
+            im, prior)[0])) for im, prior in drive]
+        return geo, feat
+
+    def fused_pass():
+        geo = [timed(lambda: loc.localize_scan(scene_maps[scene], im, prior,
+                                               cfg)[0])
+               for scene, im, prior in inputs]
+        feat = [timed(lambda: rounds_of("select", lambda: loc.localize_scan(
+            fmaps, im, prior, faithful)[0])) for im, prior in drive]
+        return geo, feat
+
+    # The main path, counted: the first host pass.
+    start_s = time.perf_counter()
+    torch.cuda.synchronize()
+    k1.label_and_columns_cuda.launches = 0
+    passes = [host_pass()]
+    torch.cuda.synchronize()
+    launches = k1.label_and_columns_cuda.launches
+    # Then in turns: localize_scan, localize_scan, the host loop.
+    loc._select_scans = counting("select", select)
+    try:
+        passes += [fused_pass(), fused_pass(), host_pass()]
+
+        # Synchronizing operations of one registration through each
+        # driver, and what torch's sync debug mode counts for one read of
+        # a scalar as localize_scan's loop does it and as a .tolist().
+        x = torch.arange(4.0, device=dev)
+        syncs = {"int_counts": count_syncs(lambda: int(x[1]))[1],
+                 "tolist_counts": count_syncs(lambda: x.tolist())[1]}
+        street_im, street_prior = chains["street", True][0][0]
+        for kind, host, maps, c, im, prior in (
+                ("geometry_maps", hosts["street"], scene_maps["street"],
+                 cfg, street_im, street_prior),
+                ("feature_maps", fhost, fmaps, faithful, images[0],
+                 drive_priors[0])):
+            f = host._extract(im)
+            args = (f.edge_xyz, f.edge_valid, f.surface_xyz,
+                    f.surface_valid, prior)
+            (h, h_rounds), h_syncs = count_syncs(lambda: rounds_of(
+                "gather", lambda: host.register(*args)))
+            if kind == "geometry_maps":
+                (fz, f_rounds), f_syncs = count_syncs(lambda: rounds_of(
+                    "select", lambda: loc.register_scan_geometry(
+                        maps, *args, c, pre_downsampled=True)))
+            else:
+                (fz, f_rounds), f_syncs = count_syncs(lambda: rounds_of(
+                    "select", lambda: loc.register_scan(maps, *args, c)))
+            syncs[kind] = {
+                "host_syncs": h_syncs,
+                "host_gn_iterations": int(h.iterations),
+                "host_syncs_per_gn_iteration": h_syncs / max(
+                    int(h.iterations), 1),
+                "localize_scan_syncs": f_syncs,
+                "localize_scan_gn_iterations": int(fz.iterations),
+                "rounds": [h_rounds, f_rounds] if kind == "feature_maps"
+                else None}
+    finally:
+        loc._select_scans = select
+
+    valid = (gn.CONVERGED, gn.MAX_ITERATIONS, gn.ERROR_INCREASED,
+             gn.SCALE_INCREASED)
+    stored = [want for runs in chains.values() for _, want, _ in runs]
+    geo = [g for g, _ in passes[0][0]]
+    geo_same = sum(int(g.status) == int(w.status)
+                   and int(g.iterations) == int(w.iterations)
+                   and torch.equal(g.pose.q, w.pose.q)
+                   and torch.equal(g.pose.t, w.pose.t)
+                   for g, w in zip(geo, stored))
+    feat = [(g, r) for (g, r), _ in passes[0][1]]
+    fused = [(f, r) for (f, r), _ in passes[1][1]]
+    t_err = [float(torch.linalg.vector_norm(g.pose.t - t))
+             for (g, _), t in zip(feat, truths)]
+    prior_err = [float(torch.linalg.vector_norm(p.t - t))
+                 for p, t in zip(drive_priors, truths)]
+    hr, fr = [r for _, r in feat], [r for _, r in fused]
+    # With the same rounds both drivers ran the same device steps.
+    same_rounds_equal = sum(
+        int(g.status) == int(f.status)
+        and int(g.iterations) == int(f.iterations)
+        and torch.equal(g.pose.t, f.pose.t)
+        for (g, a), (f, b) in zip(feat, fused) if a == b)
+    status = [int(g.status) for g, _ in feat]
+
+    def ms(which, part):
+        """ms per scan of the host passes (0, 3) or localize_scan's
+        (1, 2): mean, median and each pass's median."""
+        runs = [[m for _, m in passes[i][part]] for i in which]
+        every = [m for r in runs for m in r]
+        return {"mean": statistics.fmean(every),
+                "median": statistics.median(every),
+                "pass_medians": [statistics.median(r) for r in runs]}
+
+    return {
+        "k1_launches": launches, "scans": len(geo) + len(feat),
+        "seconds": time.perf_counter() - start_s,
+        "geometry_maps": {
+            "scans": len(geo), "equal_to_localize_scan": geo_same,
+            "host_ms_per_scan": ms((0, 3), 0),
+            "localize_scan_ms_per_scan": ms((1, 2), 0),
+            "gn_iterations_mean": statistics.fmean(
+                int(g.iterations) for g in geo)},
+        "feature_maps": {
+            "scans": len(feat),
+            "finite": all(bool(torch.isfinite(g.pose.q).all())
+                          and bool(torch.isfinite(g.pose.t).all())
+                          for g, _ in feat),
+            "statuses_valid": all(s in valid for s in status),
+            "status_counts": {str(s): status.count(s)
+                              for s in sorted(set(status))},
+            "t_err_m": t_err, "prior_t_err_m": prior_err,
+            "closer_than_prior": sum(e <= p for e, p in
+                                     zip(t_err, prior_err)),
+            "host_rounds": hr, "localize_scan_rounds": fr,
+            "fewer_rounds": sum(a < b for a, b in zip(hr, fr)),
+            "more_rounds": sum(a > b for a, b in zip(hr, fr)),
+            "same_rounds_equal": same_rounds_equal,
+            "same_rounds": sum(a == b for a, b in zip(hr, fr)),
+            "host_ms_per_scan": ms((0, 3), 1),
+            "localize_scan_ms_per_scan": ms((1, 2), 1),
+            "gn_iterations_mean": statistics.fmean(
+                int(g.iterations) for g, _ in feat)},
+        "syncs": syncs}, [
+            ("host", lambda: hosts["street"].localize(street_im,
+                                                      street_prior)),
+            ("localize_scan", lambda: loc.localize_scan(
+                scene_maps["street"], street_im, street_prior, cfg))]
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -1837,6 +2097,9 @@ def main() -> int:
           f"{kitti['scans']} scans")
     check(kitti["ate_rmse_m"] <= kitti_limit,
           f"kitti: ATE {kitti['ate_rmse_m']} m above {kitti_limit} m")
+    check(kitti["prefetched_scans_equal"] == DRIVE_SCANS,
+          f"kitti: {kitti['prefetched_scans_equal']} of {DRIVE_SCANS} scans "
+          f"read through ScanPrefetcher equal read_velodyne_bin's")
     launches += kitti["k1_launches"]
     launches_by_phase["kitti"] = kitti["k1_launches"]
 
@@ -1994,7 +2257,35 @@ def main() -> int:
     launches_by_phase["chunk"] = chunk_launches
     launches_by_phase["chunk_suspect"] = suspect_launches
 
-    # 14. k1 against its plain version at full width, on both scans and on
+    # 14. host: HostLocalizer over the localize phase's inputs and the
+    # drive's FeatureMaps, against localize_scan.
+    host, host_later = host_phase(
+        chains, {"bench": bench_maps, "street": street_maps}, cfg,
+        maps["faithful"], faithful, scans, dev, k1)
+    emit("host", **host)
+    geo, feat = host["geometry_maps"], host["feature_maps"]
+    check(host["k1_launches"] == host["scans"],
+          f"host: K1 launched {host['k1_launches']} times for "
+          f"{host['scans']} scans")
+    check(geo["equal_to_localize_scan"] == geo["scans"],
+          f"host: {geo['equal_to_localize_scan']} of {geo['scans']} "
+          f"GeometryMaps results equal localize_scan's")
+    check(feat["finite"] and feat["statuses_valid"],
+          f"host: FeatureMaps poses finite {feat['finite']}, statuses "
+          f"{feat['status_counts']}")
+    check(feat["closer_than_prior"] == feat["scans"],
+          f"host: FeatureMaps errors {feat['t_err_m']} against priors "
+          f"{feat['prior_t_err_m']}")
+    # The host loop reruns a round only where localize_scan's does.
+    check(feat["more_rounds"] == 0
+          and feat["same_rounds_equal"] == feat["same_rounds"],
+          f"host: rounds {feat['host_rounds']} against localize_scan's "
+          f"{feat['localize_scan_rounds']}, {feat['same_rounds_equal']} of "
+          f"{feat['same_rounds']} with the same rounds equal")
+    launches += host["k1_launches"]
+    launches_by_phase["host"] = host["k1_launches"]
+
+    # 15. k1 against its plain version at full width, on both scans and on
     # the bench scene's batches, and timed: the first profiler sessions
     # of the process.
     nbytes, flops = k1_work(R, P, ex.padding)
@@ -2051,6 +2342,16 @@ def main() -> int:
         (_, its), prof = profile_call(lambda: gn_iterations_of(fn))
         emit("batch_full_profile", case=case, batch=B, gn_iterations=its,
              launches_per_gn_iteration=prof["launches"] / max(its, 1),
+             device_idle_share=1.0 - prof["device_busy_ms"]
+             / prof["profiled_wall_ms"], **prof)
+
+    # One street scan through each localization driver, under the
+    # profiler.
+    for driver, fn in host_later:
+        (res, _), prof = profile_call(fn)
+        emit("host_profile", driver=driver, gn_iterations=int(res.iterations),
+             launches_per_gn_iteration=prof["launches"] / max(
+                 int(res.iterations), 1),
              device_idle_share=1.0 - prof["device_busy_ms"]
              / prof["profiled_wall_ms"], **prof)
 

@@ -124,6 +124,17 @@ def left_multiplication_matrix(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def right_multiplication_matrix(q: torch.Tensor) -> torch.Tensor:
+    """4x4 matrix R(q) with ``R(q) vec(l) = vec(l*q)``."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([w, -x, -y, -z], dim=-1),
+        torch.stack([x, w, z, -y], dim=-1),
+        torch.stack([y, -z, w, x], dim=-1),
+        torch.stack([z, y, -x, w], dim=-1),
+    ], dim=-2)
+
+
 def rpy_to_quat(roll, pitch, yaw) -> torch.Tensor:
     """ZYX-composed roll/pitch/yaw tensors -> quaternion (qz * qy * qx)."""
     hr, hp, hy = roll * 0.5, pitch * 0.5, yaw * 0.5

@@ -1,9 +1,10 @@
 """Range-image scan container: a raw scan sorted into a fixed-shape
 ``[n_rings, max_points_per_ring]`` image.
 
-Port of ``lidar_feature_extraction_tpu/core/scan.py:24-105``: one stable
+Port of ``lidar_feature_extraction_tpu/core/scan.py:24-112``: one stable
 argsort over a composite (ring, azimuth) key, then a scatter into a
-padded image whose extra last row takes the dropped points.
+padded image whose extra last row takes the dropped points; and the
+per-point XY range.
 """
 
 from __future__ import annotations
@@ -96,3 +97,9 @@ def build_range_image(
         count = torch.where(ring_alive, count, torch.zeros_like(count))
 
     return RangeImage(xyz=img, mask=msk, count=count)
+
+
+def xy_range(image: RangeImage) -> torch.Tensor:
+    """Per-point XY-plane range, [..., R, P] (the reference's ``Range``
+    is the XY norm, not the 3D norm)."""
+    return torch.sqrt(image.xyz[..., 0] ** 2 + image.xyz[..., 1] ** 2)

@@ -1,13 +1,18 @@
-"""Robust statistics: masked wide-bisection median, MAD scale, Huber
-weights.
+"""Robust statistics: masked medians, MAD scale, Huber loss and weights.
 
-Port of ``lidar_feature_extraction_tpu/core/stats.py:84-143``. The median
-keeps the reference's sort-free wide bisection (256 thresholds per round,
-3 rounds), which converges to the LOWER-middle order statistic, so the
-scale matches the reference rather than an exact sort. Everything stays
-on the input's device: no value is read back to the host. Both medians
-reduce over the last axis, so leading dimensions are a batch (one median
-per lane of a batched Gauss-Newton step).
+Port of ``lidar_feature_extraction_tpu/core/stats.py``. Two medians:
+
+- ``masked_median`` / ``masked_mad`` / ``masked_scale``: the exact,
+  sort-based median (for an even count the mean of the two middle
+  values);
+- ``_wide_median`` / ``masked_scale_bisect``: the reference's sort-free
+  wide bisection (256 thresholds per round, 3 rounds), which converges
+  to the LOWER-middle order statistic. The Gauss-Newton step uses this
+  one, as the reference's does.
+
+Everything stays on the input's device: no value is read back to the
+host. Every median reduces over the last axis, so leading dimensions are
+a batch (one median per lane of a batched Gauss-Newton step).
 """
 
 from __future__ import annotations
@@ -16,6 +21,36 @@ import torch
 
 # 1 / norm.ppf(3/4): consistent-estimator factor for MAD -> stddev.
 MAD_CONSISTENCY = 1.482602218505602
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median of ``values[mask]`` over the last axis ([..., N] -> [...]):
+    the middle value for an odd count, the mean of the two middle values
+    for an even one, NaN for none. Masked-out values sort to +inf; the
+    middle indices come from the valid count."""
+    n = torch.sum(mask, dim=-1, dtype=torch.int32)
+    s = torch.sort(torch.where(mask, values, float("inf")), dim=-1).values
+    # Odd n: element (n-1)/2 twice. Even n: elements n/2-1 and n/2.
+    lo = torch.clamp_min((n - 1) // 2, 0)
+    hi = torch.where(n % 2 == 1, lo,
+                     torch.clamp(n // 2, 0, values.shape[-1] - 1))
+
+    def at(i):
+        return torch.gather(s, -1, i[..., None].to(torch.int64))[..., 0]
+
+    med = 0.5 * (at(lo) + at(hi))
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
+
+
+def masked_mad(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median absolute deviation of ``values[mask]`` over the last axis."""
+    med = masked_median(values, mask)
+    return masked_median(torch.abs(values - med[..., None]), mask)
+
+
+def masked_scale(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Robust scale ``1.4826 * MAD`` over the last axis."""
+    return MAD_CONSISTENCY * masked_mad(values, mask)
 
 
 def _wide_median(values: torch.Tensor, mask: torch.Tensor,
@@ -55,6 +90,13 @@ def masked_scale_bisect(values: torch.Tensor, mask: torch.Tensor,
     med = _wide_median(values, mask)
     return MAD_CONSISTENCY * _wide_median(torch.abs(values - med[..., None]),
                                           mask)
+
+
+def huber(e: torch.Tensor, k: float = 1.345) -> torch.Tensor:
+    """Huber loss of a squared error ``e``: ``e`` below the elbow k^2,
+    ``2 k sqrt(e) - k^2`` above."""
+    sqrt_e = torch.sqrt(torch.clamp_min(e, 0.0))
+    return torch.where(e < k * k, e, 2.0 * k * sqrt_e - k * k)
 
 
 def huber_derivative(e: torch.Tensor, k: float = 1.345) -> torch.Tensor:

@@ -62,10 +62,13 @@ def state_transition_matrix(x, dt):
     return a
 
 
-def process_noise(variances: torch.Tensor) -> torch.Tensor:
-    """diag(0, 0, q_yaw, q_yawb, q_vx, q_wz): x and y get no direct
-    process noise."""
-    return torch.diag(torch.cat([variances.new_zeros(2), variances]))
+def process_noise(variances, dtype=torch.float32,
+                  device="cuda") -> torch.Tensor:
+    """diag(0, 0, q_yaw, q_yawb, q_vx, q_wz) of the four variances (a
+    sequence or a tensor) in ``dtype`` on ``device``: x and y get no
+    direct process noise."""
+    v = torch.as_tensor(variances, dtype=dtype, device=device)
+    return torch.diag(torch.cat([v.new_zeros(2), v]))
 
 
 def squared_mahalanobis(x, y, cov):
@@ -99,13 +102,11 @@ def predict(state: EkfState, dt: float, cfg: EkfConfig) -> EkfState:
     a = state_transition_matrix(x_curr, dt)
     yaw_bias_var = ((cfg.proc_stddev_yaw_bias_c * dt) ** 2
                     if cfg.enable_yaw_bias_estimation else 0.0)
-    variances = torch.tensor([(cfg.proc_stddev_yaw_c * dt) ** 2,
-                              yaw_bias_var,
-                              (cfg.proc_stddev_vx_c * dt) ** 2,
-                              (cfg.proc_stddev_wz_c * dt) ** 2],
-                             dtype=x.dtype, device=x.device)
-    return EkfState(td=kalman.predict_with_delay(state.td, x_next, a,
-                                                 process_noise(variances)))
+    q = process_noise([(cfg.proc_stddev_yaw_c * dt) ** 2, yaw_bias_var,
+                       (cfg.proc_stddev_vx_c * dt) ** 2,
+                       (cfg.proc_stddev_wz_c * dt) ** 2],
+                      dtype=x.dtype, device=x.device)
+    return EkfState(td=kalman.predict_with_delay(state.td, x_next, a, q))
 
 
 def _selector(rows, like: torch.Tensor) -> torch.Tensor:

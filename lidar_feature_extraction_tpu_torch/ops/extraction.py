@@ -87,6 +87,13 @@ def neighbor_flags_xy(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor,
     return (cosang > math.cos(radian_threshold)) & has_next
 
 
+def neighbor_flags(xyz: torch.Tensor, count: torch.Tensor,
+                   radian_threshold: float) -> torch.Tensor:
+    """``neighbor_flags_xy`` of a range image's points [R, P, 3]."""
+    return neighbor_flags_xy(xyz[..., 0], xyz[..., 1], count,
+                             radian_threshold)
+
+
 def _cumsum_lanes(a: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 cumsum along the last axis."""
     return torch.cumsum(a, dim=-1, dtype=torch.int32)

@@ -1,19 +1,25 @@
 """Robust Gauss-Newton pose optimizer.
 
-Port of ``lidar_feature_extraction_tpu/ops/gauss_newton.py:41-269``:
+Port of ``lidar_feature_extraction_tpu/ops/gauss_newton.py:41-347``:
 Huber-IRLS on MAD-normalized squared residual norms, the 7->6 quaternion
 lift, an unrolled Cholesky solve behind the degeneracy guard, and the
-reference's five status codes. The reference's ``lax.while_loop``
-becomes a Python loop around one fixed-shape device step
-(``_gn_body``); the loop reads the step's status back once per
-iteration to decide whether to go on.
+reference's five status codes. One iteration is ``gn_iteration`` on the
+device. Two loops drive it:
 
-Every function here also takes a leading batch dimension: B scans
-registered in lock-step by ``run_gauss_newton_batched``, which does what
-JAX's ``vmap`` of the reference's while-loop does (the body runs while
-any lane's condition holds; a lane whose condition is false keeps its
-whole carry), with one read per iteration of "is any lane still
-running".
+- ``run_gauss_newton``, the reference's ``lax.while_loop``: a Python
+  loop around ``_gn_body`` (the iteration plus the loop's status logic on
+  the device), reading the status back once per iteration; an abort
+  reports the last accepted iteration's error and scale;
+- ``run_gauss_newton_host``, the reference's host-stepped loop: the
+  checks run in Python on the five scalars of each step, read in one go;
+  an abort reports the aborting iteration's error and scale.
+
+Every function here but the host-stepped loop also takes a leading
+batch dimension: B scans registered in lock-step by
+``run_gauss_newton_batched``, which does what JAX's ``vmap`` of the
+reference's while-loop does (the body runs while any lane's condition
+holds; a lane whose condition is false keeps its whole carry), with one
+read per iteration of "is any lane still running".
 """
 
 from __future__ import annotations
@@ -158,6 +164,39 @@ def weighted_update(q: torch.Tensor, weights: torch.Tensor,
     return torch.where(bad[..., None], torch.zeros_like(dx), dx), H
 
 
+class GNStep(NamedTuple):
+    """Device outputs of one Gauss-Newton iteration (``gn_iteration``)."""
+
+    pose: Pose              # the updated pose
+    error: torch.Tensor     # sum of squared residual norms (this problem)
+    scale: torch.Tensor     # MAD scale
+    n_valid: torch.Tensor   # valid correspondence count, int32
+    dq_norm: torch.Tensor   # |dq.vec| of the update
+    dt_norm: torch.Tensor   # |dt|
+    hessian: torch.Tensor | None = None  # M^T A M [6, 6] at the input pose
+
+
+def gn_iteration(problem: Problem, pose: Pose, huber_k: float = 1.345,
+                 degeneracy_threshold: float = 0.1) -> GNStep:
+    """One Gauss-Newton iteration at ``pose`` on the device: the error,
+    the MAD scale, the Huber-weighted solve and the updated pose, with no
+    status logic (``_gn_body`` adds the fused loop's,
+    ``run_gauss_newton_host`` runs the reference's on the host)."""
+    n_valid = torch.sum(problem.valid, dim=-1, dtype=torch.int32)
+    errors = torch.where(problem.valid, problem.errors, 0.0)
+    error, = _lanewise(errors.dim() == 2, lambda e: (torch.sum(e),), errors)
+    scale = stats.masked_scale_bisect(problem.errors, problem.valid)
+    normalized = errors / (scale[..., None] + 1e-16)
+    weights = stats.huber_derivative(normalized, huber_k)
+    dx, hess = weighted_update(pose.q, weights, problem, degeneracy_threshold)
+    dq = quat.exp_so3(dx[..., :3])
+    dt = dx[..., 3:]
+    q_new = quat.quat_normalize(quat.quat_multiply(pose.q, dq))
+    return GNStep(pose=Pose(q_new, pose.t + dt), error=error, scale=scale,
+                  n_valid=n_valid, dq_norm=quat._norm(dq[..., 1:]),
+                  dt_norm=quat._norm(dt), hessian=hess)
+
+
 class _GNState(NamedTuple):
     q: torch.Tensor
     t: torch.Tensor
@@ -175,12 +214,7 @@ def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
     q, t, prev_error, prev_scale = state.q, state.t, state.prev_error, \
         state.prev_scale
     problem = problem_fn(Pose(q, t))
-
-    n_valid = torch.sum(problem.valid, dim=-1, dtype=torch.int32)
-    errors = torch.where(problem.valid, problem.errors, 0.0)
-    error, = _lanewise(errors.dim() == 2, lambda e: (torch.sum(e),), errors)
-    scale = stats.masked_scale_bisect(problem.errors, problem.valid)
-    normalized = errors / (scale[..., None] + 1e-16)
+    step = gn_iteration(problem, Pose(q, t), huber_k, degeneracy_threshold)
 
     meds, off = [], 0
     for n_b, _ in problem.shape:
@@ -189,18 +223,11 @@ def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
         off += n_b
     block_meds = torch.stack(meds, dim=-1)
 
-    empty = n_valid == 0
-    err_up = (error > prev_error) & abort_on_increase
-    scale_up = (scale > prev_scale) & abort_on_increase
-
-    weights = stats.huber_derivative(normalized, huber_k)
-    dx, hess = weighted_update(q, weights, problem, degeneracy_threshold)
-    dq = quat.exp_so3(dx[..., :3])
-    dt = dx[..., 3:]
-    q_new = quat.quat_normalize(quat.quat_multiply(q, dq))
-    t_new = t + dt
-    converged = ((quat._norm(dq[..., 1:]) < convergence_tol)
-                 & (quat._norm(dt) < convergence_tol))
+    empty = step.n_valid == 0
+    err_up = (step.error > prev_error) & abort_on_increase
+    scale_up = (step.scale > prev_scale) & abort_on_increase
+    converged = ((step.dq_norm < convergence_tol)
+                 & (step.dt_norm < convergence_tol))
 
     # Aborts keep the pre-update pose.
     abort = empty | err_up | scale_up
@@ -212,11 +239,11 @@ def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
                     torch.where(scale_up, code(SCALE_INCREASED),
                                 torch.where(converged, code(CONVERGED),
                                             code(-1)))))
-    return _GNState(q=torch.where(abort_v, q, q_new),
-                    t=torch.where(abort_v, t, t_new),
-                    prev_error=torch.where(abort, prev_error, error),
-                    prev_scale=torch.where(abort, prev_scale, scale),
-                    status=status, hess=hess, block_meds=block_meds)
+    return _GNState(q=torch.where(abort_v, q, step.pose.q),
+                    t=torch.where(abort_v, t, step.pose.t),
+                    prev_error=torch.where(abort, prev_error, step.error),
+                    prev_scale=torch.where(abort, prev_scale, step.scale),
+                    status=status, hess=step.hessian, block_meds=block_meds)
 
 
 def run_gauss_newton(
@@ -318,3 +345,58 @@ def run_gauss_newton_batched(
                     iterations=it, error=state.prev_error,
                     scale=state.prev_scale, hessian=state.hess,
                     block_errors=state.block_meds)
+
+
+def _run_host(step_fn: Callable[[Pose], GNStep], initial_pose: Pose,
+              max_iterations: int, convergence_tol: float):
+    """``run_gauss_newton_host`` and its status as a Python int (the
+    caller's round control reads it without another device read)."""
+    dtype, dev = initial_pose.t.dtype, initial_pose.t.device
+    pose, out = initial_pose, None
+    prev_error = prev_scale = float("inf")
+    error = scale = 0.0
+    status, it = MAX_ITERATIONS, 0
+    for it in range(1, max_iterations + 1):
+        out = step_fn(pose)
+        # The one read per iteration; float32 to float is exact.
+        n_valid, error, scale, dq_norm, dt_norm = torch.stack([
+            v.to(torch.float64) for v in (out.n_valid, out.error, out.scale,
+                                          out.dq_norm, out.dt_norm)
+        ]).tolist()
+        if n_valid == 0:
+            status = EMPTY_INPUT
+            break
+        if error > prev_error:
+            status = ERROR_INCREASED
+            break
+        prev_error = error
+        if scale > prev_scale:
+            status = SCALE_INCREASED
+            break
+        prev_scale = scale
+        pose = out.pose
+        if dq_norm < convergence_tol and dt_norm < convergence_tol:
+            status = CONVERGED
+            break
+    result = GNResult(
+        pose=pose,
+        status=torch.full((), status, dtype=torch.int32, device=dev),
+        iterations=torch.full((), it, dtype=torch.int32, device=dev),
+        error=torch.full((), error, dtype=dtype, device=dev),
+        scale=torch.full((), scale, dtype=dtype, device=dev),
+        hessian=None if out is None else out.hessian)
+    return result, status
+
+
+def run_gauss_newton_host(step_fn: Callable[[Pose], GNStep],
+                          initial_pose: Pose, max_iterations: int,
+                          convergence_tol: float = 1e-3) -> GNResult:
+    """Gauss-Newton with the reference's loop control on the host:
+    ``step_fn(pose) -> GNStep`` is one device iteration, and the checks
+    run in Python in ``Optimizer::Run``'s order (empty input, error up,
+    scale up, accept, convergence). An abort keeps the pre-update pose
+    and reports the aborting iteration's error and scale; running out of
+    iterations is MAX_ITERATIONS, with no Hessian when no step ran. No
+    block errors. One device read per iteration."""
+    return _run_host(step_fn, initial_pose, max_iterations,
+                     convergence_tol)[0]

@@ -15,10 +15,18 @@ Port of ``lidar_feature_extraction_tpu/pipeline/localization.py:45-439``:
   one scan or of a batch;
 - ``localize_scans``: B scans at once, one extraction and one
   lock-step Gauss-Newton loop, on every branch;
-- ``HostLocalizer``: the same calls behind the reference's class
-  interface. The reference splits it into small jitted programs because
-  its TPU compiler is slow on the fused loop; here every loop is driven
-  from the host already, so there is one driver.
+- ``HostLocalizer``: the reference's host-stepped localizer. Its
+  pieces are plain methods here (the reference jits each one), and its
+  loop control is its own, not ``localize_scan``'s: Gauss-Newton through
+  ``run_gauss_newton_host`` (an abort reports the aborting iteration's
+  error and scale, and there are no block errors), and on ``FeatureMaps``
+  search rounds that stop once a round converged, refresh after an abort
+  only while the fits are frozen per round, and otherwise stop once the
+  pose moved no more than half the smaller map voxel. So its results can
+  differ from ``localize_scan``'s; on ``GeometryMaps`` with the fused
+  record table the poses, statuses and iteration counts are the same
+  (without it the host steps gather from each grid, as the reference's
+  do).
 """
 
 from __future__ import annotations
@@ -283,9 +291,10 @@ def localize_scans(maps, images: RangeImage, priors: Pose,
 
 
 class HostLocalizer:
-    """Scan-to-map localizer over fixed maps: ``register`` for extracted
-    features, ``localize`` for a range image. The same math as
-    ``localize_scan``."""
+    """Scan-to-map localizer over fixed maps, one scan at a time, with
+    the reference's host-side loop control (see the module docstring):
+    ``register`` for extracted features, ``localize`` for a range image.
+    Everything stays on the maps' device."""
 
     def __init__(self, maps, cfg: PipelineConfig):
         self.maps = maps
@@ -293,14 +302,126 @@ class HostLocalizer:
         self._compact = (cfg.compact_extraction
                          and isinstance(maps, GeometryMaps))
 
+    def _extract(self, image: RangeImage):
+        ex = self.cfg.extraction
+        if self._compact:
+            return extract_features_compact(
+                image, ex,
+                surface_leaf=self.cfg.registration.surface_downsample_leaf,
+                edges_per_ring=ex.edges_per_ring,
+                surface_runs_per_ring=ex.surface_runs_per_ring,
+                surface_centroid=ex.compact_surface_centroid)
+        return extract_features(image, ex)
+
+    def _downsample(self, pts, valid):
+        reg = self.cfg.registration
+        return voxel_downsample(pts, valid, reg.surface_downsample_leaf,
+                                reg.max_surface_points)
+
+    def _gather(self, e_pts, s_pts, pose: Pose):
+        """The 27-voxel candidate sets of both maps at ``pose``."""
+        ce, oe = vg.neighborhood_candidates(self.maps.edge,
+                                            pose.apply_each(e_pts))
+        cs, os_ = vg.neighborhood_candidates(self.maps.surface,
+                                             pose.apply_each(s_pts))
+        return ce, oe, cs, os_
+
+    def _fit(self, e_pts, e_valid, s_pts, s_valid, pose: Pose):
+        """Candidates, neighbour selection and line/plane fits, once per
+        search round."""
+        ce, oe, cs, os_ = self._gather(e_pts, s_pts, pose)
+        k = self.cfg.registration.n_neighbors
+        return (fit_edge_geometry(ce, oe, e_pts, e_valid, pose, k),
+                fit_surface_geometry(cs, os_, s_pts, s_valid, pose, k))
+
+    def _iterate(self, blocks, pose: Pose) -> gn.GNStep:
+        reg = self.cfg.registration
+        return gn.gn_iteration(gn.make_problem(blocks), pose,
+                               reg.huber_k, reg.degeneracy_threshold)
+
+    def _light_step(self, eg, sg, e_pts, s_pts, pose: Pose) -> gn.GNStep:
+        return self._iterate([edge_rows_from_geometry(eg, e_pts, pose),
+                              surface_rows_from_geometry(sg, s_pts, pose)],
+                             pose)
+
+    def _step(self, cand, e_pts, e_valid, s_pts, s_valid,
+              pose: Pose) -> gn.GNStep:
+        ce, oe, cs, os_ = cand
+        k = self.cfg.registration.n_neighbors
+        return self._iterate([
+            edge_residuals_from_candidates(ce, oe, e_pts, e_valid, pose, k),
+            surface_residuals_from_candidates(cs, os_, s_pts, s_valid, pose,
+                                              k)], pose)
+
+    def _geometry_step(self, e_pts, e_valid, s_pts, s_valid,
+                       pose: Pose) -> gn.GNStep:
+        maps, k = self.maps, self.cfg.registration.min_fit_points
+        if maps.fused is not None:
+            blocks = gg.fused_rows_from_grids(
+                maps.edge, maps.surface, maps.fused, e_pts, e_valid, s_pts,
+                s_valid, pose, k)
+        else:
+            blocks = (gg.edge_rows_from_grid(maps.edge, e_pts, e_valid, pose,
+                                             k),
+                      gg.surface_rows_from_grid(maps.surface, s_pts, s_valid,
+                                                pose, k))
+        return self._iterate(blocks, pose)
+
     def register(self, edge_pts, edge_valid, surf_pts, surf_valid,
                  prior: Pose) -> gn.GNResult:
+        """Register one scan's features ([N, 3] points + [N] masks)."""
+        reg = self.cfg.registration
         if isinstance(self.maps, GeometryMaps):
-            return register_scan_geometry(
-                self.maps, edge_pts, edge_valid, surf_pts, surf_valid,
-                prior, self.cfg, pre_downsampled=self._compact)
-        return register_scan(self.maps, edge_pts, edge_valid, surf_pts,
-                             surf_valid, prior, self.cfg)
+            if self._compact:
+                # The compact extraction already voxel-thinned the surfaces.
+                surf_ds, surf_ds_valid = surf_pts, surf_valid
+            else:
+                surf_ds, surf_ds_valid = self._downsample(surf_pts,
+                                                          surf_valid)
+            return gn.run_gauss_newton_host(
+                lambda p: self._geometry_step(edge_pts, edge_valid, surf_ds,
+                                              surf_ds_valid, p),
+                prior, reg.max_iterations, reg.convergence_tol)
+
+        surf_ds, surf_ds_valid = self._downsample(surf_pts, surf_valid)
+        rounds = max(reg.n_search_rounds, 1)
+        iters = -(-reg.max_iterations // rounds)  # ceil split
+        refresh_threshold = 0.5 * min(reg.edge_map.voxel_size,
+                                      reg.surface_map.voxel_size)
+        pose, result = prior, None
+        for _ in range(rounds):
+            if reg.refit_per_iteration:
+                cand = self._gather(edge_pts, surf_ds, pose)
+
+                def step_fn(p, cand=cand):
+                    return self._step(cand, edge_pts, edge_valid, surf_ds,
+                                      surf_ds_valid, p)
+            else:
+                eg, sg = self._fit(edge_pts, edge_valid, surf_ds,
+                                   surf_ds_valid, pose)
+
+                def step_fn(p, eg=eg, sg=sg):
+                    return self._light_step(eg, sg, edge_pts, surf_ds, p)
+
+            result, status = gn._run_host(step_fn, pose, iters,
+                                          reg.convergence_tol)
+            start, pose = pose, result.pose
+            if status in (gn.CONVERGED, gn.EMPTY_INPUT):
+                break
+            if (status in (gn.ERROR_INCREASED, gn.SCALE_INCREASED)
+                    and not reg.refit_per_iteration):
+                continue  # refresh: the abort may come of the frozen fits
+            # One read per round: did the pose leave the candidates'
+            # neighbourhoods?
+            if float(quat._norm(pose.t - start.t)) <= refresh_threshold:
+                break
+        return result
 
     def localize(self, image: RangeImage, prior: Pose):
-        return localize_scan(self.maps, image, prior, self.cfg)
+        """Extraction (on CUDA tensors one K1 launch) + ``register``.
+        Returns (GNResult, features)."""
+        feats = self._extract(image)
+        result = self.register(feats.edge_xyz, feats.edge_valid,
+                               feats.surface_xyz, feats.surface_valid,
+                               prior)
+        return result, feats

@@ -868,3 +868,71 @@ def test_hash_map_on_the_card_matches_the_cpu(cuda):
     assert int(wv.sum()) > 1000
     np.testing.assert_allclose(gsq.cpu()[wv].numpy(), wsq[wv].numpy(),
                                rtol=1e-6, atol=0)
+
+
+# ---- the host-stepped localizer and the exact medians --------------------
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "full"])
+def test_host_localizer_on_the_card_equals_localize_scan(cuda, compact):
+    """HostLocalizer.localize on the card over GeometryMaps: status,
+    iterations and pose those of ``localize_scan`` bit for bit (the same
+    device steps, the reference's host loop control), one K1 launch per
+    scan."""
+    from lidar_feature_extraction_tpu_torch.pipeline import localization
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        keyframe_copies)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(kitti_hdl64(), compact_extraction=compact)
+    images = _lanes(3, cuda)
+    one = localization.RangeImage(*(a[0] for a in images))
+    f = tex.extract_features(one, cfg.extraction)
+    rng = np.random.default_rng(0)
+    bench_scan(rng, 64, 2304)             # the map's draws follow the scan's
+    clouds = [torch.as_tensor(keyframe_copies(rng, c[v].cpu().numpy()),
+                              dtype=torch.float32, device=cuda)
+              for c, v in ((f.edge_xyz, f.edge_valid),
+                           (f.surface_xyz, f.surface_valid))]
+    ones = [torch.ones(len(c), dtype=torch.bool, device=cuda) for c in clouds]
+    maps = localization.build_geometry_maps(clouds[0], ones[0], clouds[1],
+                                            ones[1], cfg)
+    host = localization.HostLocalizer(maps, cfg)
+    prng = np.random.default_rng(7)
+    for b in range(3):
+        yaw = np.radians(1.0) * prng.normal()
+        d = prng.normal(size=3)
+        prior = Pose(torch.tensor([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)],
+                                  dtype=torch.float32, device=cuda),
+                     torch.as_tensor(np.float32([0.3, -0.2, 0.05])
+                                     + np.float32(0.2 * d / np.linalg.norm(d)),
+                                     device=cuda))
+        image = localization.RangeImage(*(a[b] for a in images))
+        before = extraction_cuda.label_and_columns_cuda.launches
+        got, _ = host.localize(image, prior)
+        assert extraction_cuda.label_and_columns_cuda.launches == before + 1
+        want, _ = localization.localize_scan(maps, image, prior, cfg)
+        assert got.status.device.type == "cuda"
+        assert (int(got.status), int(got.iterations)) == (
+            int(want.status), int(want.iterations)), b
+        assert torch.equal(got.pose.t, want.pose.t), b
+        assert torch.equal(got.pose.q, want.pose.q), b
+
+
+@pytest.mark.parametrize("name", ["masked_median", "masked_mad",
+                                  "masked_scale"])
+def test_exact_medians_on_the_card_equal_the_cpu(cuda, name):
+    """The sort-based statistics over lanes with odd, even and no valid
+    values: the card's bits are the CPU's."""
+    from lidar_feature_extraction_tpu_torch.core import stats
+
+    rng = np.random.default_rng(3)
+    v = torch.as_tensor(rng.exponential(size=(5, 999)).astype(np.float32))
+    m = torch.as_tensor(rng.random((5, 999)) < 0.5)
+    m[2] = False
+    m[3] = torch.arange(999) < 10
+    m[4] = torch.arange(999) < 11
+    fn = getattr(stats, name)
+    want = fn(v, m)
+    got = fn(v.to(cuda), m.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got[2]) and not torch.isnan(got[[0, 1, 3, 4]]).any()
