@@ -3,7 +3,8 @@ loop (registration + EKF), its odometry, its keyframe SLAM pipeline, its
 batched localizer on every branch, its KITTI entry point, its voxel-hash
 map, its multi-device code (process group, sharded localizer and graph
 solvers), its chunked mapping front end and its host-stepped localizer
-on a CUDA card and check them.
+on a CUDA card and check them; then hold the card to the committed
+record of the JAX package's results at full width under both presets.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -163,14 +164,37 @@ Phases, each of which must pass (any failure exits non-zero):
    ``register`` of each kind through each driver as torch's sync debug
    mode counts them (beside what it counts for one scalar read as
    ``localize_scan``'s loop makes it and for one ``.tolist()``);
-15. k1, after the main paths (localize, drive, odometry, slam, batch,
-   kitti, determinism, batch_full, voxel_map, multi, chunk, host): a
-   ``torch.profiler``
+15. reference: the card against ``tests/data/torch_reference_
+   fullwidth.npz``, the committed record of what the JAX package computes
+   on the CPU at full width (``reference_cases.py`` reads it; nothing of
+   JAX here): bench.py's scene and a street scene under
+   ``launch.load_config("kitti_hdl64")`` (64 x 2304, compact extraction,
+   GeometryMaps) and ``launch.load_config("vlp16")`` (16 x 1856, full
+   extraction, FeatureMaps), five priors each, the maps built on the card
+   from the record's clouds. K1's count is reset just before each case's
+   ``localize_scan`` calls and read just after: one launch per scan. Its
+   labels must equal the record's except at the lanes the record lists
+   (neighbour swaps at near-ties of curvature, ROADMAP §C18), and there
+   be the port's listed labels. The registration fed the record's
+   features (kitti_hdl64 in float32; vlp16 in float64, its float32 plane
+   fit being ill-conditioned, ROADMAP §C8) must give the record's status
+   and iterations and a pose within 1e-4 m and 1e-4 per quaternion
+   component; ``localize_scan`` under kitti_hdl64 (and stopped after one
+   iteration) the record's status and iterations and a pose within 1e-4,
+   or ``reference_cases.SWAP_T_ATOL`` where the case lists swaps; under
+   vlp16 the features equal to the record's bit for bit and the float32
+   pose within ``reference_cases.KNN_F32_T_ATOL``. Every difference and
+   its margin to the bound is printed;
+16. k1, after the main paths (localize, drive, odometry, slam, batch,
+   kitti, determinism, batch_full, voxel_map, multi, chunk, host,
+   reference): a ``torch.profiler``
    session leaves the host's kernel launches slower for the rest of the
    process, so no profiler runs before the host-bound loops. K1 against
    its plain PyTorch version on the card at 64 x 2304, on the bench scan
-   and on the street scan, and on the bench batches of 8 and 32 scans:
-   labels, curvature and compaction columns bit-equal. K1's device time
+   and on the street scan, on the bench batches of 8 and 32 scans, and
+   under vlp16 (16 x 1856, padding 5, 64 NMS rounds) on the reference
+   phase's two scans: labels, curvature and compaction columns
+   bit-equal. K1's device time
    per launch comes from ``torch.profiler`` over 200 launches after warm-up
    (no host work in it; the launches the profiler saw are printed beside
    it), its wrapper's host time per call from the host clock around 200
@@ -1848,6 +1872,136 @@ def host_phase(chains, scene_maps, cfg, fmaps, faithful, scans, dev,
                 scene_maps["street"], street_im, street_prior, cfg))]
 
 
+def _results_margin(got: dict, rec: dict, run: str, t_atol: float,
+                    q_atol: float) -> dict:
+    """Status and iterations against the record's ``run``, the largest
+    pose differences and their margins to the bounds (``q_atol`` None:
+    the quaternion is not held)."""
+    dt = np.abs(got["t"].astype(np.float64) - rec[f"{run}_t"]).max(axis=1)
+    dq = np.abs(got["q"].astype(np.float64) - rec[f"{run}_q"]).max(axis=1)
+    return {"status": got["status"].tolist(),
+            "record_status": rec[f"{run}_status"].tolist(),
+            "iterations": got["iterations"].tolist(),
+            "record_iterations": rec[f"{run}_iterations"].tolist(),
+            "same_status_iterations": bool(
+                np.array_equal(got["status"], rec[f"{run}_status"])
+                and np.array_equal(got["iterations"],
+                                   rec[f"{run}_iterations"])),
+            "t_diff_m": dt.tolist(), "q_diff": dq.tolist(),
+            "t_atol_m": t_atol, "q_atol": q_atol,
+            "t_margin_m": t_atol - float(dt.max()),
+            "q_margin": None if q_atol is None else q_atol - float(dq.max())}
+
+
+def reference_phase(dev, k1) -> dict:
+    """The card held to the committed record of what the JAX package
+    computes at full width (``reference_cases.py``; no JAX here): per
+    case, the preset through ``launch.load_config``, the maps built on
+    the card from the record's clouds, and ``localize_scan`` from the
+    five priors (K1 counted: one launch per scan). Labels equal to the
+    record's except at the listed lanes, where they are the port's listed
+    labels; registration fed the record's features (kitti_hdl64 in
+    float32, vlp16 in float64) with the record's status and iterations
+    and a pose within 1e-4; ``localize_scan`` with the record's status
+    and iterations and a pose within 1e-4, or ``SWAP_T_ATOL`` where the
+    case lists swaps (kitti_hdl64, and its first iteration likewise);
+    under vlp16 the features equal to the record's bit for bit and the
+    float32 pose within ``KNN_F32_T_ATOL`` (status and iterations
+    printed). Returns the figures by case; raises on a miss."""
+    import torch
+
+    import reference_cases as rc
+    from lidar_feature_extraction_tpu_torch.pipeline import (
+        launch, localization)
+
+    start = time.perf_counter()
+    arrays, manifest = rc.load()
+    out = {"tie_ulps_bound": manifest["tie_ulps_bound"], "cases": {}}
+    launches = 0
+    for case in rc.CASES:
+        preset, _ = rc.split(case)
+        cfg = launch.load_config(preset)
+        rec = rc.case_arrays(arrays, case)
+        m = manifest["cases"][case]
+        maps = rc.port_maps(case, rec["labels"], cfg, dev)
+        img = rc.port_image(case, cfg, dev)
+        poses = rc.port_poses(dev)
+        torch.cuda.synchronize()
+        k1.label_and_columns_cuda.launches = 0
+        runs = [localization.localize_scan(maps, img, p, cfg) for p in poses]
+        torch.cuda.synchronize()
+        n = k1.label_and_columns_cuda.launches
+        check(n == len(poses), f"reference {case}: K1 launched {n} times "
+                               f"for {len(poses)} scans")
+        launches += n
+        feats = runs[0][1]
+        labels = feats.labels.cpu().numpy()
+        check(all(torch.equal(f.labels, feats.labels) for _, f in runs),
+              f"reference {case}: labels differ between runs")
+        listed = rc.listed_lanes(m)
+        differ = {(int(r), int(i))
+                  for r, i in np.argwhere(labels != rec["labels"])}
+        check(differ == set(listed)
+              and all(labels[r, i] == lab for (r, i), lab in listed.items()),
+              f"reference {case}: labels differ from the record at "
+              f"{sorted(differ)}; listed {sorted(listed)}")
+        loc = rc.results_arrays([r for r, _ in runs])
+        fig = {"preset": preset, "shape": m["shape"],
+               "k1_launches": n, "lanes_differing": len(differ),
+               "listed_lanes": len(listed),
+               "swaps": [{k: c[k] for k in ("ring", "lanes", "tie",
+                                           "tie_ulps")}
+                         for c in m["swaps"]]}
+        if cfg.compact_extraction:
+            reg = rc.register_on_features(
+                maps, rc.ref_features_tensors(rec, dev), poses, cfg)
+            fig["register"] = _results_margin(reg, rec, "localize",
+                                              rc.T_ATOL, rc.Q_ATOL)
+            t_atol = rc.SWAP_T_ATOL if m["swaps"] else rc.T_ATOL
+            fig["localize"] = _results_margin(loc, rec, "localize", t_atol,
+                                              rc.Q_ATOL)
+            k1.label_and_columns_cuda.launches = 0
+            one = rc.results_arrays([localization.localize_scan(
+                maps, img, p, rc.one_iteration(cfg))[0] for p in poses])
+            torch.cuda.synchronize()
+            launches += k1.label_and_columns_cuda.launches
+            fig["one_iteration"] = _results_margin(one, rec, "one_iteration",
+                                                   t_atol, rc.Q_ATOL)
+            held = ("register", "localize", "one_iteration")
+        else:
+            same = all(np.array_equal(getattr(feats, k).cpu().numpy(), rec[k])
+                       for k in ("edge_xyz", "edge_valid", "surface_xyz",
+                                 "surface_valid"))
+            check(same, f"reference {case}: features differ from the record")
+            f64 = torch.float64
+            reg = rc.register_on_features(
+                rc.port_maps(case, rec["labels"], cfg, dev, f64),
+                rc.ref_features_tensors(rec, dev, f64),
+                rc.port_poses(dev, f64), cfg)
+            fig["register_float64"] = _results_margin(
+                reg, rec, "localize64", rc.T_ATOL, rc.Q_ATOL)
+            fig["localize_float32"] = _results_margin(
+                loc, rec, "localize", rc.KNN_F32_T_ATOL, None)
+            fig["features_equal"] = same
+            held = ("register_float64",)
+            check(fig["localize_float32"]["t_margin_m"] >= 0,
+                  f"reference {case}: float32 pose "
+                  f"{fig['localize_float32']['t_diff_m']} m from the record")
+        for run in held:
+            r = fig[run]
+            check(r["same_status_iterations"] and r["t_margin_m"] >= 0
+                  and r["q_margin"] >= 0,
+                  f"reference {case} {run}: status {r['status']} "
+                  f"(record {r['record_status']}), iterations "
+                  f"{r['iterations']} (record {r['record_iterations']}), "
+                  f"t {r['t_diff_m']} within {r['t_atol_m']}, q "
+                  f"{r['q_diff']} within {r['q_atol']}")
+        out["cases"][case] = fig
+    out["k1_launches"] = launches
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -2285,9 +2439,20 @@ def main() -> int:
     launches += host["k1_launches"]
     launches_by_phase["host"] = host["k1_launches"]
 
-    # 15. k1 against its plain version at full width, on both scans and on
-    # the bench scene's batches, and timed: the first profiler sessions
-    # of the process.
+    # 15. reference: the card against the committed record of the JAX
+    # package's results at full width, under both presets.
+    ref = reference_phase(dev, k1)
+    for case, fig in ref["cases"].items():
+        emit("reference", case=case, tie_ulps_bound=ref["tie_ulps_bound"],
+             **fig)
+    emit("reference_total", seconds=ref["seconds"],
+         k1_launches=ref["k1_launches"])
+    launches += ref["k1_launches"]
+    launches_by_phase["reference"] = ref["k1_launches"]
+
+    # 16. k1 against its plain version at full width, on both scans, on
+    # the bench scene's batches and on both scans under vlp16, and timed:
+    # the first profiler sessions of the process.
     nbytes, flops = k1_work(R, P, ex.padding)
     bound, bound_by = bound_us(nbytes, flops)
     k1_runs = {}
@@ -2319,6 +2484,30 @@ def main() -> int:
         emit("k1", scene="bench batch", batch=B, shape=[B * R, P],
              labels_equal=True, curvature_equal=True, col_equal=True,
              launches_timed=K1_LAUNCHES, bytes=b_bytes, flops=b_flops, **run)
+
+    import reference_cases as rc
+    from lidar_feature_extraction_tpu_torch.pipeline import launch
+
+    vlp16 = launch.load_config("vlp16")
+    v_ex = vlp16.extraction
+    v_bytes, v_flops = k1_work(v_ex.n_rings, v_ex.max_points_per_ring,
+                               v_ex.padding)
+    v_bound, v_by = bound_us(v_bytes, v_flops)
+    k1_vlp16 = {}
+    for scene in rc.SCENES:
+        img = rc.port_image(f"vlp16/{scene}", vlp16, dev)
+        args = k1_args(img.xyz, img.count, vlp16)
+        run = k1_vlp16[scene] = check_and_time(k1.label_and_columns_cuda,
+                                               args, K1_LAUNCHES)
+        run["plain_ms"] = time_ms(lambda: tex.label_and_columns_plain(*args))
+        run.update(bound_us=v_bound, bound_by=v_by,
+                   share_of_bound=v_bound / run["device_us"])
+        emit("k1", scene=scene, preset="vlp16",
+             shape=[v_ex.n_rings, v_ex.max_points_per_ring],
+             padding=v_ex.padding, nms_rounds=v_ex.nms_rounds,
+             labels_equal=True, curvature_equal=True, col_equal=True,
+             launches_timed=K1_LAUNCHES, bytes=v_bytes, flops=v_flops,
+             nvidia_smi=smi, **run)
 
     # The drive's last scans once more, under the profiler.
     for name, last in last_scans.items():
@@ -2360,7 +2549,8 @@ def main() -> int:
         "name": "k1_label_and_columns", "route": "cuda",
         "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "launches_by_phase": launches_by_phase,
-        "max_abs_err": max(r["max_abs_err"] for r in k1_runs.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            *k1_runs.values(), *k1_batches.values(), *k1_vlp16.values())),
         "ms": bench["device_us"] / 1e3, "plain_ms": bench["plain_ms"],
         "bound_ms": bound / 1e3, "bound_by": bound_by,
         # No single PyTorch call computes labels + NMS + columns.
@@ -2370,7 +2560,9 @@ def main() -> int:
         "host_us": bench["host_us"],
         "bound_us": bound, "share_of_bound": bench["share_of_bound"],
         "shape": [R, P], "per_scan": k1_runs,
-        "per_batch": {str(B): run for B, run in k1_batches.items()}}]}),
+        "per_batch": {str(B): run for B, run in k1_batches.items()},
+        "vlp16": {"shape": [v_ex.n_rings, v_ex.max_points_per_ring],
+                  "per_scan": k1_vlp16}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,360 @@
+"""The full-width reference record of the port's main path: its cases,
+their inputs and the rule that the port's label differences from the
+JAX package must pass. numpy and torch only (no JAX): ``chip_smoke.py``
+reads the record on the card, ``tests/torch_reference_record.py`` writes
+it from the JAX package on the CPU, and ``tests/test_torch_fullwidth.py``
+holds both packages to it.
+
+A case is one scene under one preset of ``pipeline/launch.py`` at the
+preset's full width:
+
+- ``kitti_hdl64``: 64 x 2304, the compact extraction over
+  ``GeometryMaps``; ``vlp16``: 16 x 1856, the full extraction over
+  ``FeatureMaps`` (the kNN rounds);
+- scenes: bench.py's scan (``bench_scan``, numpy seed 0) and a street
+  canyon (``street_world`` from numpy seed 0) scanned at the identity
+  (``street_scan`` from numpy seed 1);
+- priors: bench.py's best case t = (0.3, -0.2, 0.05), and it with a
+  0.2 m offset in a random direction and a yaw of N(0, 1 degree) drawn
+  from numpy seeds 7-10;
+- maps: the features that the reference's labels select from the scan
+  (the full extraction's, ``compact_by_mask`` in scan order), copied to
+  7 noisy keyframe poses (``keyframe_copies``, drawing on from the
+  scene's generator after its scan, edges first), and one far anchor
+  point that gives every case of a preset grids of one shape
+  (``GRID_EXTENT``). Each package builds its own maps from these
+  clouds.
+
+The record holds, per case, what the JAX package computes: labels and
+curvature, the features ``localize_scan`` registers, and the status,
+iterations, pose, error and scale of ``localize_scan`` for every prior
+(it registers exactly the recorded features, so these are also the
+results of the registration fed them). It also lists the lanes where
+the port's labels differ (``label_swaps``).
+
+Why labels can differ (ROADMAP §C6, §C18): XLA:CPU contracts the
+reference's ``x * x + y * y`` (and the curvature's sums) into FMAs, and
+the port and K1 round every operation. The curvatures then differ by a
+few ulps, and where two candidates of one NMS window are that close the
+surface NMS picks the other one. The rule: the lanes that differ form
+clusters (one ring, consecutive lanes at most ``padding`` apart); taken
+in order, a cluster's lanes pair up, each pair at most ``padding`` apart,
+one lane going X -> X_NEIGHBOR and the other X_NEIGHBOR -> X (X is
+SURFACE or EDGE); and within ``padding`` of the cluster lie two lanes, at
+most ``padding`` apart, whose curvatures the two packages order
+differently, with the reference's two within ``tie_ulps`` ulps: the
+difference of their square roots (the accumulated range sums) over the
+float32 spacing of the larger of the two lanes' ranges. A later pair of
+a cluster is the cascade of its first (a pick that moved frees or takes
+the next window).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+
+PRESETS = ("kitti_hdl64", "vlp16")
+SCENES = ("bench", "street")
+CASES = tuple(f"{preset}/{scene}" for preset in PRESETS for scene in SCENES)
+NOISY_SEEDS = (7, 8, 9, 10)
+BEST_T = (0.3, -0.2, 0.05)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+RECORD = os.path.join(HERE, "tests", "data", "torch_reference_fullwidth.npz")
+MANIFEST = os.path.join(HERE, "tests", "data",
+                        "torch_reference_fullwidth.json")
+
+# Every map cloud ends with one anchor point this far above its low
+# corner snapped to the map's voxel lattice. The grid's origin (the
+# snapped low corner) stays where the cloud puts it, and its shape
+# becomes the same for every case of a preset (the extent over the voxel
+# size, plus margins), so the reference compiles each of its programs
+# once per preset, not once per scene. The extent holds every scene's
+# cloud (the street's walls span 123 m in x), and the anchor lies
+# beyond the reach of any map voxel a scan point looks up.
+GRID_EXTENT = np.array([128.0, 48.0, 16.0])
+
+# Label codes, as the package's PointLabel enum.
+EDGE, EDGE_NEIGHBOR, SURFACE, SURFACE_NEIGHBOR = 1, 2, 3, 4
+_PARTNER = {EDGE: EDGE_NEIGHBOR, EDGE_NEIGHBOR: EDGE,
+            SURFACE: SURFACE_NEIGHBOR, SURFACE_NEIGHBOR: SURFACE}
+
+# Registration fed the reference's own features (kitti_hdl64 in float32,
+# vlp16 in float64), and localize_scan end to end on a case without
+# label swaps: status and iterations equal, the pose within these of the
+# record (metres; per quaternion component). The float32 normal
+# equations are summed in another order.
+T_ATOL = Q_ATOL = 1e-4
+# localize_scan end to end on a case that lists label swaps: status and
+# iterations equal, the translation within this. One surface point moved
+# to the neighbouring lane shifts the MAD scale's lower-middle median
+# (ROADMAP §C3, §C18), and the next steps follow it: on the CPU the port
+# ends up to 6.3e-4 m from the record (street scene, best-case prior) and
+# 3.26e-4 m (bench scene, seed 8), the quaternion within 1.2e-5.
+SWAP_T_ATOL = 1e-3
+# The kNN path (vlp16) in float32, whose plane fit is ill-conditioned
+# (ROADMAP §C8): the reference's own float32 run ends up to 1.6 cm from
+# its float64 run, with another status on one prior of ten, and the
+# port's float32 run up to 4.6 cm from the reference's (street scene,
+# seed 8: CONVERGED after 4 iterations against SCALE_INCREASED after 2).
+# That path is held in float64 (T_ATOL; the CPU agrees to 1e-12 m) and in
+# float32 only within this, status and iterations not held.
+KNN_F32_T_ATOL = 0.1
+
+
+def split(case: str) -> tuple[str, str]:
+    preset, scene = case.split("/")
+    return preset, scene
+
+
+def scene_scan(scene: str, n_rings: int, n_points: int):
+    """(float32 [R, P, 3] scan, the generator after its draws)."""
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        bench_scan, street_scan, street_world)
+
+    if scene == "bench":
+        rng = np.random.default_rng(0)
+        return bench_scan(rng, n_rings, n_points), rng
+    world = street_world(np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    return street_scan(world, rng, n_rings, n_points), rng
+
+
+def priors() -> tuple[np.ndarray, np.ndarray]:
+    """q [5, 4] (wxyz) and t [5, 3], float32: the best case, then the
+    noisy priors of numpy seeds 7-10."""
+    qs, ts = [np.array([1.0, 0.0, 0.0, 0.0])], [np.array(BEST_T)]
+    for seed in NOISY_SEEDS:
+        rng = np.random.default_rng(seed)
+        d = rng.normal(size=3)
+        yaw = np.radians(1.0) * rng.normal()
+        ts.append(np.array(BEST_T) + 0.2 * d / np.linalg.norm(d))
+        qs.append(np.array([np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)]))
+    return np.float32(qs), np.float32(ts)
+
+
+def selected_points(xyz: np.ndarray, take: np.ndarray,
+                    capacity: int) -> np.ndarray:
+    """The points of [R, P, 3] where ``take``, in scan order, at most
+    ``capacity`` (the full extraction's ``compact_by_mask``)."""
+    return xyz.reshape(-1, 3)[take.reshape(-1)][:capacity]
+
+
+def map_clouds(xyz: np.ndarray, labels: np.ndarray, rng,
+               cfg) -> tuple[np.ndarray, np.ndarray]:
+    """float32 edge and surface map clouds: the features ``labels``
+    select (at most ``max_edges`` / ``max_surfaces``), at 7 noisy
+    keyframe copies drawn from ``rng``, each with its grid anchor."""
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        keyframe_copies)
+
+    ex, reg = cfg.extraction, cfg.registration
+    out = []
+    for code, cap, voxel in ((EDGE, ex.max_edges, reg.edge_map.voxel_size),
+                             (SURFACE, ex.max_surfaces,
+                              reg.surface_map.voxel_size)):
+        pts = keyframe_copies(rng, selected_points(xyz, labels == code, cap))
+        anchor = np.floor(pts.min(axis=0) / voxel) * voxel + GRID_EXTENT
+        out.append(np.float32(np.concatenate([pts, anchor[None]])))
+    return tuple(out)
+
+
+def tie_ulps(ref_curv, xyz, ring: int, a: int, b: int) -> float:
+    """The reference curvatures of lanes a and b apart, in float32 ulps
+    of the larger of the two lanes' ranges (see the module docstring)."""
+    acc = np.sqrt(np.float64(ref_curv[ring, [a, b]]))
+    rng = np.hypot(np.float64(xyz[ring, [a, b], 0]),
+                   np.float64(xyz[ring, [a, b], 1]))
+    return float(abs(acc[0] - acc[1])
+                 / np.spacing(np.float32(rng.max())))
+
+
+def label_swaps(ref_labels, port_labels, ref_curv, port_curv, xyz,
+                padding: int, max_ulps: float | None = None) -> list[dict]:
+    """The clusters of lanes where ``port_labels`` differ from the
+    reference's, each checked against the rule of the module docstring
+    (with ``max_ulps`` None the tie's ulps are measured, not bounded).
+    Raises ValueError naming the first lane that breaks it."""
+    ref_labels, port_labels = np.asarray(ref_labels), np.asarray(port_labels)
+    ref_curv, port_curv = np.asarray(ref_curv), np.asarray(port_curv)
+    P = ref_labels.shape[-1]
+    diff = np.argwhere(ref_labels != port_labels)
+    clusters: list[list[tuple[int, int]]] = []
+    for r, i in diff:
+        r, i = int(r), int(i)
+        if clusters and clusters[-1][-1][0] == r \
+                and i - clusters[-1][-1][1] <= padding:
+            clusters[-1].append((r, i))
+        else:
+            clusters.append([(r, i)])
+    out = []
+    for members in clusters:
+        ring, lanes = members[0][0], [i for _, i in members]
+        where = f"ring {ring} lanes {lanes}"
+        if len(lanes) % 2:
+            raise ValueError(f"{where}: an odd number of lanes differ")
+        pairs = []
+        for a, b in zip(lanes[::2], lanes[1::2]):
+            ra, pa = int(ref_labels[ring, a]), int(port_labels[ring, a])
+            rb, pb = int(ref_labels[ring, b]), int(port_labels[ring, b])
+            if not (b - a <= padding and ra in _PARTNER
+                    and pa == _PARTNER[ra] and rb == pa and pb == ra):
+                raise ValueError(
+                    f"{where}: lanes {a}, {b} are not a swap within "
+                    f"padding {padding} (reference {ra}, {rb}; port "
+                    f"{pa}, {pb})")
+            pairs.append([a, b])
+        lo, hi = max(lanes[0] - padding, 0), min(lanes[-1] + padding, P - 1)
+        flips = []
+        for a in range(lo, hi + 1):
+            for b in range(a + 1, min(a + padding, hi) + 1):
+                ref_order = np.sign(ref_curv[ring, a] - ref_curv[ring, b])
+                port_order = np.sign(port_curv[ring, a] - port_curv[ring, b])
+                if ref_order != port_order:
+                    flips.append((tie_ulps(ref_curv, xyz, ring, a, b), a, b))
+        if not flips:
+            raise ValueError(f"{where}: no pair of lanes within padding "
+                             "that the two packages order differently")
+        ulps, a, b = min(flips)
+        if max_ulps is not None and ulps > max_ulps:
+            raise ValueError(f"{where}: the closest reordered pair ({a}, "
+                             f"{b}) is {ulps} ulps apart, above {max_ulps}")
+        out.append({
+            "ring": ring, "lanes": lanes,
+            "ref_labels": [int(ref_labels[ring, i]) for i in lanes],
+            "port_labels": [int(port_labels[ring, i]) for i in lanes],
+            "pairs": pairs, "tie": [a, b], "tie_ulps": ulps,
+            "ref_curvature": {str(i): float(ref_curv[ring, i])
+                              for i in sorted(set(lanes) | {a, b})},
+            "port_curvature": {str(i): float(port_curv[ring, i])
+                               for i in sorted(set(lanes) | {a, b})}})
+    return out
+
+
+def load(path: str = RECORD, manifest: str = MANIFEST):
+    """(arrays by name, the manifest) of the committed record."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    with open(manifest) as f:
+        return arrays, json.load(f)
+
+
+def listed_lanes(case_manifest: dict) -> dict[tuple[int, int], int]:
+    """(ring, lane) -> the port's label there, for every listed lane."""
+    return {(c["ring"], i): lab for c in case_manifest["swaps"]
+            for i, lab in zip(c["lanes"], c["port_labels"])}
+
+
+
+def case_arrays(arrays: dict, case: str) -> dict:
+    """The record's arrays of one case, by their short names."""
+    prefix = case.replace("/", ".") + "."
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix)}
+
+
+def port_image(case: str, cfg, device, dtype=None):
+    """The case's scan as the port's range image on ``device``, in
+    ``dtype`` (float32 by default)."""
+    import torch
+
+    from lidar_feature_extraction_tpu_torch.core.scan import RangeImage
+
+    ex = cfg.extraction
+    R, P = ex.n_rings, ex.max_points_per_ring
+    xyz, _ = scene_scan(split(case)[1], R, P)
+    return RangeImage(
+        torch.as_tensor(xyz, dtype=dtype or torch.float32, device=device),
+        torch.ones((R, P), dtype=torch.bool, device=device),
+        torch.full((R,), P, dtype=torch.int32, device=device))
+
+
+def port_maps(case: str, labels, cfg, device, dtype=None):
+    """The port's maps of a case, built from the map clouds of the
+    record's labels: GeometryMaps for the compact path, else FeatureMaps;
+    every float field in ``dtype`` (float32 by default)."""
+    import torch
+
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        build_feature_maps, build_geometry_maps)
+
+    ex = cfg.extraction
+    xyz, rng = scene_scan(split(case)[1], ex.n_rings, ex.max_points_per_ring)
+    edge, surf = map_clouds(xyz, labels, rng, cfg)
+    dtype = dtype or torch.float32
+    build = build_geometry_maps if cfg.compact_extraction \
+        else build_feature_maps
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    ones = lambda a: torch.ones(len(a), dtype=torch.bool,  # noqa: E731
+                                device=device)
+    maps = build(as_t(edge), ones(edge), as_t(surf), ones(surf), cfg)
+
+    def cast(tree):
+        return type(tree)(*(
+            a.to(dtype) if isinstance(a, torch.Tensor)
+            and a.is_floating_point()
+            else cast(a) if isinstance(a, tuple) and hasattr(a, "_fields")
+            else a for a in tree))
+
+    return cast(maps)
+
+
+def port_poses(device, dtype=None) -> list:
+    import torch
+
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+
+    qs, ts = priors()
+    return [Pose(torch.as_tensor(q, dtype=dtype or torch.float32,
+                                 device=device),
+                 torch.as_tensor(t, dtype=dtype or torch.float32,
+                                 device=device)) for q, t in zip(qs, ts)]
+
+
+def one_iteration(cfg):
+    """``cfg`` with Gauss-Newton stopped after one iteration."""
+    return dataclasses.replace(cfg, registration=dataclasses.replace(
+        cfg.registration, max_iterations=1))
+
+
+def results_arrays(results) -> dict:
+    """Gauss-Newton results of the priors (either package's) as stacked
+    numpy arrays, by the record's field names."""
+    def stack(get):
+        return np.stack([np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                         for a in map(get, results)])
+
+    return {"status": np.int32([int(r.status) for r in results]),
+            "iterations": np.int32([int(r.iterations) for r in results]),
+            "q": stack(lambda r: r.pose.q), "t": stack(lambda r: r.pose.t),
+            "error": stack(lambda r: r.error),
+            "scale": stack(lambda r: r.scale)}
+
+
+def ref_features_tensors(rec: dict, device, dtype=None) -> tuple:
+    """The record's features as tensors: edge xyz, valid, surface xyz,
+    valid."""
+    import torch
+
+    f = lambda k: torch.as_tensor(rec[k], dtype=dtype or torch.float32,  # noqa: E731
+                                  device=device)
+    b = lambda k: torch.as_tensor(rec[k], device=device)  # noqa: E731
+    return (f("edge_xyz"), b("edge_valid"), f("surface_xyz"),
+            b("surface_valid"))
+
+
+def register_on_features(maps, feats: tuple, poses: list, cfg) -> dict:
+    """The registration ``localize_scan`` runs, fed ``feats``, from every
+    prior: ``register_scan_geometry`` pre-downsampled (compact path) or
+    ``register_scan``."""
+    from lidar_feature_extraction_tpu_torch.pipeline import localization
+
+    if cfg.compact_extraction:
+        return results_arrays([localization.register_scan_geometry(
+            maps, *feats, p, cfg, pre_downsampled=True) for p in poses])
+    return results_arrays([localization.register_scan(maps, *feats, p, cfg)
+                           for p in poses])

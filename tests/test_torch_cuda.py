@@ -1,8 +1,9 @@
 """Kernel K1 on the card against its plain PyTorch version, and the paths
 that run it (full extraction, one closed-loop scan, the odometry step,
 IMU preintegration, the pose-graph and IMU-graph solvers, a short
-mapping run with a loop closure, the chunked front end's one launch per
-block, the batched localizer on every branch, the voxel-hash map)
+mapping run with a loop closure, K1 at vlp16's widths against the CPU
+and the full-width reference record, the chunked front end's one launch
+per block, the batched localizer on every branch, the voxel-hash map)
 against the CPU, their lone runs or the per-scan pipeline; and every
 float scatter-add of the port giving the same bits on two calls (ROADMAP
 §C16).
@@ -236,6 +237,47 @@ def test_extract_features_on_the_card_labels_with_k1(cuda, case):
             name
     rng_max = float(np.linalg.norm(xyz[..., :2], axis=-1)[mask].max())
     atol = 4 * cfg.padding * float(np.spacing(np.float32(rng_max)))
+    assert float((got.curvature.cpu().sqrt() - want.curvature.sqrt())
+                 .abs().max()) <= atol
+
+
+@pytest.mark.parametrize("scene", ["bench", "street"])
+def test_k1_under_vlp16_matches_the_cpu_and_the_record(cuda, scene):
+    """vlp16's widths: 16 rings x 1856 points, padding 5, 64 NMS rounds.
+    K1 equals the plain version on the card bit for bit (labels,
+    curvature, columns); the full extraction on the card (one K1 launch)
+    gives the CPU's labels and features exactly and the record's labels
+    (the JAX package's, ``tests/data/torch_reference_fullwidth.npz``: no
+    lane differs under vlp16); its curvature is held to the CPU's as
+    |acc| = sqrt(c) within 4 * padding ulp of the largest range, because
+    the CPU build of torch computes some float32 square roots an ulp off
+    the correctly rounded one that the card (and K1) give (ROADMAP
+    §C18)."""
+    import reference_cases as rc
+    from lidar_feature_extraction_tpu_torch.pipeline.launch import (
+        load_config)
+
+    cfg = load_config("vlp16")
+    ex = cfg.extraction
+    R, P = ex.n_rings, ex.max_points_per_ring
+    xyz, _ = rc.scene_scan(scene, R, P)
+    count, mask = np.full(R, P, np.int32), np.ones((R, P), bool)
+    _check(xyz, count, ex, cuda, cfg.registration.surface_downsample_leaf,
+           ex.edges_per_ring, ex.surface_runs_per_ring)
+    before = extraction_cuda.label_and_columns_cuda.launches
+    got = tex.extract_features(range_image_from_numpy(xyz, mask, count,
+                                                      device=cuda), ex)
+    assert extraction_cuda.label_and_columns_cuda.launches == before + 1
+    want = tex.extract_features(range_image_from_numpy(xyz, mask, count,
+                                                       device="cpu"), ex)
+    for name in set(want._fields) - {"curvature"}:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    arrays, _ = rc.load()
+    record = rc.case_arrays(arrays, f"vlp16/{scene}")
+    np.testing.assert_array_equal(got.labels.cpu().numpy(), record["labels"])
+    rng_max = float(np.linalg.norm(xyz[..., :2], axis=-1).max())
+    atol = 4 * ex.padding * float(np.spacing(np.float32(rng_max)))
     assert float((got.curvature.cpu().sqrt() - want.curvature.sqrt())
                  .abs().max()) <= atol
 

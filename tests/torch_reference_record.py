@@ -1,0 +1,261 @@
+"""Write, or check, the full-width reference record of the port's main
+path (``tests/data/torch_reference_fullwidth.npz`` and its JSON
+manifest): what the JAX package computes on the CPU for every case of
+``reference_cases.py``, and the lanes where the port's labels differ.
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_record.py --write
+    JAX_PLATFORMS=cpu python tests/torch_reference_record.py   # compare
+
+Per case (a scene under ``kitti_hdl64()`` or ``vlp16()`` at full width)
+and prior: the reference's labels (int8, and their sha256) and
+curvature; the features ``localize_scan`` registers (the compact ones
+under ``kitti_hdl64``, the full ones under ``vlp16``) with their valid
+masks; the status, iterations, pose, error and scale of
+``localize_scan`` (which registers exactly those features, so these are
+also the results of ``register_scan_geometry`` pre-downsampled, or of
+``register_scan``, fed them); under ``kitti_hdl64`` the same of
+``localize_scan`` stopped after one Gauss-Newton iteration, and under
+``vlp16`` of ``localize_scan`` in float64 (scan, map clouds and priors:
+the kNN path's float32 plane fit is ill-conditioned, ROADMAP §C8). The
+manifest names the cases, the package versions, the label swaps of the
+port's CPU run (``label_swaps``), the largest tie among them in ulps
+and, rounded up to the next ulp, the rule's bound.
+
+``jax_enable_x64`` is on, as in the test suite (test_extraction turns it
+on at import); inputs are float32 on both sides. The port runs on the
+CPU with two threads, as in the parity tests.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import math
+import os
+import sys
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(_HERE)
+for _p in (_ROOT, _HERE):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+jax.config.update("jax_enable_x64", True)   # as in-suite (test_extraction)
+torch.set_num_threads(2)                     # as the parity tests
+
+import reference_cases as rc  # noqa: E402
+from lidar_feature_extraction_tpu import config as jconfig  # noqa: E402
+from lidar_feature_extraction_tpu.core.pose import Pose as JPose  # noqa: E402
+from lidar_feature_extraction_tpu.core.scan import (  # noqa: E402
+    RangeImage as JImage)
+from lidar_feature_extraction_tpu.ops import extraction as jex  # noqa: E402
+from lidar_feature_extraction_tpu.pipeline import (  # noqa: E402
+    localization as jloc)
+from lidar_feature_extraction_tpu_torch.interop import (  # noqa: E402
+    range_image_from_numpy)
+from lidar_feature_extraction_tpu_torch.ops.extraction import (  # noqa: E402
+    label_range_image)
+from lidar_feature_extraction_tpu_torch.pipeline import launch  # noqa: E402
+
+
+def ref_config(preset: str):
+    return getattr(jconfig, preset)()
+
+
+def ref_image(xyz) -> JImage:
+    R, P = xyz.shape[:2]
+    return JImage(jnp.asarray(xyz), jnp.ones((R, P), bool),
+                  jnp.full(R, P, jnp.int32))
+
+
+def ref_features(img: JImage, cfg):
+    """The features ``localize_scan`` registers under ``cfg``."""
+    ex = cfg.extraction
+    if cfg.compact_extraction:
+        return jex.extract_features_compact(
+            img, ex, surface_leaf=cfg.registration.surface_downsample_leaf,
+            edges_per_ring=ex.edges_per_ring,
+            surface_runs_per_ring=ex.surface_runs_per_ring,
+            surface_centroid=ex.compact_surface_centroid)
+    return jex.extract_features(img, ex)
+
+
+def ref_maps(edge, surf, cfg):
+    """Each package builds its own maps from the same clouds: the
+    reference's here (GeometryMaps for the compact path, else
+    FeatureMaps)."""
+    build = (jloc.build_geometry_maps if cfg.compact_extraction
+             else jloc.build_feature_maps)
+    return build(jnp.asarray(edge), jnp.ones(len(edge), bool),
+                 jnp.asarray(surf), jnp.ones(len(surf), bool), cfg)
+
+
+def reference_case(case: str) -> dict:
+    """What the JAX package computes for ``case``: arrays by name."""
+    preset, scene = rc.split(case)
+    cfg = ref_config(preset)
+    ex = cfg.extraction
+    xyz, rng = rc.scene_scan(scene, ex.n_rings, ex.max_points_per_ring)
+    img = ref_image(xyz)
+    feats = ref_features(img, cfg)
+    labels = np.asarray(feats.labels)
+    edge, surf = rc.map_clouds(xyz, labels, rng, cfg)
+    maps = ref_maps(edge, surf, cfg)
+    qs, ts = rc.priors()
+    poses = [JPose(jnp.asarray(q), jnp.asarray(t)) for q, t in zip(qs, ts)]
+    out = {"labels": labels.astype(np.int8),
+           "curvature": np.asarray(feats.curvature),
+           "edge_xyz": np.asarray(feats.edge_xyz),
+           "edge_valid": np.asarray(feats.edge_valid),
+           "surface_xyz": np.asarray(feats.surface_xyz),
+           "surface_valid": np.asarray(feats.surface_valid)}
+    # localize_scan registers exactly the features recorded above, so
+    # its results are also those of the registration fed them.
+    runs = {"localize": [jloc.localize_scan(maps, img, p, cfg)[0]
+                         for p in poses]}
+    if cfg.compact_extraction:
+        runs["one_iteration"] = [jloc.localize_scan(
+            maps, img, p, rc.one_iteration(cfg))[0] for p in poses]
+    else:
+        # The kNN path's float32 plane fit is ill-conditioned (ROADMAP
+        # §C8): the whole step again in float64 (scan, clouds, priors).
+        maps64 = ref_maps(np.float64(edge), np.float64(surf), cfg)
+        img64 = ref_image(np.float64(xyz))
+        runs["localize64"] = [jloc.localize_scan(
+            maps64, img64, JPose(jnp.asarray(np.float64(q)),
+                                 jnp.asarray(np.float64(t))), cfg)[0]
+            for q, t in zip(qs, ts)]
+    for run, results in runs.items():
+        for field, a in rc.results_arrays(results).items():
+            out[f"{run}_{field}"] = a
+    return out
+
+
+def port_labels(case: str, dtype=np.float32):
+    """The port's labels and curvature (numpy) for ``case`` on the CPU,
+    with the scan in ``dtype``."""
+    from lidar_feature_extraction_tpu_torch.core.scan import RangeImage
+
+    preset, scene = rc.split(case)
+    ex = launch.load_config(preset).extraction
+    R, P = ex.n_rings, ex.max_points_per_ring
+    xyz, _ = rc.scene_scan(scene, R, P)
+    img = range_image_from_numpy(xyz, np.ones((R, P), bool),
+                                 np.full(R, P, np.int32), "cpu")
+    if dtype != np.float32:
+        img = RangeImage(torch.as_tensor(xyz.astype(dtype)), img.mask,
+                         img.count)
+    labels, curv = label_range_image(img, ex)
+    return labels.numpy(), curv.numpy()
+
+
+def labels_sha256(labels: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        labels, dtype=np.int8).tobytes()).hexdigest()
+
+
+def case_manifest(case: str, arrays: dict) -> dict:
+    """The manifest's entry of ``case``: shape, counts, the labels' hash
+    and the port's label swaps (their ties measured)."""
+    preset, scene = rc.split(case)
+    ex = ref_config(preset).extraction
+    xyz, _ = rc.scene_scan(scene, ex.n_rings, ex.max_points_per_ring)
+    got, got_curv = port_labels(case)
+    swaps = rc.label_swaps(arrays["labels"], got, arrays["curvature"],
+                           got_curv, xyz, ex.padding)
+    return {"preset": preset, "scene": scene,
+            "shape": [ex.n_rings, ex.max_points_per_ring],
+            "padding": ex.padding, "nms_rounds": ex.nms_rounds,
+            "labels_sha256": labels_sha256(arrays["labels"]),
+            "edges": int((arrays["labels"] == rc.EDGE).sum()),
+            "surfaces": int((arrays["labels"] == rc.SURFACE).sum()),
+            "lanes_differing": sum(len(c["lanes"]) for c in swaps),
+            "swaps": swaps}
+
+
+def build_record() -> tuple[dict, dict]:
+    """(arrays by ``<preset>.<scene>.<name>``, manifest) of every case."""
+    arrays, cases = {}, {}
+    qs, ts = rc.priors()
+    arrays["prior_q"], arrays["prior_t"] = qs, ts
+    for case in rc.CASES:
+        got = reference_case(case)
+        cases[case] = case_manifest(case, got)
+        for name, a in got.items():
+            arrays[f"{case.replace('/', '.')}.{name}"] = a
+    ulps = [c["tie_ulps"] for m in cases.values() for c in m["swaps"]]
+    manifest = {
+        "written_by": "JAX_PLATFORMS=cpu python tests/"
+                      "torch_reference_record.py --write",
+        "versions": {"jax": jax.__version__, "numpy": np.__version__,
+                     "torch": torch.__version__,
+                     "python": sys.version.split()[0]},
+        "jax_enable_x64": True,
+        "priors": "best case t = (0.3, -0.2, 0.05), then numpy seeds "
+                  + ", ".join(map(str, rc.NOISY_SEEDS)),
+        "runs": {"localize": "localize_scan; it registers the recorded "
+                             "features, so these are also the results of "
+                             "register_scan_geometry (pre_downsampled) or "
+                             "register_scan fed them",
+                 "one_iteration": "localize_scan with max_iterations=1 "
+                                  "(kitti_hdl64 only)",
+                 "localize64": "localize_scan in float64: scan, map "
+                               "clouds and priors (vlp16 only, ROADMAP "
+                               "§C8)"},
+        # The rule's bound: the largest tie measured, to the next ulp.
+        "tie_ulps_max": max(ulps, default=0.0),
+        "tie_ulps_bound": math.ceil(max(ulps, default=0.0)),
+        "cases": cases}
+    return arrays, manifest
+
+
+def differences(arrays: dict, manifest: dict, want_arrays: dict,
+                want_manifest: dict) -> list[str]:
+    """What differs between a fresh record and the committed one (bit
+    for bit; the package versions are not compared)."""
+    out = sorted(set(arrays) ^ set(want_arrays))
+    for k in sorted(set(arrays) & set(want_arrays)):
+        a, b = arrays[k], want_arrays[k]
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            out.append(k)
+    strip = lambda m: {k: v for k, v in m.items() if k != "versions"}  # noqa: E731
+    if json.loads(json.dumps(strip(manifest))) != strip(want_manifest):
+        out.append("manifest")
+    return out
+
+
+def write(arrays: dict, manifest: dict) -> None:
+    os.makedirs(os.path.dirname(rc.RECORD), exist_ok=True)
+    np.savez_compressed(rc.RECORD, **arrays)
+    with open(rc.MANIFEST, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--write", action="store_true",
+                    help="write the record (else compare with it)")
+    args = ap.parse_args()
+    arrays, manifest = build_record()
+    if args.write:
+        write(arrays, manifest)
+        print(f"wrote {rc.RECORD} ({os.path.getsize(rc.RECORD)} B) and "
+              f"{rc.MANIFEST}")
+        return 0
+    diff = differences(arrays, manifest, *rc.load())
+    print("record equals a fresh computation" if not diff
+          else f"record differs: {diff}")
+    return 1 if diff else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
