@@ -173,18 +173,16 @@ Phases, each of which must pass (any failure exits non-zero):
    extraction, FeatureMaps), five priors each, the maps built on the card
    from the record's clouds. K1's count is reset just before each case's
    ``localize_scan`` calls and read just after: one launch per scan. Its
-   labels must equal the record's except at the lanes the record lists
-   (neighbour swaps at near-ties of curvature, ROADMAP §C18), and there
-   be the port's listed labels. The registration fed the record's
-   features (kitti_hdl64 in float32; vlp16 in float64, its float32 plane
-   fit being ill-conditioned, ROADMAP §C8) must give the record's status
-   and iterations and a pose within 1e-4 m and 1e-4 per quaternion
-   component; ``localize_scan`` under kitti_hdl64 (and stopped after one
-   iteration) the record's status and iterations and a pose within 1e-4,
-   or ``reference_cases.SWAP_T_ATOL`` where the case lists swaps; under
-   vlp16 the features equal to the record's bit for bit and the float32
-   pose within ``reference_cases.KNN_F32_T_ATOL``. Every difference and
-   its margin to the bound is printed;
+   labels, curvature and features must equal the record's bit for bit
+   (the port computes the reference's jitted float32 arithmetic, fused
+   multiply-adds included, ROADMAP §C18). The registration fed the
+   record's features (kitti_hdl64 in float32; vlp16 in float64, its
+   float32 plane fit being ill-conditioned, ROADMAP §C8) must give the
+   record's status and iterations and a pose within 1e-4 m and 1e-4 per
+   quaternion component; ``localize_scan`` under kitti_hdl64 (and
+   stopped after one iteration) likewise; under vlp16 the float32 pose
+   within ``reference_cases.KNN_F32_T_ATOL``. Every difference and its
+   margin to the bound is printed;
 16. k1, after the main paths (localize, drive, odometry, slam, batch,
    kitti, determinism, batch_full, voxel_map, multi, chunk, host,
    reference): a ``torch.profiler``
@@ -1898,16 +1896,14 @@ def reference_phase(dev, k1) -> dict:
     computes at full width (``reference_cases.py``; no JAX here): per
     case, the preset through ``launch.load_config``, the maps built on
     the card from the record's clouds, and ``localize_scan`` from the
-    five priors (K1 counted: one launch per scan). Labels equal to the
-    record's except at the listed lanes, where they are the port's listed
-    labels; registration fed the record's features (kitti_hdl64 in
-    float32, vlp16 in float64) with the record's status and iterations
-    and a pose within 1e-4; ``localize_scan`` with the record's status
-    and iterations and a pose within 1e-4, or ``SWAP_T_ATOL`` where the
-    case lists swaps (kitti_hdl64, and its first iteration likewise);
-    under vlp16 the features equal to the record's bit for bit and the
-    float32 pose within ``KNN_F32_T_ATOL`` (status and iterations
-    printed). Returns the figures by case; raises on a miss."""
+    five priors (K1 counted: one launch per scan). Labels, curvature and
+    features equal to the record's bit for bit; registration fed the
+    record's features (kitti_hdl64 in float32, vlp16 in float64) with
+    the record's status and iterations and a pose within 1e-4;
+    ``localize_scan`` under kitti_hdl64 (and its first iteration)
+    likewise; under vlp16 the float32 pose within ``KNN_F32_T_ATOL``
+    (status and iterations printed). Returns the figures by case; raises
+    on a miss."""
     import torch
 
     import reference_cases as rc
@@ -1916,7 +1912,7 @@ def reference_phase(dev, k1) -> dict:
 
     start = time.perf_counter()
     arrays, manifest = rc.load()
-    out = {"tie_ulps_bound": manifest["tie_ulps_bound"], "cases": {}}
+    out = {"cases": {}}
     launches = 0
     for case in rc.CASES:
         preset, _ = rc.split(case)
@@ -1935,44 +1931,44 @@ def reference_phase(dev, k1) -> dict:
                                f"for {len(poses)} scans")
         launches += n
         feats = runs[0][1]
+        check(all(torch.equal(f.labels, feats.labels)
+                  and torch.equal(f.curvature, feats.curvature)
+                  for _, f in runs),
+              f"reference {case}: labels or curvature differ between runs")
         labels = feats.labels.cpu().numpy()
-        check(all(torch.equal(f.labels, feats.labels) for _, f in runs),
-              f"reference {case}: labels differ between runs")
-        listed = rc.listed_lanes(m)
-        differ = {(int(r), int(i))
-                  for r, i in np.argwhere(labels != rec["labels"])}
-        check(differ == set(listed)
-              and all(labels[r, i] == lab for (r, i), lab in listed.items()),
+        curv_bits = feats.curvature.cpu().numpy().view(np.int32)
+        differ = np.argwhere(labels != rec["labels"])
+        curv_differ = int((curv_bits != rec["curvature"].view(np.int32))
+                          .sum())
+        check(len(differ) == 0 and curv_differ == 0,
               f"reference {case}: labels differ from the record at "
-              f"{sorted(differ)}; listed {sorted(listed)}")
+              f"{differ[:8].tolist()} ({len(differ)} lanes), curvature at "
+              f"{curv_differ} lanes")
+        same = all(np.array_equal(getattr(feats, k).cpu().numpy(), rec[k])
+                   for k in ("edge_xyz", "edge_valid", "surface_xyz",
+                             "surface_valid"))
+        check(same, f"reference {case}: features differ from the record")
         loc = rc.results_arrays([r for r, _ in runs])
         fig = {"preset": preset, "shape": m["shape"],
                "k1_launches": n, "lanes_differing": len(differ),
-               "listed_lanes": len(listed),
-               "swaps": [{k: c[k] for k in ("ring", "lanes", "tie",
-                                           "tie_ulps")}
-                         for c in m["swaps"]]}
+               "curvature_lanes_differing": curv_differ,
+               "features_equal": same}
         if cfg.compact_extraction:
             reg = rc.register_on_features(
                 maps, rc.ref_features_tensors(rec, dev), poses, cfg)
             fig["register"] = _results_margin(reg, rec, "localize",
                                               rc.T_ATOL, rc.Q_ATOL)
-            t_atol = rc.SWAP_T_ATOL if m["swaps"] else rc.T_ATOL
-            fig["localize"] = _results_margin(loc, rec, "localize", t_atol,
-                                              rc.Q_ATOL)
+            fig["localize"] = _results_margin(loc, rec, "localize",
+                                              rc.T_ATOL, rc.Q_ATOL)
             k1.label_and_columns_cuda.launches = 0
             one = rc.results_arrays([localization.localize_scan(
                 maps, img, p, rc.one_iteration(cfg))[0] for p in poses])
             torch.cuda.synchronize()
             launches += k1.label_and_columns_cuda.launches
             fig["one_iteration"] = _results_margin(one, rec, "one_iteration",
-                                                   t_atol, rc.Q_ATOL)
+                                                   rc.T_ATOL, rc.Q_ATOL)
             held = ("register", "localize", "one_iteration")
         else:
-            same = all(np.array_equal(getattr(feats, k).cpu().numpy(), rec[k])
-                       for k in ("edge_xyz", "edge_valid", "surface_xyz",
-                                 "surface_valid"))
-            check(same, f"reference {case}: features differ from the record")
             f64 = torch.float64
             reg = rc.register_on_features(
                 rc.port_maps(case, rec["labels"], cfg, dev, f64),
@@ -1982,7 +1978,6 @@ def reference_phase(dev, k1) -> dict:
                 reg, rec, "localize64", rc.T_ATOL, rc.Q_ATOL)
             fig["localize_float32"] = _results_margin(
                 loc, rec, "localize", rc.KNN_F32_T_ATOL, None)
-            fig["features_equal"] = same
             held = ("register_float64",)
             check(fig["localize_float32"]["t_margin_m"] >= 0,
                   f"reference {case}: float32 pose "
@@ -2443,8 +2438,7 @@ def main() -> int:
     # package's results at full width, under both presets.
     ref = reference_phase(dev, k1)
     for case, fig in ref["cases"].items():
-        emit("reference", case=case, tie_ulps_bound=ref["tie_ulps_bound"],
-             **fig)
+        emit("reference", case=case, **fig)
     emit("reference_total", seconds=ref["seconds"],
          k1_launches=ref["k1_launches"])
     launches += ref["k1_launches"]

@@ -72,13 +72,19 @@
 // PERF.md has the numbers.
 //
 // Exactness: the float expressions that decide labels use explicit
-// round-to-nearest intrinsics (no FMA contraction; built with
-// --fmad=false) in the reference's order of operations; thresholds arrive
-// as float, rounded the way JAX rounds a Python float against a float32
-// array; the voxel hash multiplies in uint32 (wrap-around, as the
-// reference's int32); integer divisions that can see a negative operand
-// floor like JAX's //. Staged lanes outside [0, P) hold the values of the
-// lane P away, so the reference's wrapping rolls need no special case.
+// round-to-nearest intrinsics in the reference's order of operations,
+// built with --fmad=false so that the compiler contracts nothing. Three
+// expressions are fused on purpose with __fmaf_rn, because the
+// reference's jitted float32 code (XLA:CPU) contracts them: the range
+// sqrt(fma(x, x, y*y)), the neighbour cosine's dot fma(x, xn, y*yn), and
+// the curvature's first step fma(-2p, r[i], r[i-1]); the plain version
+// (ops/extraction.py) computes the same correctly rounded FMAs.
+// Thresholds arrive as float, rounded the way JAX rounds a Python float
+// against a float32 array; the voxel hash multiplies in uint32
+// (wrap-around, as the reference's int32); integer divisions that can see
+// a negative operand floor like JAX's //. Staged lanes outside [0, P)
+// hold the values of the lane P away, so the reference's wrapping rolls
+// need no special case.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -549,16 +555,15 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
     const int lw = wrap(l, P);
     const float xi = sx[e];
     const float yi = sy[e];
-    const float r2 =
-        __fsqrt_rn(__fadd_rn(__fmul_rn(xi, xi), __fmul_rn(yi, yi)));
+    const float r2 = __fsqrt_rn(__fmaf_rn(xi, xi, __fmul_rn(yi, yi)));
     rng[e] = lw < n ? r2 : 0.f;
     bool nbi = false;
     if (e + 1 < E) {
       const float xn = sx[e + 1];
       const float yn = sy[e + 1];
-      const float dot = __fadd_rn(__fmul_rn(xi, xn), __fmul_rn(yi, yn));
-      const float norm = __fmul_rn(
-          r2, __fsqrt_rn(__fadd_rn(__fmul_rn(xn, xn), __fmul_rn(yn, yn))));
+      const float dot = __fmaf_rn(xi, xn, __fmul_rn(yi, yn));
+      const float norm =
+          __fmul_rn(r2, __fsqrt_rn(__fmaf_rn(xn, xn, __fmul_rn(yn, yn))));
       float cosang = __fdiv_rn(dot, fmaxf(norm, 1e-30f));
       cosang = cosang < -1.f ? -1.f : (cosang > 1.f ? 1.f : cosang);
       nbi = lw < n - 1 && cosang > prm.cos_thr;
@@ -588,7 +593,8 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   }
   __syncthreads();
 
-  // 3. Curvature: acc = -2p r[i], then + r[i-k] + r[i+k] for k = 1..p.
+  // 3. Curvature: acc = fma(-2p, r[i], r[i-1]) + r[i+1], then
+  // + r[i-k] + r[i+k] for k = 2..p.
   // Occlusion triggers, 0 outside the ring. Left: pair (i-1, i) jumps up;
   // right: pair (i, i+1) jumps down.
   for (int e = tid; e < E; e += T) {
@@ -596,8 +602,11 @@ k1_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
     const int lw = wrap(l, P);
     float c = 0.f;
     if (e >= p && e + p < E && lw >= p && lw < n - p) {
-      float acc = __fmul_rn(static_cast<float>(-2 * p), rng[e]);
-      for (int k = 1; k <= p; ++k) {
+      const float w = static_cast<float>(-2 * p);
+      float acc = p >= 1 ? __fadd_rn(__fmaf_rn(w, rng[e], rng[e - 1]),
+                                     rng[e + 1])
+                         : __fmul_rn(w, rng[e]);
+      for (int k = 2; k <= p; ++k) {
         acc = __fadd_rn(acc, rng[e - k]);
         acc = __fadd_rn(acc, rng[e + k]);
       }

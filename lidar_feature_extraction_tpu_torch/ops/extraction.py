@@ -10,7 +10,14 @@ reference's arithmetic:
 - float thresholds are Python floats compared against float32 tensors,
   which torch, like JAX's weak typing, rounds to float32 first;
 - each float expression is evaluated in the reference's order, one
-  rounded operation at a time;
+  rounded operation at a time, except where XLA:CPU contracts the
+  reference's jitted float32 code into fused multiply-adds: the range
+  ``sqrt(fma(x, x, y*y))``, the neighbour cosine's
+  ``fma(x, xn, y*yn)`` and the curvature's first step
+  ``fma(-2p, r[i], r[i-1])``. There the port computes the same correctly
+  rounded FMA (``_fma``), and takes square roots correctly rounded
+  (``_sqrt``; the CPU build of torch is an ulp off on some float32
+  inputs). float64 keeps one rounding per operation;
 - rolls wrap, and the reference masks the wrapped lanes;
 - integer cumsums are exact, so ``torch.cumsum`` replaces the
   reference's Hillis-Steele shift ladder;
@@ -61,14 +68,54 @@ def _col(count: torch.Tensor) -> torch.Tensor:
     return count.reshape(-1, 1).to(torch.int32)
 
 
+def _fma(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` as the reference's jitted code computes it. In
+    float32 rounded once, as a fused multiply-add: the float64 product of
+    two float32 values is exact, TwoSum gives the float64 sum and its
+    exact error, and rounding that sum to odd (the neighbour with an odd
+    last bit when the error is not 0) makes the final rounding to float32
+    correct. Other dtypes round each operation. ``a`` may be a Python
+    float that float32 holds exactly."""
+    if b.dtype != torch.float32:
+        return a * b + c
+    p = b.double() * (a.double() if isinstance(a, torch.Tensor) else a)
+    c = c.double()
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0) \
+        & torch.isfinite(s)
+    away = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
+                                             err))
+    return torch.where(inexact_even, away, s).float()
+
+
+def _sqrt(v: torch.Tensor) -> torch.Tensor:
+    """Square root, in float32 correctly rounded (from float64, where the
+    double rounding is exact)."""
+    if v.dtype != torch.float32:
+        return torch.sqrt(v)
+    return torch.sqrt(v.double()).float()
+
+
+def _xy_norm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """XY range as the reference's jitted code computes it."""
+    return _sqrt(_fma(x, x, y * y))
+
+
 def curvature_kernel(rng: torch.Tensor, count: torch.Tensor,
                      padding: int) -> torch.Tensor:
     """Squared range-curvature over each ring, [R, P]:
     c[i] = (sum_{|k|<=p} w_k * range[i+k])^2 with w_0 = -2p, else 1;
-    zero outside [p, n-p)."""
+    zero outside [p, n-p). The first step is the reference's contracted
+    ``fma(-2p, r[i], r[i-1])``."""
     p = padding
-    acc = -2.0 * p * rng
-    for k in range(1, p + 1):
+    if p == 0:
+        acc = -0.0 * rng
+    else:
+        acc = _fma(-2.0 * p, rng, torch.roll(rng, 1, -1)) \
+            + torch.roll(rng, -1, -1)
+    for k in range(2, p + 1):
         acc = acc + torch.roll(rng, k, -1) + torch.roll(rng, -k, -1)
     idx = _lane(rng)
     interior = (idx >= p) & (idx < _col(count) - p)
@@ -80,8 +127,8 @@ def neighbor_flags_xy(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor,
     """nb[r, i]: points i and i+1 of ring r subtend an XY angle below the
     threshold, as cos(angle) > cos(threshold); False at i >= count-1."""
     xn, yn = torch.roll(x, -1, -1), torch.roll(y, -1, -1)
-    dot = x * xn + y * yn
-    norm = torch.sqrt(x * x + y * y) * torch.sqrt(xn * xn + yn * yn)
+    dot = _fma(x, xn, y * yn)
+    norm = _xy_norm(x, y) * _xy_norm(xn, yn)
     cosang = torch.clamp(dot / torch.clamp_min(norm, 1e-30), -1.0, 1.0)
     has_next = _lane(x) < _col(count) - 1
     return (cosang > math.cos(radian_threshold)) & has_next
@@ -209,7 +256,7 @@ def label_planes(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                  count: torch.Tensor, cfg: ExtractionConfig
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Labels [R, P] int32 and curvature [R, P] from x/y planes."""
-    rng = torch.where(mask, torch.sqrt(x * x + y * y), torch.zeros_like(x))
+    rng = torch.where(mask, _xy_norm(x, y), torch.zeros_like(x))
 
     curv = curvature_kernel(rng, count, cfg.padding)
     nb = neighbor_flags_xy(x, y, count, cfg.radian_threshold)

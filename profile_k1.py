@@ -7,7 +7,9 @@
 ``DIR`` is a checkout of another commit (for example ``git archive`` of
 the parent unpacked under ``build/``); its wrapper
 ``lidar_feature_extraction_tpu_torch/ops/extraction_cuda.py`` is loaded
-by path and builds its own kernel source into ``DIR/build/kernels``.
+by path and builds its own kernel source into ``DIR/build/kernels``, and
+its K1 is checked against its own plain version (its
+``ops/extraction.py``, also loaded by path).
 
 For each implementation (the baseline and this tree) and each scan
 (chip_smoke's bench scan and its street scan), in turns (baseline, this
@@ -46,14 +48,20 @@ STAMP_BLOCKS, STAMPS, STAMP_ROUNDS = 256, 16, 32
 P_RINGS = 64  # rings of kitti_hdl64(), the shape profiled here
 
 
-def load_impl(root: Path, tag: str):
-    """The K1 wrapper module of the checkout at ``root``, loaded by path."""
-    path = root / "lidar_feature_extraction_tpu_torch" / "ops" / \
-        "extraction_cuda.py"
-    spec = importlib.util.spec_from_file_location(f"k1_impl_{tag}", path)
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_impl(root: Path, tag: str):
+    """(the K1 wrapper module, the plain version) of the checkout at
+    ``root``, loaded by path."""
+    ops = root / "lidar_feature_extraction_tpu_torch" / "ops"
+    return (_load(ops / "extraction_cuda.py", f"k1_impl_{tag}"),
+            _load(ops / "extraction.py",
+                  f"k1_plain_{tag}").label_and_columns_plain)
 
 
 def phase_split(mod, args, launches: int):
@@ -174,10 +182,11 @@ def main() -> int:
 
     cfg = kitti_hdl64()
     ex = cfg.extraction
-    impls = {}
+    impls, plains = {}, {}
     if opts.baseline is not None:
-        impls["baseline"] = load_impl(opts.baseline.resolve(), "baseline")
-    impls["this"] = load_impl(HERE, "this")
+        impls["baseline"], plains["baseline"] = load_impl(
+            opts.baseline.resolve(), "baseline")
+    impls["this"], plains["this"] = load_impl(HERE, "this")
     order = list(impls) + list(impls)[::-1] if len(impls) > 1 else ["this"]
     inputs = k1_inputs(cfg, "cuda")
 
@@ -196,7 +205,7 @@ def main() -> int:
             for scene, args in inputs.items():
                 row = {"repeat": rep, "impl": tag, "scene": scene,
                        **check_and_time(impls[tag].label_and_columns_cuda,
-                                        args, opts.launches)}
+                                        args, opts.launches, plains[tag])}
                 report["runs"].append(row)
                 print(json.dumps(row), flush=True)
 

@@ -29,24 +29,10 @@ The record holds, per case, what the JAX package computes: labels and
 curvature, the features ``localize_scan`` registers, and the status,
 iterations, pose, error and scale of ``localize_scan`` for every prior
 (it registers exactly the recorded features, so these are also the
-results of the registration fed them). It also lists the lanes where
-the port's labels differ (``label_swaps``).
-
-Why labels can differ (ROADMAP §C6, §C18): XLA:CPU contracts the
-reference's ``x * x + y * y`` (and the curvature's sums) into FMAs, and
-the port and K1 round every operation. The curvatures then differ by a
-few ulps, and where two candidates of one NMS window are that close the
-surface NMS picks the other one. The rule: the lanes that differ form
-clusters (one ring, consecutive lanes at most ``padding`` apart); taken
-in order, a cluster's lanes pair up, each pair at most ``padding`` apart,
-one lane going X -> X_NEIGHBOR and the other X_NEIGHBOR -> X (X is
-SURFACE or EDGE); and within ``padding`` of the cluster lie two lanes, at
-most ``padding`` apart, whose curvatures the two packages order
-differently, with the reference's two within ``tie_ulps`` ulps: the
-difference of their square roots (the accumulated range sums) over the
-float32 spacing of the larger of the two lanes' ranges. A later pair of
-a cluster is the cascade of its first (a pick that moved frees or takes
-the next window).
+results of the registration fed them). The port computes the
+extraction's float32 arithmetic as the reference's jitted code does,
+fused multiply-adds included (ROADMAP §C18), so its labels and
+curvature equal the record's bit for bit.
 """
 
 from __future__ import annotations
@@ -79,23 +65,13 @@ MANIFEST = os.path.join(HERE, "tests", "data",
 GRID_EXTENT = np.array([128.0, 48.0, 16.0])
 
 # Label codes, as the package's PointLabel enum.
-EDGE, EDGE_NEIGHBOR, SURFACE, SURFACE_NEIGHBOR = 1, 2, 3, 4
-_PARTNER = {EDGE: EDGE_NEIGHBOR, EDGE_NEIGHBOR: EDGE,
-            SURFACE: SURFACE_NEIGHBOR, SURFACE_NEIGHBOR: SURFACE}
+EDGE, SURFACE = 1, 3
 
 # Registration fed the reference's own features (kitti_hdl64 in float32,
-# vlp16 in float64), and localize_scan end to end on a case without
-# label swaps: status and iterations equal, the pose within these of the
-# record (metres; per quaternion component). The float32 normal
-# equations are summed in another order.
+# vlp16 in float64), and localize_scan end to end: status and iterations
+# equal, the pose within these of the record (metres; per quaternion
+# component). The float32 normal equations are summed in another order.
 T_ATOL = Q_ATOL = 1e-4
-# localize_scan end to end on a case that lists label swaps: status and
-# iterations equal, the translation within this. One surface point moved
-# to the neighbouring lane shifts the MAD scale's lower-middle median
-# (ROADMAP §C3, §C18), and the next steps follow it: on the CPU the port
-# ends up to 6.3e-4 m from the record (street scene, best-case prior) and
-# 3.26e-4 m (bench scene, seed 8), the quaternion within 1.2e-5.
-SWAP_T_ATOL = 1e-3
 # The kNN path (vlp16) in float32, whose plane fit is ill-conditioned
 # (ROADMAP §C8): the reference's own float32 run ends up to 1.6 cm from
 # its float64 run, with another status on one prior of ten, and the
@@ -163,91 +139,12 @@ def map_clouds(xyz: np.ndarray, labels: np.ndarray, rng,
     return tuple(out)
 
 
-def tie_ulps(ref_curv, xyz, ring: int, a: int, b: int) -> float:
-    """The reference curvatures of lanes a and b apart, in float32 ulps
-    of the larger of the two lanes' ranges (see the module docstring)."""
-    acc = np.sqrt(np.float64(ref_curv[ring, [a, b]]))
-    rng = np.hypot(np.float64(xyz[ring, [a, b], 0]),
-                   np.float64(xyz[ring, [a, b], 1]))
-    return float(abs(acc[0] - acc[1])
-                 / np.spacing(np.float32(rng.max())))
-
-
-def label_swaps(ref_labels, port_labels, ref_curv, port_curv, xyz,
-                padding: int, max_ulps: float | None = None) -> list[dict]:
-    """The clusters of lanes where ``port_labels`` differ from the
-    reference's, each checked against the rule of the module docstring
-    (with ``max_ulps`` None the tie's ulps are measured, not bounded).
-    Raises ValueError naming the first lane that breaks it."""
-    ref_labels, port_labels = np.asarray(ref_labels), np.asarray(port_labels)
-    ref_curv, port_curv = np.asarray(ref_curv), np.asarray(port_curv)
-    P = ref_labels.shape[-1]
-    diff = np.argwhere(ref_labels != port_labels)
-    clusters: list[list[tuple[int, int]]] = []
-    for r, i in diff:
-        r, i = int(r), int(i)
-        if clusters and clusters[-1][-1][0] == r \
-                and i - clusters[-1][-1][1] <= padding:
-            clusters[-1].append((r, i))
-        else:
-            clusters.append([(r, i)])
-    out = []
-    for members in clusters:
-        ring, lanes = members[0][0], [i for _, i in members]
-        where = f"ring {ring} lanes {lanes}"
-        if len(lanes) % 2:
-            raise ValueError(f"{where}: an odd number of lanes differ")
-        pairs = []
-        for a, b in zip(lanes[::2], lanes[1::2]):
-            ra, pa = int(ref_labels[ring, a]), int(port_labels[ring, a])
-            rb, pb = int(ref_labels[ring, b]), int(port_labels[ring, b])
-            if not (b - a <= padding and ra in _PARTNER
-                    and pa == _PARTNER[ra] and rb == pa and pb == ra):
-                raise ValueError(
-                    f"{where}: lanes {a}, {b} are not a swap within "
-                    f"padding {padding} (reference {ra}, {rb}; port "
-                    f"{pa}, {pb})")
-            pairs.append([a, b])
-        lo, hi = max(lanes[0] - padding, 0), min(lanes[-1] + padding, P - 1)
-        flips = []
-        for a in range(lo, hi + 1):
-            for b in range(a + 1, min(a + padding, hi) + 1):
-                ref_order = np.sign(ref_curv[ring, a] - ref_curv[ring, b])
-                port_order = np.sign(port_curv[ring, a] - port_curv[ring, b])
-                if ref_order != port_order:
-                    flips.append((tie_ulps(ref_curv, xyz, ring, a, b), a, b))
-        if not flips:
-            raise ValueError(f"{where}: no pair of lanes within padding "
-                             "that the two packages order differently")
-        ulps, a, b = min(flips)
-        if max_ulps is not None and ulps > max_ulps:
-            raise ValueError(f"{where}: the closest reordered pair ({a}, "
-                             f"{b}) is {ulps} ulps apart, above {max_ulps}")
-        out.append({
-            "ring": ring, "lanes": lanes,
-            "ref_labels": [int(ref_labels[ring, i]) for i in lanes],
-            "port_labels": [int(port_labels[ring, i]) for i in lanes],
-            "pairs": pairs, "tie": [a, b], "tie_ulps": ulps,
-            "ref_curvature": {str(i): float(ref_curv[ring, i])
-                              for i in sorted(set(lanes) | {a, b})},
-            "port_curvature": {str(i): float(port_curv[ring, i])
-                               for i in sorted(set(lanes) | {a, b})}})
-    return out
-
-
 def load(path: str = RECORD, manifest: str = MANIFEST):
     """(arrays by name, the manifest) of the committed record."""
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
     with open(manifest) as f:
         return arrays, json.load(f)
-
-
-def listed_lanes(case_manifest: dict) -> dict[tuple[int, int], int]:
-    """(ring, lane) -> the port's label there, for every listed lane."""
-    return {(c["ring"], i): lab for c in case_manifest["swaps"]
-            for i, lab in zip(c["lanes"], c["port_labels"])}
-
 
 
 def case_arrays(arrays: dict, case: str) -> dict:

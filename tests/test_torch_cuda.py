@@ -219,11 +219,9 @@ def test_centroid_mode_through_k1_matches_plain_path(cuda):
                                   "ragged_default"])
 def test_extract_features_on_the_card_labels_with_k1(cuda, case):
     """The full extraction on a CUDA image labels with K1 (one launch)
-    and equals the plain path on the CPU: labels and the compacted edge
-    and surface points exactly; the curvature as |acc| = sqrt(c) to
-    within 4 * padding ulp of the largest range, because the CPU build
-    of torch may contract ``x*x + y*y`` into an FMA where the card (and
-    K1) round each operation."""
+    and equals the plain path on the CPU bit for bit: labels, curvature
+    and the compacted edge and surface points (both take the same
+    correctly rounded FMAs and square roots)."""
     xyz, count, cfg = _case(case)
     mask = np.arange(xyz.shape[1])[None, :] < count[:, None]
     before = extraction_cuda.label_and_columns_cuda.launches
@@ -232,13 +230,9 @@ def test_extract_features_on_the_card_labels_with_k1(cuda, case):
     assert extraction_cuda.label_and_columns_cuda.launches == before + 1
     want = tex.extract_features(range_image_from_numpy(xyz, mask, count,
                                                        device="cpu"), cfg)
-    for name in set(want._fields) - {"curvature"}:
+    for name in want._fields:
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
             name
-    rng_max = float(np.linalg.norm(xyz[..., :2], axis=-1)[mask].max())
-    atol = 4 * cfg.padding * float(np.spacing(np.float32(rng_max)))
-    assert float((got.curvature.cpu().sqrt() - want.curvature.sqrt())
-                 .abs().max()) <= atol
 
 
 @pytest.mark.parametrize("scene", ["bench", "street"])
@@ -246,13 +240,9 @@ def test_k1_under_vlp16_matches_the_cpu_and_the_record(cuda, scene):
     """vlp16's widths: 16 rings x 1856 points, padding 5, 64 NMS rounds.
     K1 equals the plain version on the card bit for bit (labels,
     curvature, columns); the full extraction on the card (one K1 launch)
-    gives the CPU's labels and features exactly and the record's labels
-    (the JAX package's, ``tests/data/torch_reference_fullwidth.npz``: no
-    lane differs under vlp16); its curvature is held to the CPU's as
-    |acc| = sqrt(c) within 4 * padding ulp of the largest range, because
-    the CPU build of torch computes some float32 square roots an ulp off
-    the correctly rounded one that the card (and K1) give (ROADMAP
-    §C18)."""
+    gives the CPU's labels, curvature and features exactly, and the
+    record's labels and curvature (the JAX package's,
+    ``tests/data/torch_reference_fullwidth.npz``; ROADMAP §C18)."""
     import reference_cases as rc
     from lidar_feature_extraction_tpu_torch.pipeline.launch import (
         load_config)
@@ -270,16 +260,15 @@ def test_k1_under_vlp16_matches_the_cpu_and_the_record(cuda, scene):
     assert extraction_cuda.label_and_columns_cuda.launches == before + 1
     want = tex.extract_features(range_image_from_numpy(xyz, mask, count,
                                                        device="cpu"), ex)
-    for name in set(want._fields) - {"curvature"}:
+    for name in want._fields:
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
             name
     arrays, _ = rc.load()
     record = rc.case_arrays(arrays, f"vlp16/{scene}")
     np.testing.assert_array_equal(got.labels.cpu().numpy(), record["labels"])
-    rng_max = float(np.linalg.norm(xyz[..., :2], axis=-1).max())
-    atol = 4 * ex.padding * float(np.spacing(np.float32(rng_max)))
-    assert float((got.curvature.cpu().sqrt() - want.curvature.sqrt())
-                 .abs().max()) <= atol
+    np.testing.assert_array_equal(
+        got.curvature.cpu().numpy().view(np.int32),
+        record["curvature"].view(np.int32))
 
 
 def _small_drive(cfg):

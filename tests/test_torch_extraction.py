@@ -3,13 +3,11 @@ the compact extraction around it) against the JAX reference, its Pallas
 kernel in interpret mode, and the sequential numpy oracle.
 
 Tolerances: labels, compaction columns, validity masks and compacted
-points are bit-equal (integer results; points are moved, not computed).
-Curvature c = acc^2 is compared as |acc| = sqrt(c) to within
-4 * padding ulp of the largest range: XLA:CPU contracts the reference's
-``x*x + y*y`` and ``-2p*r + r[i-1]`` into FMAs (1-ulp differences in
-about 5% of the ranges), the port rounds every operation as written
-(the CUDA kernel must match it bit for bit), and the curvature's
-cancellation turns an ulp of one range into up to 2p ulp of acc.
+points are bit-equal (integer results; points are moved, not computed),
+and so is the float32 curvature against the reference's jitted
+labelling: XLA:CPU contracts its ``x*x + y*y`` and ``-2p*r + r[i-1]``
+into FMAs, and the port computes the same fused operations
+(tests/test_torch_fma.py; ROADMAP §C18).
 """
 
 import numpy as np
@@ -18,6 +16,7 @@ from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import np_ref  # noqa: E402
@@ -41,10 +40,10 @@ from lidar_feature_extraction_tpu_torch.ops.extraction_cuda import (  # noqa: E4
     label_and_columns)
 
 
-def assert_curvature_close(got, want, padding, rng_max):
-    atol = 4 * padding * float(np.spacing(np.float32(rng_max)))
-    np.testing.assert_allclose(np.sqrt(to_np(got)), np.sqrt(np32(want)),
-                               rtol=0, atol=atol)
+def assert_curvature_equal(got, want):
+    got, want = to_np(got), np.asarray(want)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 CFG_KW = dict(n_rings=4, max_points_per_ring=512, nms_rounds=96,
@@ -68,7 +67,8 @@ def test_plain_k1_matches_reference_and_pallas_interpret(seed):
     xyz, mask, count = _image(seed)
     jcfg, tcfg = JCfg(**CFG_KW), TCfg(**CFG_KW)
 
-    labels, curv = jex.label_range_image(_jimage(xyz, mask, count), jcfg)
+    labels, curv = jax.jit(jex.label_range_image, static_argnums=1)(
+        _jimage(xyz, mask, count), jcfg)
     key = jex._voxel_run_key(jnp.asarray(xyz), LEAF)
     col, _, _, _ = jex.compact_columns(labels, jnp.asarray(mask), key, CE, CS)
     pl_labels, _, pl_col = label_and_columns_pallas(
@@ -82,8 +82,7 @@ def test_plain_k1_matches_reference_and_pallas_interpret(seed):
     np.testing.assert_array_equal(to_np(got[2]), np.asarray(col))
     np.testing.assert_array_equal(to_np(got[0]), np.asarray(pl_labels))
     np.testing.assert_array_equal(to_np(got[2]), np.asarray(pl_col))
-    assert_curvature_close(got[1], curv, tcfg.padding,
-                           np.hypot(xyz[..., 0], xyz[..., 1]).max())
+    assert_curvature_equal(got[1], curv)
 
 
 def test_cpu_dispatch_takes_the_plain_version():
@@ -306,6 +305,7 @@ def test_extract_features_compact_matches_reference(pallas_labeling):
     for name in ("edge_xyz", "surface_xyz"):
         np.testing.assert_array_equal(to_np(getattr(got, name)),
                                       np32(getattr(want, name)))
+    assert_curvature_equal(got.curvature, want.curvature)
 
 
 def test_extract_features_compact_kitti_preset_matches_reference():
@@ -328,6 +328,7 @@ def test_extract_features_compact_kitti_preset_matches_reference():
     np.testing.assert_array_equal(to_np(got.edge_xyz), np32(want.edge_xyz))
     np.testing.assert_array_equal(to_np(got.surface_xyz),
                                   np32(want.surface_xyz))
+    assert_curvature_equal(got.curvature, want.curvature)
 
 
 def test_extract_features_matches_reference():
@@ -342,6 +343,7 @@ def test_extract_features_matches_reference():
     for name in ("edge_xyz", "surface_xyz"):
         np.testing.assert_array_equal(to_np(getattr(got, name)),
                                       np32(getattr(want, name)))
+    assert_curvature_equal(got.curvature, want.curvature)
 
 
 def test_centroid_mode_is_not_ported():

@@ -9,21 +9,19 @@ are ``reference_cases.py``'s): bench.py's scene and a street scene under
   (labels, curvature, features, statuses, iterations, poses, errors,
   scales), and so does its manifest: a rerun of ``--write`` changes
   nothing.
-- The port's labels (CPU, float32) equal the record's except at the
-  listed lanes, each a neighbour swap of the rule in ``reference_cases``
-  (the two packages order a near-tie of curvatures differently: XLA:CPU
-  contracts the range's ``x * x + y * y`` into an FMA, the port rounds
-  twice, ROADMAP §C6, §C18). In float64 there is no difference at all.
+- The port's labels and curvature (CPU, float32) equal the record's bit
+  for bit, and so do the features ``localize_scan`` registers: the port
+  computes the float32 range, neighbour cosine and curvature with the
+  fused multiply-adds of the reference's jitted code (ROADMAP §C6,
+  §C18). In float64 the labels are bit-equal as well.
 - Registration fed the reference's own features: status and iterations
   equal, the pose within 1e-5 m and 1e-5 per quaternion component,
   under ``kitti_hdl64`` in float32 and under ``vlp16`` in float64 (the
   kNN path's float32 plane fit is ill-conditioned, ROADMAP §C8).
 - ``localize_scan`` end to end: status and iterations equal, the pose
-  within 1e-4 of the record, or ``SWAP_T_ATOL`` where the case lists
-  swaps; the first Gauss-Newton iteration likewise. Under ``vlp16`` the
-  features equal the record's bit for bit, the float64 run is held to
-  the reference's float64 run within 1e-5, and the float32 run only
-  within ``KNN_F32_T_ATOL``.
+  within 1e-4 of the record; the first Gauss-Newton iteration likewise.
+  Under ``vlp16`` the float64 run is held to the reference's float64 run
+  within 1e-5, and the float32 run only within ``KNN_F32_T_ATOL``.
 """
 
 import os
@@ -114,30 +112,22 @@ def test_record_is_small_and_names_its_cases(committed):
         labels = rc.case_arrays(arrays, case)["labels"]
         assert labels.dtype == np.int8 and list(labels.shape) == m["shape"]
         assert trr.labels_sha256(labels) == m["labels_sha256"]
-    ties = [c["tie_ulps"] for m in manifest["cases"].values()
-            for c in m["swaps"]]
-    assert ties and max(ties) == manifest["tie_ulps_max"]
-    assert manifest["tie_ulps_bound"] <= 4
 
 
 @pytest.mark.parametrize("case", rc.CASES)
-def test_port_labels_differ_only_by_listed_swaps(committed, port, case):
-    """The port's labels from localize_scan equal the record's except at
-    the listed lanes, where they are the listed ones; each cluster passes
-    the swap rule within the record's ulp bound."""
-    arrays, manifest = committed
-    rec = rc.case_arrays(arrays, case)
-    m = manifest["cases"][case]
-    got = port[case]["features"].labels.numpy()
-    listed = rc.listed_lanes(m)
-    differ = {(int(r), int(i)) for r, i in np.argwhere(got != rec["labels"])}
-    assert differ == set(listed)
-    assert all(got[r, i] == lab for (r, i), lab in listed.items())
-    xyz, _ = rc.scene_scan(m["scene"], *m["shape"])
-    swaps = rc.label_swaps(rec["labels"], got, rec["curvature"],
-                           port[case]["features"].curvature.numpy(), xyz,
-                           m["padding"], manifest["tie_ulps_bound"])
-    assert swaps == m["swaps"]
+def test_port_labels_and_curvature_equal_the_record(committed, port, case):
+    """The port's labels and curvature from localize_scan equal the
+    record's bit for bit, and so do the features it registers (the
+    compact ones under kitti_hdl64, the full ones under vlp16)."""
+    rec = rc.case_arrays(committed[0], case)
+    feats = port[case]["features"]
+    np.testing.assert_array_equal(feats.labels.numpy(), rec["labels"])
+    assert feats.curvature.dtype == torch.float32
+    np.testing.assert_array_equal(feats.curvature.numpy().view(np.int32),
+                                  rec["curvature"].view(np.int32))
+    for name in ("edge_xyz", "edge_valid", "surface_xyz", "surface_valid"):
+        np.testing.assert_array_equal(getattr(feats, name).numpy(),
+                                      rec[name], err_msg=name)
 
 
 @pytest.mark.parametrize("case", rc.CASES)
@@ -153,50 +143,26 @@ def test_registration_on_reference_features(committed, port, case):
 
 @pytest.mark.parametrize("case", rc.CASES)
 def test_localize_scan_end_to_end(committed, port, case):
-    arrays, manifest = committed
-    rec = rc.case_arrays(arrays, case)
+    rec = rc.case_arrays(committed[0], case)
     got = port[case]
     if case in KITTI:
-        t_atol = rc.SWAP_T_ATOL if manifest["cases"][case]["swaps"] \
-            else rc.T_ATOL
         _assert_results(got["localize"], rec, "localize", "localize",
-                        t_atol, rc.Q_ATOL)
+                        rc.T_ATOL, rc.Q_ATOL)
         _assert_results(got["one_iteration"], rec, "one_iteration",
-                        "one_iteration", t_atol, rc.Q_ATOL)
+                        "one_iteration", rc.T_ATOL, rc.Q_ATOL)
         return
-    # vlp16: the features are the record's; float64 is held tightly.
-    feats = got["features"]
-    for name in ("edge_xyz", "edge_valid", "surface_xyz", "surface_valid"):
-        np.testing.assert_array_equal(getattr(feats, name).numpy(),
-                                      rec[name], err_msg=name)
+    # vlp16: float64 is held tightly, float32 by the kNN fit's bound.
     _assert_results(got["localize64"], rec, "localize64", "localize64",
                     CPU_ATOL, CPU_ATOL)
     np.testing.assert_allclose(got["localize"]["t"], rec["localize_t"],
                                rtol=0, atol=rc.KNN_F32_T_ATOL)
 
 
-def test_swap_cases_move_the_pose_as_recorded(committed, port):
-    """Where labels swap, the end-to-end pose parts from the record by
-    more than 1e-4 on some prior (the reason ``SWAP_T_ATOL`` exists),
-    while the registration fed the reference's features stays within
-    1e-5 on every prior."""
-    arrays, manifest = committed
-    parted = []
-    for case in KITTI:
-        assert manifest["cases"][case]["swaps"]
-        rec = rc.case_arrays(arrays, case)
-        got = port[case]
-        dt = np.abs(got["localize"]["t"] - rec["localize_t"]).max()
-        parted.append(dt > rc.T_ATOL)
-        assert np.abs(got["register"]["t"] - rec["localize_t"]).max() \
-            <= CPU_ATOL
-    assert any(parted)
-
-
 @pytest.mark.parametrize("scene", rc.SCENES)
 def test_float64_labels_equal_the_reference(scene):
-    """In float64 neither package contracts anything that matters: the
-    full-width kitti_hdl64 labels are bit-equal."""
+    """In float64 the reference contracts too and the port does not
+    (ROADMAP §C6); the full-width kitti_hdl64 labels are bit-equal all
+    the same."""
     import jax.numpy as jnp
 
     case = f"kitti_hdl64/{scene}"

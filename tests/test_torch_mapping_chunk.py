@@ -21,8 +21,7 @@ to the reference's with the gate on, on statuses and edge errors made
 for it. On the card (chip_smoke's ``chunk`` phase) the gate stays on, at
 full width.
 
-Both packages extract under their own arithmetic (XLA contracts FMAs,
-ROADMAP §C6), and the reference runs its back-end solvers jitted as in
+The reference runs its back-end solvers jitted as in
 test_torch_slam.py. Tolerances: keyframe and constraint counts exactly;
 the keyframe trajectory within 1e-3 m (the reference test's own); a
 block's per-scan poses within 1e-4 m and statuses exactly against the

@@ -325,7 +325,7 @@ def street():
                               jnp.asarray(count)), jcfg.extraction)
         ft = t_extract(range_image_from_numpy(xyz, mask, count, "cpu"),
                        tcfg.extraction)
-        for name in set(fj._fields) - {"curvature"}:   # (FMA ulps)
+        for name in fj._fields:
             np.testing.assert_array_equal(to_np(getattr(ft, name)),
                                           np.asarray(getattr(fj, name)))
         edges.append(to_world(np32(fj.edge_xyz)[np.asarray(fj.edge_valid)],

@@ -21,9 +21,8 @@ Tolerances:
   docstring);
 - the port's production ATE at most 1.2x its faithful ATE (the
   acceptance rule of test_production_parity);
-- worldsim copy: the same points per scan and ring ids exactly, points
-  within 1e-5 m (sin and cos of the float32 trajectory quaternions may
-  differ by an ulp between XLA and torch), maps and ground truth exact;
+- worldsim copy: the same points per scan, ring ids, points, maps and
+  ground truth exactly;
 - evaluation copy: equal to the reference's.
 """
 
@@ -158,7 +157,7 @@ def test_worldsim_copy_gives_the_reference_drive(drive):
     for (pts, ring), (jpts, jring) in zip(scans, drive["scans"]):
         assert len(pts) == len(jpts)
         np.testing.assert_array_equal(ring, jring)
-        np.testing.assert_allclose(pts, jpts, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(pts, jpts)
     np.testing.assert_allclose(twists, drive["twists"], rtol=1e-5, atol=1e-5)
 
 

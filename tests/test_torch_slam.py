@@ -24,11 +24,10 @@ Tolerances:
 - the resumed run: its trajectory within 1e-6 m of the unbroken run's
   (the same operations on the same values in one process);
 - the mapping drive: ray-cast scans and IMU windows exactly (the same
-  numpy draws), feature masks exactly; feature points within 1e-5 m
-  but for at most two per class and scan: the reference extracts under
-  ``jax.jit``, whose float32 curvatures differ from the port's by ulps
-  (XLA contracts FMAs, ROADMAP §C6), which at this 8 x 256 shape can
-  swap which of two near-tied points a ring's selection keeps.
+  numpy draws), feature masks and points exactly: the reference
+  extracts under ``jax.jit``, whose float32 arithmetic XLA contracts
+  into FMAs, and the port computes the same fused operations (ROADMAP
+  §C6, §C18).
 """
 
 import contextlib
@@ -61,7 +60,6 @@ from lidar_feature_extraction_tpu_torch.utils import worldsim as tws  # noqa: E4
 jax.config.update("jax_enable_x64", True)
 
 REL_ATOL = 1e-4
-FEATURE_SWAPS = 2
 TRAJ_ATOL = 1e-3
 CPU = "cpu"
 
@@ -338,13 +336,9 @@ def test_run_mapping_drive_draws_the_reference_inputs(monkeypatch):
     assert len(port["scans"]) == len(ref["scans"]) == 4
     for (feats, imu), (jfeats, jimu_) in zip(port["scans"], ref["scans"]):
         for n in (1, 3):
-            np.testing.assert_array_equal(feats[n], jfeats[n])
             assert feats[n].sum() > 0
-        for n in (0, 2):
-            valid = feats[n + 1]
-            close = np.all(np.abs(feats[n] - jfeats[n]) <= 1e-5, axis=-1)
-            assert np.sum(valid & ~close) <= FEATURE_SWAPS, \
-                np.flatnonzero(valid & ~close)
+        for n in range(4):
+            np.testing.assert_array_equal(feats[n], jfeats[n])
         assert sorted(imu) == sorted(jimu_)
         for k in imu:
             np.testing.assert_allclose(imu[k], jimu_[k], rtol=1e-5,

@@ -1,7 +1,7 @@
 """Write, or check, the full-width reference record of the port's main
 path (``tests/data/torch_reference_fullwidth.npz`` and its JSON
 manifest): what the JAX package computes on the CPU for every case of
-``reference_cases.py``, and the lanes where the port's labels differ.
+``reference_cases.py``.
 
     JAX_PLATFORMS=cpu python tests/torch_reference_record.py --write
     JAX_PLATFORMS=cpu python tests/torch_reference_record.py   # compare
@@ -17,13 +17,13 @@ also the results of ``register_scan_geometry`` pre-downsampled, or of
 ``localize_scan`` stopped after one Gauss-Newton iteration, and under
 ``vlp16`` of ``localize_scan`` in float64 (scan, map clouds and priors:
 the kNN path's float32 plane fit is ill-conditioned, ROADMAP §C8). The
-manifest names the cases, the package versions, the label swaps of the
-port's CPU run (``label_swaps``), the largest tie among them in ulps
-and, rounded up to the next ulp, the rule's bound.
+manifest names the cases, their shapes, label counts and the labels'
+hash, and the package versions.
 
 ``jax_enable_x64`` is on, as in the test suite (test_extraction turns it
 on at import); inputs are float32 on both sides. The port runs on the
-CPU with two threads, as in the parity tests.
+CPU with two threads, as in the parity tests (``port_labels``, which
+``tests/test_torch_fullwidth.py`` holds to the record).
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import math
 import os
 import sys
 
@@ -162,22 +161,16 @@ def labels_sha256(labels: np.ndarray) -> str:
 
 
 def case_manifest(case: str, arrays: dict) -> dict:
-    """The manifest's entry of ``case``: shape, counts, the labels' hash
-    and the port's label swaps (their ties measured)."""
+    """The manifest's entry of ``case``: shape, counts and the labels'
+    hash."""
     preset, scene = rc.split(case)
     ex = ref_config(preset).extraction
-    xyz, _ = rc.scene_scan(scene, ex.n_rings, ex.max_points_per_ring)
-    got, got_curv = port_labels(case)
-    swaps = rc.label_swaps(arrays["labels"], got, arrays["curvature"],
-                           got_curv, xyz, ex.padding)
     return {"preset": preset, "scene": scene,
             "shape": [ex.n_rings, ex.max_points_per_ring],
             "padding": ex.padding, "nms_rounds": ex.nms_rounds,
             "labels_sha256": labels_sha256(arrays["labels"]),
             "edges": int((arrays["labels"] == rc.EDGE).sum()),
-            "surfaces": int((arrays["labels"] == rc.SURFACE).sum()),
-            "lanes_differing": sum(len(c["lanes"]) for c in swaps),
-            "swaps": swaps}
+            "surfaces": int((arrays["labels"] == rc.SURFACE).sum())}
 
 
 def build_record() -> tuple[dict, dict]:
@@ -190,7 +183,6 @@ def build_record() -> tuple[dict, dict]:
         cases[case] = case_manifest(case, got)
         for name, a in got.items():
             arrays[f"{case.replace('/', '.')}.{name}"] = a
-    ulps = [c["tie_ulps"] for m in cases.values() for c in m["swaps"]]
     manifest = {
         "written_by": "JAX_PLATFORMS=cpu python tests/"
                       "torch_reference_record.py --write",
@@ -209,9 +201,6 @@ def build_record() -> tuple[dict, dict]:
                  "localize64": "localize_scan in float64: scan, map "
                                "clouds and priors (vlp16 only, ROADMAP "
                                "§C8)"},
-        # The rule's bound: the largest tie measured, to the next ulp.
-        "tie_ulps_max": max(ulps, default=0.0),
-        "tie_ulps_bound": math.ceil(max(ulps, default=0.0)),
         "cases": cases}
     return arrays, manifest
 
