@@ -33,6 +33,12 @@ class Pose(NamedTuple):
         scan of a batch."""
         return quat.quat_rotate(self.q[..., None, :], p) + self.t[..., None, :]
 
+    def apply_each_fma(self, p: torch.Tensor) -> torch.Tensor:
+        """``apply_each`` with ``quat_rotate_fma``: the query points of
+        the kNN fits, as the reference's jitted code computes them."""
+        return (quat.quat_rotate_fma(self.q[..., None, :], p)
+                + self.t[..., None, :])
+
     def compose(self, other: "Pose") -> "Pose":
         """``self @ other``: first apply ``other``, then ``self``."""
         return Pose(

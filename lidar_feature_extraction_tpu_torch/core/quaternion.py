@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a x b`` over the last axis, broadcasting like ``jnp.cross``."""
@@ -70,6 +72,16 @@ def quat_rotate(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     uv = _cross(v, p)
     uuv = _cross(v, uv)
     return p + 2.0 * (w * uv + uuv)
+
+
+def quat_rotate_fma(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``quat_rotate`` as the reference's jitted kNN fits compute it: in
+    float32 each cross-product component ``fma(a_i, b_j, -(a_j*b_i))``,
+    then ``p + 2 fma(w, uv, uuv)`` (ROADMAP §C19); other dtypes as
+    ``quat_rotate``."""
+    uv = xf.cross(q[..., 1:], p)
+    uuv = xf.cross(q[..., 1:], uv)
+    return p + 2.0 * xf.fma(q[..., :1], uv, uuv)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:

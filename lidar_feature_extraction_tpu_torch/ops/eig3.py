@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core.quaternion import _cross
 
 
@@ -92,3 +93,61 @@ def eigh3x3(a: torch.Tensor, eps: float = 1e-30):
 
     v = torch.stack([v0, v1, v2], dim=-1)  # columns are eigenvectors
     return w, v
+
+
+def principal_axis3x3(a: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """``eigh3x3(a)[1][..., :, 2]``, the unit eigenvector of the largest
+    eigenvalue of symmetric [..., 3, 3], computed as the reference's
+    jitted kNN edge fits compute it (ROADMAP §C19), where XLA keeps only
+    this column. In float32: the trace in index order; ``/ 3`` and ``/ 6``
+    as products with float32 reciprocals, fused into the shift
+    ``a_ii - trace/3`` and into the eigenvalue ``trace/3 + 2 p cos(phi)``;
+    the sums of squares and every cross product and 2x2 minor as
+    ``fma``s; ``arccos`` and ``cos`` rounded from float64 (``xf.acos``,
+    ``xf.cos``: the one step whose float32 bits can differ from the
+    reference's). Other dtypes: ``eigh3x3``'s arithmetic, bit for bit.
+    The near-isotropic test keeps its unfused threshold."""
+    a00, a11, a22 = a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]
+    a01, a02, a12 = a[..., 0, 1], a[..., 0, 2], a[..., 1, 2]
+
+    def last(*v):
+        return torch.stack(v, dim=-1)
+
+    # Each step on the stacked operands of its kind: one call of the
+    # float32 forms instead of one per operand.
+    tr = (a00 + a11) + a22
+    s00, s11, s22 = xf.div_add(-tr[..., None], 3.0,
+                               last(a00, a11, a22)).unbind(-1)
+    # sums of squares of the shifted diagonal and of the off-diagonal
+    x0, x1, x2 = last(s00, a01), last(s11, a02), last(s22, a12)
+    diag, off = xf.fma(x2, x2, xf.fma(x0, x0, x1 * x1)).unbind(-1)
+    p2 = xf.fma(2.0, off, diag)
+    p = xf.sqrt(torch.clamp_min(xf.div_const(p2, 6.0), eps))
+
+    # det(B) / 2 for B = (A - q I) / p
+    b00, b11, b22, b01, b02, b12 = (
+        last(s00, s11, s22, a01, a02, a12) / p[..., None]).unbind(-1)
+    m0, m1, m2 = xf.fms(last(b22, b22, b12), last(b11, b01, b01),
+                        last(b12, b12, b11), last(b12, b02, b02)).unbind(-1)
+    detb = xf.fma(b02, m2, xf.fms(b00, m0, b01, m1))
+    phi = xf.div_const(xf.acos(torch.clamp(detb * 0.5, -1.0, 1.0)), 3.0)
+    lam = xf.div_add(tr, 3.0, (2.0 * p) * xf.cos(phi))     # largest
+
+    r0 = last(a00 - lam, a01, a02)
+    r1 = last(a01, a11 - lam, a12)
+    r2 = last(a02, a12, a22 - lam)
+    # [..., 3 (r0 x r1, r0 x r2, r1 x r2), 3]
+    c = xf.cross(torch.stack([r0, r0, r1], dim=-2),
+                 torch.stack([r1, r2, r2], dim=-2))
+    n01, n02, n12 = xf.sum_squares(c, keepdim=True).unbind(-2)
+    c01, c02, c12 = c.unbind(-2)
+    best = torch.where(n01 >= torch.maximum(n02, n12), c01,
+                       torch.where(n02 >= n12, c02, c12))
+    v = best / xf.sqrt(torch.clamp_min(
+        xf.sum_squares(best, keepdim=True), eps))
+
+    q = xf.div_const(tr, 3.0)
+    iso = p2 < (1e-12 * q * q + 1e-30)
+    ez = torch.zeros_like(v)     # made on the device: no copy from the host
+    ez[..., 2] = 1.0
+    return torch.where(iso[..., None], ez, v)

@@ -17,7 +17,8 @@ reference's arithmetic:
   ``fma(-2p, r[i], r[i-1])``. There the port computes the same correctly
   rounded FMA (``_fma``), and takes square roots correctly rounded
   (``_sqrt``; the CPU build of torch is an ulp off on some float32
-  inputs). float64 keeps one rounding per operation;
+  inputs), both from ``core/_xla_f32.py``. float64 keeps one rounding
+  per operation;
 - rolls wrap, and the reference masks the wrapped lanes;
 - integer cumsums are exact, so ``torch.cumsum`` replaces the
   reference's Hillis-Steele shift ladder;
@@ -35,6 +36,8 @@ from typing import NamedTuple
 import torch
 
 from lidar_feature_extraction_tpu_torch.config import ExtractionConfig
+from lidar_feature_extraction_tpu_torch.core._xla_f32 import (
+    fma as _fma, sqrt as _sqrt)
 from lidar_feature_extraction_tpu_torch.core.scan import RangeImage
 
 # Label codes — parity with the reference's PointLabel enum.
@@ -66,36 +69,6 @@ def _lane(a: torch.Tensor) -> torch.Tensor:
 
 def _col(count: torch.Tensor) -> torch.Tensor:
     return count.reshape(-1, 1).to(torch.int32)
-
-
-def _fma(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` as the reference's jitted code computes it. In
-    float32 rounded once, as a fused multiply-add: the float64 product of
-    two float32 values is exact, TwoSum gives the float64 sum and its
-    exact error, and rounding that sum to odd (the neighbour with an odd
-    last bit when the error is not 0) makes the final rounding to float32
-    correct. Other dtypes round each operation. ``a`` may be a Python
-    float that float32 holds exactly."""
-    if b.dtype != torch.float32:
-        return a * b + c
-    p = b.double() * (a.double() if isinstance(a, torch.Tensor) else a)
-    c = c.double()
-    s = p + c
-    v = s - p
-    err = (p - (s - v)) + (c - v)
-    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0) \
-        & torch.isfinite(s)
-    away = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
-                                             err))
-    return torch.where(inexact_even, away, s).float()
-
-
-def _sqrt(v: torch.Tensor) -> torch.Tensor:
-    """Square root, in float32 correctly rounded (from float64, where the
-    double rounding is exact)."""
-    if v.dtype != torch.float32:
-        return torch.sqrt(v)
-    return torch.sqrt(v.double()).float()
 
 
 def _xy_norm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

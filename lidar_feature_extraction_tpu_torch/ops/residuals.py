@@ -12,6 +12,15 @@ Port of ``lidar_feature_extraction_tpu/ops/residuals.py:44-261``:
 Invalid lanes (masked scan points, starved neighbourhoods) carry zero
 Jacobians and residuals, so they drop out of the normal equations.
 
+The kNN fits compute the reference's jitted float32 arithmetic (ROADMAP
+§C19): the query points (``Pose.apply_each_fma``), the squared
+distances, the neighbourhood sums in neighbour order, the normal
+equations and the covariance as fused multiply-add chains, the plane
+solve and the principal axis with XLA:CPU's contractions
+(``core/_xla_f32.py``), so a near-tie selects and orders the neighbours
+as the reference does. The residual rows at each iteration's pose keep
+one rounding per operation. float64 is unchanged.
+
 Every function takes a batch of scans too (points [B, N, 3], one pose
 per scan: q [B, 4], t [B, 3]; candidates and neighbours with the same
 leading [B]) against one shared map. Each float reduction runs point by
@@ -31,11 +40,12 @@ from typing import NamedTuple
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.ops import voxel_grid as vg
 from lidar_feature_extraction_tpu_torch.ops import voxel_map as vm
-from lidar_feature_extraction_tpu_torch.ops.eig3 import eigh3x3
+from lidar_feature_extraction_tpu_torch.ops.eig3 import principal_axis3x3
 from lidar_feature_extraction_tpu_torch.ops.smallalg import solve3x3_sym
 
 
@@ -65,19 +75,20 @@ def lookup_knn(map_struct, queries: torch.Tensor, k: int):
 
 def masked_mean_and_cov(pts: torch.Tensor, valid: torch.Tensor):
     """Mean and covariance over the valid neighbours, batched [..., K, 3];
-    the covariance is normalized by the valid count, not count - 1."""
+    the covariance is normalized by the valid count, not count - 1. In
+    float32 the sums run in neighbour order, the covariance's as an
+    ``fma`` chain (``xf.sum_in_order``, ``xf.gram``)."""
     w = valid.to(pts.dtype)[..., None]
     cnt = torch.clamp_min(torch.sum(w, dim=-2), 1.0)
-    mean = torch.sum(pts * w, dim=-2) / cnt
+    mean = xf.sum_in_order(pts * w, dim=-2) / cnt
     d = (pts - mean[..., None, :]) * w
-    cov = torch.einsum("...ki,...kj->...ij", d, d) / cnt[..., None]
+    cov = xf.gram(d, d) / cnt[..., None]
     return mean, cov
 
 
 def _principal_line(nbrs, nvalid):
     mean, cov = masked_mean_and_cov(nbrs, nvalid)
-    _, evecs = eigh3x3(cov)
-    principal = evecs[..., :, 2]                       # largest eigenvalue
+    principal = principal_axis3x3(cov)                 # largest eigenvalue
     return mean - principal, mean + principal
 
 
@@ -112,17 +123,18 @@ def edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
 def fit_plane(nbrs: torch.Tensor, valid: torch.Tensor,
               eps: float = 1e-9) -> torch.Tensor:
     """Least-squares plane X w = -1 over the valid neighbours, batched,
-    from the normal equations (X^T X + eps I) w = -X^T 1."""
+    from the normal equations (X^T X + eps I) w = -X^T 1; in float32
+    summed in neighbour order as ``masked_mean_and_cov``."""
     w = valid.to(nbrs.dtype)[..., None]
     xw = nbrs * w
-    ata = torch.einsum("...ki,...kj->...ij", xw, nbrs)   # [..., 3, 3]
-    atb = -torch.sum(xw, dim=-2)                          # [..., 3]
+    ata = xf.gram(xw, nbrs)                               # [..., 3, 3]
+    atb = -xf.sum_in_order(xw, dim=-2)                    # [..., 3]
     ata = ata + eps * torch.eye(3, dtype=nbrs.dtype, device=nbrs.device)
     return solve3x3_sym(ata, atb)
 
 
 def _unit_normal(w):
-    wnorm = quat._norm(w, keepdim=True)
+    wnorm = xf.sqrt(xf.sum_squares(w, keepdim=True))
     return w / torch.clamp_min(wnorm, 1e-12), wnorm
 
 
@@ -169,7 +181,7 @@ def fit_edge_geometry(cand, cand_ok, scan_pts, scan_valid, pose: Pose,
                       k: int, min_neighbors: int = 5) -> EdgeGeometry:
     """Select the k nearest candidates at the round pose and fit lines."""
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply_each(scan_pts), k)
+                                              pose.apply_each_fma(scan_pts), k)
     p1, p2 = _principal_line(nbrs, nvalid)
     return EdgeGeometry(p1=p1, p2=p2, khat=quat.hat(p2 - p1),
                         valid=_enough(scan_valid, nvalid, min_neighbors))
@@ -179,7 +191,7 @@ def fit_surface_geometry(cand, cand_ok, scan_pts, scan_valid, pose: Pose,
                          k: int, min_neighbors: int = 5) -> SurfaceGeometry:
     """Select the k nearest candidates at the round pose and fit planes."""
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply_each(scan_pts), k)
+                                              pose.apply_each_fma(scan_pts), k)
     w = fit_plane(nbrs, nvalid)
     u, wnorm = _unit_normal(w)
     return SurfaceGeometry(w=w, u=u, wnorm=wnorm,
@@ -207,14 +219,14 @@ def surface_rows_from_geometry(geom: SurfaceGeometry, scan_pts,
 
 def edge_residuals(edge_map, scan_pts, scan_valid, pose: Pose, k: int,
                    min_neighbors: int = 5) -> ResidualBlock:
-    nbrs, _, nvalid = lookup_knn(edge_map, pose.apply_each(scan_pts), k)
+    nbrs, _, nvalid = lookup_knn(edge_map, pose.apply_each_fma(scan_pts), k)
     return edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                     pose, min_neighbors)
 
 
 def surface_residuals(surface_map, scan_pts, scan_valid, pose: Pose,
                       k: int, min_neighbors: int = 5) -> ResidualBlock:
-    nbrs, _, nvalid = lookup_knn(surface_map, pose.apply_each(scan_pts), k)
+    nbrs, _, nvalid = lookup_knn(surface_map, pose.apply_each_fma(scan_pts), k)
     return surface_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                        pose, min_neighbors)
 
@@ -225,7 +237,7 @@ def edge_residuals_from_candidates(cand, cand_ok, scan_pts, scan_valid,
                                    pose: Pose, k: int,
                                    min_neighbors: int = 5) -> ResidualBlock:
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply_each(scan_pts), k)
+                                              pose.apply_each_fma(scan_pts), k)
     return edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                     pose, min_neighbors)
 
@@ -235,6 +247,6 @@ def surface_residuals_from_candidates(cand, cand_ok, scan_pts, scan_valid,
                                       min_neighbors: int = 5
                                       ) -> ResidualBlock:
     nbrs, _, nvalid = vg.topk_from_candidates(cand, cand_ok,
-                                              pose.apply_each(scan_pts), k)
+                                              pose.apply_each_fma(scan_pts), k)
     return surface_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                        pose, min_neighbors)

@@ -12,31 +12,44 @@ from __future__ import annotations
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
 
 def solve3x3_sym(a: torch.Tensor, b: torch.Tensor,
                  eps: float = 1e-30) -> torch.Tensor:
     """Solve ``a x = b`` for symmetric ``a`` [..., 3, 3], b [..., 3] by
     the adjugate (Cramer) form. A singular system gives large-magnitude
-    garbage that the caller gates."""
+    garbage that the caller gates.
+
+    In float32 it computes what the reference's jitted plane fits do
+    (ROADMAP §C19): every cofactor ``fma(x, y, -(u*v))``; the determinant
+    ``fma(a02, c02, fma(a00, c00, a01*c01))`` for x0 and x2 but
+    ``fma(a02, c02, fma(a01, c01, a00*c00))`` for x1 (XLA computes each
+    component in its own loop, and LLVM fused the two products of the
+    first add the other way round in x1's); each numerator row . b as
+    ``fma(r2, b2, fma(r1, b1, r0*b0))``. Other dtypes round each
+    operation, in the order (a00 c00 + a01 c01) + a02 c02."""
     a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
     a11, a12, a22 = a[..., 1, 1], a[..., 1, 2], a[..., 2, 2]
 
-    c00 = a11 * a22 - a12 * a12
-    c01 = a02 * a12 - a01 * a22
-    c02 = a01 * a12 - a02 * a11
-    c11 = a00 * a22 - a02 * a02
-    c12 = a01 * a02 - a00 * a12
-    c22 = a00 * a11 - a01 * a01
+    def last(*v):
+        return torch.stack(v, dim=-1)
 
-    det = a00 * c00 + a01 * c01 + a02 * c02
+    # Each step on the stacked operands of its kind: one call of the
+    # float32 forms instead of one per operand.
+    c00, c01, c02, c11, c12, c22 = xf.fms(
+        last(a11, a02, a01, a00, a01, a00), last(a22, a12, a12, a22, a02, a11),
+        last(a12, a01, a02, a02, a00, a01), last(a12, a22, a11, a02, a12, a01)
+    ).unbind(-1)
+    # [det of x0 and x2, det of x1]
+    det = xf.fma(a02[..., None], c02[..., None], xf.fma(
+        last(a00, a01), last(c00, c01), last(a01 * c01, a00 * c00)))
     tiny = torch.where(det < 0, -eps, eps).to(det.dtype)
     inv_det = 1.0 / torch.where(torch.abs(det) < eps, tiny, det)
-
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    x0 = (c00 * b0 + c01 * b1 + c02 * b2) * inv_det
-    x1 = (c01 * b0 + c11 * b1 + c12 * b2) * inv_det
-    x2 = (c02 * b0 + c12 * b1 + c22 * b2) * inv_det
-    return torch.stack([x0, x1, x2], dim=-1)
+    # x_i's numerator: row i of the cofactors . b
+    num = xf.fma(last(c02, c12, c22), b[..., 2:], xf.fma(
+        last(c01, c11, c12), b[..., 1:2], last(c00, c01, c02) * b[..., :1]))
+    return num * torch.cat([inv_det, inv_det[..., :1]], dim=-1)
 
 
 def cholesky_solve(a: torch.Tensor, b: torch.Tensor,

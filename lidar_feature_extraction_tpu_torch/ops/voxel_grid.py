@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
 
 class DenseVoxelGrid(NamedTuple):
     """points: [C + 1, S, 3] slot storage with C = nx*ny*nz (row C is the
@@ -133,9 +135,10 @@ def topk_from_candidates(cand, cand_ok, queries, k: int):
     ties to the lower candidate index: (nbrs [..., Q, k, 3], sq_dists
     [..., Q, k], valid [..., Q, k]); invalid neighbours are zero at
     +inf. Every step works query by query, so a batch's lane gets the
-    bits of its lone call."""
-    d = cand - queries[..., None, :]
-    sq = torch.sum(d * d, dim=-1)
+    bits of its lone call. The squared distances are the reference's
+    jitted ``fma(dz, dz, fma(dy, dy, dx*dx))`` in float32 (ROADMAP §C19):
+    a near-tie orders the neighbours as there."""
+    sq = xf.sum_squares(cand - queries[..., None, :])
     sq = torch.where(cand_ok, sq, torch.full_like(sq, float("inf")))
     sq_sorted, order = torch.sort(sq, dim=-1, stable=True)
     sq_k, top_idx = sq_sorted[..., :k], order[..., :k]

@@ -180,10 +180,10 @@ def register_scan(maps: FeatureMaps, edge_pts, edge_valid, surf_pts,
                                   reg.surface_map.voxel_size)
 
     def one_round(pose: Pose) -> gn.GNResult:
-        cand_e, ok_e = vg.neighborhood_candidates(maps.edge,
-                                                  pose.apply_each(edge_pts))
-        cand_s, ok_s = vg.neighborhood_candidates(maps.surface,
-                                                  pose.apply_each(surf_ds))
+        cand_e, ok_e = vg.neighborhood_candidates(
+            maps.edge, pose.apply_each_fma(edge_pts))
+        cand_s, ok_s = vg.neighborhood_candidates(
+            maps.surface, pose.apply_each_fma(surf_ds))
         if reg.refit_per_iteration:
             def problem_fn(p: Pose) -> gn.Problem:
                 eb = edge_residuals_from_candidates(
@@ -321,9 +321,9 @@ class HostLocalizer:
     def _gather(self, e_pts, s_pts, pose: Pose):
         """The 27-voxel candidate sets of both maps at ``pose``."""
         ce, oe = vg.neighborhood_candidates(self.maps.edge,
-                                            pose.apply_each(e_pts))
+                                            pose.apply_each_fma(e_pts))
         cs, os_ = vg.neighborhood_candidates(self.maps.surface,
-                                             pose.apply_each(s_pts))
+                                             pose.apply_each_fma(s_pts))
         return ce, oe, cs, os_
 
     def _fit(self, e_pts, e_valid, s_pts, s_valid, pose: Pose):

@@ -68,18 +68,14 @@ GRID_EXTENT = np.array([128.0, 48.0, 16.0])
 EDGE, SURFACE = 1, 3
 
 # Registration fed the reference's own features (kitti_hdl64 in float32,
-# vlp16 in float64), and localize_scan end to end: status and iterations
-# equal, the pose within these of the record (metres; per quaternion
-# component). The float32 normal equations are summed in another order.
+# vlp16 in float64), and localize_scan end to end under both presets in
+# float32: status and iterations equal, the pose within these of the
+# record (metres; per quaternion component). The float32 normal equations
+# are summed in another order. The vlp16 float32 run meets them because
+# its kNN fits compute the reference's contracted float32 forms (ROADMAP
+# §C19): its plane fit is ill-conditioned, so one-rounding-per-operation
+# fits end centimetres away, with other statuses.
 T_ATOL = Q_ATOL = 1e-4
-# The kNN path (vlp16) in float32, whose plane fit is ill-conditioned
-# (ROADMAP §C8): the reference's own float32 run ends up to 1.6 cm from
-# its float64 run, with another status on one prior of ten, and the
-# port's float32 run up to 4.6 cm from the reference's (street scene,
-# seed 8: CONVERGED after 4 iterations against SCALE_INCREASED after 2).
-# That path is held in float64 (T_ATOL; the CPU agrees to 1e-12 m) and in
-# float32 only within this, status and iterations not held.
-KNN_F32_T_ATOL = 0.1
 
 
 def split(case: str) -> tuple[str, str]:
