@@ -11,7 +11,13 @@ record of the JAX package's results at full width under both presets.
 Phases, each of which must pass (any failure exits non-zero):
 
 1. build: ``nvcc`` builds kernel K1 from ``lidar_feature_extraction_tpu_
-   torch/csrc/extraction_k1.cu``;
+   torch/csrc/extraction_k1.cu`` and ``fma_f32`` from ``csrc/fma_f32.cu``
+   with its PyTorch operator ``csrc/fma_f32_op.cpp``, both started
+   together; then ``fma_f32`` (the one-launch float32 fused
+   multiply-add of ``core/_xla_f32.py::fma``) against its plain version
+   on the card, bit for bit (NaN against NaN): 10^6 random triples of
+   every magnitude, signed zeros, subnormals, infinities, NaN, exact
+   cancellations, near-halfway sums, and broadcast and strided operands;
 2. scenes: the reference ``bench.py`` scene (seed 0, 64 x 2304 range
    image, a map of the scan's features at 7 noisy keyframe poses) and a
    street canyon ray-cast from 7 keyframes of one world, both at
@@ -42,9 +48,18 @@ Phases, each of which must pass (any failure exits non-zero):
    run and read just after, and must be at least the number of scans;
    every pose must be finite; each run's ATE must be at most 1.25 x its
    ``ATE_EVAL.json`` figure + 0.005 m, and production / faithful at most
-   1.2. Per run: ATE, xy ATE, mean step drift, ms/scan (host clock
-   ending in ``synchronize()``: mean, median, first scan), GN iterations
-   and status counts, and the wall time of the last scan's
+   1.2. The drive's inputs must be those of the committed drive record
+   (``tests/data/torch_reference_drive.npz``, what the JAX package's
+   ``FusedLocalizationPipeline`` computes over this drive on the CPU;
+   ``reference_cases.py`` reads it), and each drive is held to it: the
+   first ``DRIVE_HELD_SCANS`` scans (production all 20, faithful 9,
+   ROADMAP §C21) with the record's status and iterations and measured
+   and fused positions within 1e-4 m; every scan's gaps and the first
+   scan that differs are printed. K1's and fma_f32's counts are reset
+   just before each run and read just after; each must be at least the
+   number of scans. Per run: ATE, xy ATE, mean step drift, ms/scan (host
+   clock ending in ``synchronize()``: mean, median, first scan), GN
+   iterations and status counts, and the wall time of the last scan's
    ``localize_scan`` alone, run again from the previous scan's fused
    pose;
 5. odometry: ``bench_odometry.py``'s extracted-features chain made by the
@@ -64,9 +79,11 @@ Phases, each of which must pass (any failure exits non-zero):
    trajectory's ATE, keyframes, loop constraints, ms/scan of
    ``process_scan`` (mean, median, max), the number and wall time of
    ``optimize()`` calls and of loop-closure registrations, the gyro bias
-   recovered, the run's wall time and K1's launches. ATE at most 1.25 x
-   ``ATE_EVAL.json``'s + 0.005 m, 40 +- 2 keyframes, a loop constraint
-   or more, everything finite, K1 launched at least once per scan;
+   recovered, the run's wall time and K1's and fma_f32's launches (each
+   count reset just before the run and read just after). ATE at most
+   1.25 x ``ATE_EVAL.json``'s + 0.005 m, 40 +- 2 keyframes, a loop
+   constraint or more, everything finite, K1 and fma_f32 each launched
+   at least once per scan;
 7. batch: the batched localizer (``make_batched_localizer``, B scans
    through one extraction, one K1 launch on the [B * 64, 2304] planes,
    and one lock-step Gauss-Newton loop) at B = 1, 8 and 32 on both
@@ -217,7 +234,9 @@ Phases, each of which must pass (any failure exits non-zero):
    street scan through ``HostLocalizer`` over FeatureMaps
    (``profile_fits.fit_calls``: the launches of one search round's fits,
    of one GN iteration on them, of one that refits, and of the whole
-   registration).
+   registration). Last, ``fma_f32`` timed at 2^20 elements and at a row
+   block's [8192, 3] (profiler device time, host time, the plain
+   version's and ``torch.addcmul``'s CUDA-event time, the bytes bound).
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -242,6 +261,15 @@ N_SCANS = 20
 K1_LAUNCHES = 200
 K1_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/extraction_k1.cu"
 K1_REPLACES = "lidar_feature_extraction_tpu/ops/extraction_pallas.py:93"
+FMA_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/fma_f32.cu"
+# fma_f32 ports no TPU kernel: it computes in one launch what the plain
+# version computes in ~21, the float32 FMA XLA:CPU contracts.
+FMA_REPLACES = ("none (the plain version, lidar_feature_extraction_tpu_"
+                "torch/core/_xla_f32.py::_fma_plain)")
+FMA_RANDOM = 1_000_000
+FMA_LAUNCHES = 200
+# Scans of each drive held to the drive record (ROADMAP §C20, §C21).
+DRIVE_HELD_SCANS = {"production": 20, "faithful": 9}
 # The drive's acceptance limits. ATE_EVAL.json's closed-loop ATE-RMSE of
 # the reference (JAX on the CPU, eval_ate.py), the factor and margin a
 # run on the card may reach, and docs/design.md §8's production/faithful
@@ -418,23 +446,6 @@ def localize_chain(maps, image, cfg, noisy: bool, n: int):
     return runs
 
 
-def drive_inputs():
-    """eval_ate.py's drive (seed 0), made by the port's worldsim: world
-    map clouds, 20 scans, ground-truth positions and twists; then the
-    world and the generator, which eval_ate.py's SLAM drives go on
-    drawing from."""
-    from lidar_feature_extraction_tpu_torch.utils import worldsim
-
-    rng = np.random.default_rng(0)
-    world = worldsim.make_world(rng, n_poles=50, extent=35.0)
-    edges, surfs = worldsim.world_maps(world, rng, n_ground=30000)
-    scans, gt = worldsim.make_scan_sequence(
-        world, rng, n_scans=DRIVE_SCANS, n_rings=64, n_az=2048,
-        elev_deg=(2.0, -24.8))
-    twists = worldsim.synth_twists(len(scans), rng=rng)
-    return edges, surfs, scans, gt, twists, world, rng
-
-
 def profile_call(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: kernel launches (the
     runtime's launch calls), device busy time (the profiler's self device
@@ -460,50 +471,49 @@ def profile_call(fn) -> dict:
                  "profiled_wall_ms": 1e3 * wall}
 
 
-def drive_run(maps, cfg, scans, twists, gt, device, k1):
-    """The closed loop over the drive on ``device``, K1's count read over
-    exactly this run; then the last scan's localize_scan alone, again
-    from the previous scan's fused pose. Returns the run's metrics,
-    (maps, image, prior, cfg) of that last registration, and every
-    scan's measured and fused pose ([scans, 14] float32: q, t, q, t)."""
+def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
+    """The closed loop over the drive on ``device``
+    (``reference_cases.port_drive``, timed per scan), K1's and fma_f32's
+    counts read over exactly this run; then the last scan's
+    localize_scan alone, again from the previous scan's fused pose.
+    Returns the run's metrics, (maps, image, prior, cfg) of that last
+    registration, and every scan's measured and fused pose ([scans, 14]
+    float32: q, t, q, t)."""
     import torch
+    import reference_cases as rc
     from lidar_feature_extraction_tpu_torch.core.pose import Pose
     from lidar_feature_extraction_tpu_torch.pipeline.localization import (
         localize_scan)
     from lidar_feature_extraction_tpu_torch.pipeline.replay import (
-        FusedLocalizationPipeline, scan_range_image)
+        scan_range_image)
     from lidar_feature_extraction_tpu_torch.utils.evaluation import (
         ate_rmse, relative_translation_errors)
 
-    pipeline = FusedLocalizationPipeline(
-        maps, cfg, initial_pose=Pose.identity(device=device), device=device)
-    results, ms = [], []
+    ms = []
     torch.cuda.synchronize()
     k1.label_and_columns_cuda.launches = 0
-    for i, (pts, ring) in enumerate(scans):
-        start = time.perf_counter()
-        results.append(pipeline.process_scan(pts, ring, stamp=0.1 * i,
-                                             twist=twists[i]))
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - start))
+    fma.fma_f32_cuda.launches = 0
+    fields = rc.port_drive(maps, cfg, scans, twists, device, ms=ms)
     launches = k1.label_and_columns_cuda.launches
+    fma_launches = fma.fma_f32_cuda.launches
 
-    est = np.stack([r.measured_pose.t.cpu().numpy() for r in results])
-    poses = np.stack([np.concatenate([p.cpu().numpy().ravel() for p in (
-        *r.measured_pose, *r.fused_pose)]) for r in results])
-    finite = all(bool(torch.isfinite(p).all()) for r in results
-                 for p in (*r.measured_pose, *r.fused_pose))
-    status = [r.gn_status for r in results]
-    iters = [r.gn_iterations for r in results]
+    est = fields["measured_t"]
+    poses = np.concatenate([fields[k] for k in (
+        "measured_q", "measured_t", "fused_q", "fused_t")], axis=1)
+    status = fields["status"].tolist()
+    iters = fields["iterations"].tolist()
 
     image = scan_range_image(*scans[-1], cfg, device)
-    prior = Pose(*(t.to(device) for t in results[-2].fused_pose))
+    prior = Pose(*(torch.as_tensor(fields[k][-2], device=device)
+                   for k in ("fused_q", "fused_t")))
     start = time.perf_counter()
     res, _ = localize_scan(maps, image, prior, cfg)
     torch.cuda.synchronize()
     last_ms = 1e3 * (time.perf_counter() - start)
     return {
-        "scans": len(scans), "k1_launches": launches, "finite": finite,
+        "scans": len(scans), "k1_launches": launches,
+        "fma_launches": fma_launches,
+        "finite": bool(np.isfinite(poses).all()),
         "ate_rmse_m": ate_rmse(est, gt, align=False),
         "ate_xy_rmse_m": ate_rmse(np.pad(est[:, :2], ((0, 0), (0, 1))),
                                   np.pad(gt[:, :2], ((0, 0), (0, 1))),
@@ -514,6 +524,7 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1):
         "ms_per_scan_median": statistics.median(ms),
         "ms_first_scan": ms[0], "ms_per_scan": ms,
         "gn_iterations_mean": statistics.fmean(iters), "gn_iterations": iters,
+        "gn_status": status,
         "status_counts": {str(s): status.count(s) for s in sorted(
             set(status))},
         "last_scan_localize_ms": last_ms,
@@ -604,7 +615,7 @@ def odometry_chain(frames, gt, cfg, device):
     }, last
 
 
-def slam_run(cfg, world, rng, with_imu: bool, device, k1):
+def slam_run(cfg, world, rng, with_imu: bool, device, k1, fma):
     """eval_ate.py's ``eval_slam_loop`` on the card: the port's
     ``run_mapping_drive`` over 80 scans of a 10 m circle, drawing from
     ``rng``, with the pipeline's ``process_scan``, ``optimize`` and
@@ -645,6 +656,7 @@ def slam_run(cfg, world, rng, with_imu: bool, device, k1):
 
     start = time.perf_counter()
     k1.label_and_columns_cuda.launches = 0
+    fma.fma_f32_cuda.launches = 0
     plain = slam.MappingPipeline
     slam.MappingPipeline = TimedPipeline
     try:
@@ -658,6 +670,7 @@ def slam_run(cfg, world, rng, with_imu: bool, device, k1):
         slam.MappingPipeline = plain
     torch.cuda.synchronize()
     launches = k1.label_and_columns_cuda.launches
+    fma_launches = fma.fma_f32_cuda.launches
     wall = time.perf_counter() - start
     est = pipeline.trajectory
     n_kf = len(pipeline.keyframes)
@@ -665,7 +678,7 @@ def slam_run(cfg, world, rng, with_imu: bool, device, k1):
             else [float(b) for b in pipeline.imu_bias[0]])
     return {
         "scans": SLAM_SCANS, "k1_launches": launches,
-        "ate_rmse_m": ate_rmse(est, gt, align=False),
+        "fma_launches": fma_launches, "ate_rmse_m": ate_rmse(est, gt, align=False),
         "keyframes": n_kf,
         "loop_constraints": len(pipeline.constraints) - (n_kf - 1),
         "finite": bool(np.isfinite(est).all()) and (
@@ -1997,6 +2010,105 @@ def reference_phase(dev, k1) -> dict:
     return out
 
 
+def fma_operands(device):
+    """fma_f32's test operands on ``device``: ``FMA_RANDOM`` float32
+    triples of every magnitude (numpy seed 11), then edge cases: signed
+    zeros, subnormals, infinities, NaN, products that cancel the addend
+    exactly, and sums halfway between two floats."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    n = FMA_RANDOM
+    mags = np.float32(2.0) ** rng.integers(-40, 40, (3, n)).astype(np.float32)
+    a, b, c = np.float32(rng.normal(size=(3, n))) * mags
+    sub = np.float32(1e-40)
+    specials = np.float32([0.0, -0.0, sub, -sub, np.inf, -np.inf, np.nan,
+                           1.0, -1.0, 3.0, 1e30, -1e30, 1e-30])
+    sa, sb, sc = (g.ravel() for g in np.meshgrid(specials, specials,
+                                                  specials))
+    x = np.float32(rng.normal(size=1000))
+    y = np.float32(rng.normal(size=1000))
+    exact = np.float32(np.float32(2.0) ** rng.integers(-3, 4, 1000))
+    cancel_c = -(x * exact)                       # exact products cancel
+    half = np.float32(1.0 + 2.0 ** -23)           # 1 + ulp
+    a = np.concatenate([a, sa, x, np.full(1000, half, np.float32)])
+    b = np.concatenate([b, sb, exact, np.full(1000, half, np.float32)])
+    c = np.concatenate([c, sc, cancel_c, -y * np.float32(2.0 ** -40)])
+    return tuple(torch.as_tensor(v, device=device) for v in (a, b, c))
+
+
+def fma_phase(dev, fma) -> dict:
+    """fma_f32 against its plain version (``_xla_f32._fma_plain``) on the
+    card, bit for bit (NaN against NaN): the random and edge-case
+    triples of ``fma_operands``, then broadcast shapes (a Python float
+    ``a``, a [N, 1] against [N, 3], a strided view). The launches made
+    here are not counted for any main path."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
+    def differ(x, y):
+        same = (x.view(torch.int32) == y.view(torch.int32)) \
+            | (torch.isnan(x) & torch.isnan(y))
+        return int((~same).sum())
+
+    saved = fma.fma_f32_cuda.launches
+    a, b, c = fma_operands(dev)
+    got = fma.fma_f32_cuda(a, b, c)
+    want = xf._fma_plain(a, b, c)
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    out = {"elements": a.numel(), "differ": differ(got, want),
+           "max_abs_err": float((got - want)[finite].abs().max())}
+    m = 8192
+    u, v = b[:3 * m].view(m, 3), c[:3 * m].view(m, 3)
+    cases = {"scalar_a": (2.0, u, v), "column_a": (a[:m].view(m, 1), u, v),
+             "strided": (a[:6 * m:2].view(m, 3), u.t().contiguous().t(), v)}
+    for name, (x, y, z) in cases.items():
+        out[f"differ_{name}"] = differ(fma.fma_f32_cuda(x, y, z),
+                                       xf._fma_plain(x, y, z))
+    torch.cuda.synchronize()
+    fma.fma_f32_cuda.launches = saved
+    bad = {k: v for k, v in out.items() if k.startswith("differ") and v}
+    check(not bad, f"fma_f32: differs from its plain version: {bad}")
+    return out
+
+
+def fma_timing(dev, fma, bound_us, device_us_per_launch,
+               host_us_per_call) -> dict:
+    """fma_f32 timed on the card at 2^20 elements of one shape and at a
+    production row block's [8192, 3] with a broadcast ``a`` [8192, 1]:
+    device time per launch (profiler), host time per call, the plain
+    version's and ``torch.addcmul``'s time (CUDA events), and the bound
+    (16 bytes per element at the memory rate; 2 operations)."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
+    saved = fma.fma_f32_cuda.launches
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(12)
+    for name, shape_a, shape in (("1m", (1 << 20,), (1 << 20,)),
+                                 ("rows", (8192, 1), (8192, 3))):
+        a = torch.randn(shape_a, device=dev, generator=g)
+        b = torch.randn(shape, device=dev, generator=g)
+        c = torch.randn(shape, device=dev, generator=g)
+        n = b.numel()
+        nbytes = 4 * (a.numel() + 3 * n)
+        bound, by = bound_us(nbytes, 2 * n)
+        dev_us, seen = device_us_per_launch(
+            lambda: fma.fma_f32_cuda(a, b, c), "fma_f32_kernel",
+            FMA_LAUNCHES)
+        out[name] = {
+            "shape": list(shape), "device_us": dev_us,
+            "device_launches_seen": seen,
+            "host_us": host_us_per_call(lambda: fma.fma_f32_cuda(a, b, c)),
+            "plain_ms": time_ms(lambda: xf._fma_plain(a, b, c)),
+            "library_ms": time_ms(lambda: torch.addcmul(c, a, b)),
+            "addcmul_equal": bool(torch.equal(torch.addcmul(c, a, b),
+                                              fma.fma_f32_cuda(a, b, c))),
+            "bound_us": bound, "bound_by": by, "bytes": nbytes}
+    fma.fma_f32_cuda.launches = saved
+    return out
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -2030,7 +2142,9 @@ def main() -> int:
     from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
     from lidar_feature_extraction_tpu_torch.pipeline.localization import (
         localize_scan)
+    from lidar_feature_extraction_tpu_torch.ops import fma_cuda
     from k1_check import bound_us, check_and_time, k1_args, k1_work
+    import reference_cases as rc
 
     # Full float32 everywhere: the compaction einsum must copy points
     # exactly, which TF32 would not.
@@ -2046,14 +2160,25 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # 1. build
+    # 1. build: one nvcc per kernel source, started together.
+    from concurrent.futures import ThreadPoolExecutor
+
     start = time.perf_counter()
-    so = k1.build()
+    with ThreadPoolExecutor(2) as pool:
+        so, fma_so = [f.result() for f in (pool.submit(k1.build),
+                                           pool.submit(fma_cuda.build))]
     k1.load()
-    log = so.with_suffix(".log")
-    emit("build", seconds=time.perf_counter() - start, library=so.name)
-    if log.exists():
-        print(log.read_text().strip(), flush=True)
+    fma_cuda.load()
+    emit("build", seconds=time.perf_counter() - start, library=so.name,
+         fma_library=fma_so.name)
+    for lib in (so, fma_so):
+        log = lib.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip(), flush=True)
+
+    # fma_f32 against its plain version, bit for bit.
+    fma_check = fma_phase(dev, fma_cuda)
+    emit("fma_f32", **fma_check)
 
     # 2. scenes
     cfg = kitti_hdl64()
@@ -2074,6 +2199,7 @@ def main() -> int:
     # 3. localize: the main path, counted.
     chains = {}
     k1.label_and_columns_cuda.launches = 0
+    fma_cuda.fma_f32_cuda.launches = 0
     for scene, (maps, img) in (("bench", (bench_maps, bench_img)),
                                ("street", (street_maps, street_img))):
         for noisy in (False, True):
@@ -2081,10 +2207,15 @@ def main() -> int:
                                                   N_SCANS)
     torch.cuda.synchronize()
     launches = k1.label_and_columns_cuda.launches
+    fma_launches = fma_cuda.fma_f32_cuda.launches
     launches_by_phase = {"localize": launches}
+    fma_by_phase = {"localize": fma_launches}
     n_scans = sum(len(c) for c in chains.values())
     check(launches >= n_scans,
           f"localize: K1 launched {launches} times for {n_scans} scans")
+    check(fma_launches >= n_scans,
+          f"localize: fma_f32 launched {fma_launches} times for {n_scans} "
+          f"scans")
 
     valid = (gn.CONVERGED, gn.MAX_ITERATIONS, gn.ERROR_INCREASED,
              gn.SCALE_INCREASED)
@@ -2139,7 +2270,11 @@ def main() -> int:
         registration=dataclasses.replace(cfg.registration,
                                          refit_per_iteration=True))
     start = time.perf_counter()
-    edges, surfs, scans, gt, twists, world, rng = drive_inputs()
+    edges, surfs, scans, gt, twists, world, rng = rc.drive_inputs()
+    drive_arrays, drive_manifest = rc.load_drive()
+    check(rc.drive_inputs_sha256(edges, surfs, scans, gt, twists)
+          == drive_manifest["inputs_sha256"],
+          "drive: the worldsim draws differ from the drive record's inputs")
     scene_s = time.perf_counter() - start
     args = (torch.as_tensor(edges, dtype=torch.float32, device=dev),
             torch.ones(len(edges), dtype=torch.bool, device=dev),
@@ -2161,14 +2296,36 @@ def main() -> int:
     drive, last_scans, drive_poses = {}, {}, {}
     for name, c in (("production", cfg), ("faithful", faithful)):
         run, last_scans[name], drive_poses[name] = drive_run(
-            maps[name], c, scans, twists, gt, dev, k1)
+            maps[name], c, scans, twists, gt, dev, k1, fma_cuda)
         drive[name] = run
         limit = ATE_FACTOR * ATE_REFERENCE_M[name] + ATE_MARGIN_M
+        # Against the JAX package's drive record: every scan's gaps, and
+        # the held scans must have its status and iterations and
+        # positions within rc.DRIVE_T_ATOL.
+        poses = drive_poses[name]
+        got = {"status": np.int32(run["gn_status"]),
+               "iterations": np.int32(run["gn_iterations"]),
+               "measured_t": poses[:, 4:7], "fused_t": poses[:, 11:14]}
+        want = rc.drive_arrays(drive_arrays, name)
+        held = DRIVE_HELD_SCANS[name]
+        gaps_all = rc.drive_gaps(got, want, len(scans))
+        gaps = rc.drive_gaps(got, want, held)
         emit("drive", config=name, ate_limit_m=limit,
-             ate_reference_m=ATE_REFERENCE_M[name], **run)
+             ate_reference_m=ATE_REFERENCE_M[name],
+             record_ate_m=drive_manifest["drives"][name]["ate_rmse_m"],
+             record_held_scans=held, record_gaps_held=gaps,
+             record_gaps_all=gaps_all, **run)
+        check(gaps["first_scan_that_differs"] is None
+              and gaps["max_fused_t_gap_m"] <= rc.DRIVE_T_ATOL,
+              f"drive {name}: leaves the record at scan "
+              f"{gaps['first_scan_that_differs']} (gaps {gaps})")
         check(run["k1_launches"] >= run["scans"],
               f"drive {name}: K1 launched {run['k1_launches']} times for "
               f"{run['scans']} scans")
+        check(run["fma_launches"] >= run["scans"],
+              f"drive {name}: fma_f32 launched {run['fma_launches']} times "
+              f"for {run['scans']} scans")
+        fma_by_phase[f"drive {name}"] = run["fma_launches"]
         check(run["finite"], f"drive {name}: non-finite pose")
         check(run["ate_rmse_m"] <= limit,
               f"drive {name}: ATE {run['ate_rmse_m']} m above {limit} m")
@@ -2207,7 +2364,8 @@ def main() -> int:
     slam_runs, slam_ate = {}, {}
     slam_rng = copy.deepcopy(rng)   # the chunk phase draws slam_loop's scans
     for name, with_imu in (("slam_loop", False), ("slam_loop_imu", True)):
-        run, pipeline, pair = slam_run(cfg, world, rng, with_imu, dev, k1)
+        run, pipeline, pair = slam_run(cfg, world, rng, with_imu, dev, k1,
+                                       fma_cuda)
         slam_runs[name] = (pipeline, pair)
         slam_ate[name] = run["ate_rmse_m"]
         limit = ATE_FACTOR * SLAM_ATE_REFERENCE_M[name] + ATE_MARGIN_M
@@ -2217,6 +2375,10 @@ def main() -> int:
         check(run["k1_launches"] >= run["scans"],
               f"{name}: K1 launched {run['k1_launches']} times for "
               f"{run['scans']} scans")
+        check(run["fma_launches"] >= run["scans"],
+              f"{name}: fma_f32 launched {run['fma_launches']} times for "
+              f"{run['scans']} scans")
+        fma_by_phase[name] = run["fma_launches"]
         check(run["ate_rmse_m"] <= limit,
               f"{name}: ATE {run['ate_rmse_m']} m above {limit} m")
         check(abs(run["keyframes"] - SLAM_KEYFRAMES) <= SLAM_KEYFRAME_SLACK,
@@ -2273,7 +2435,7 @@ def main() -> int:
         ("surface", maps_again.surface.rec, first.surface.rec),
         ("fused", maps_again.fused, first.fused))}
     again, _, poses_again = drive_run(maps_again, cfg, scans, twists, gt, dev,
-                                      k1)
+                                      k1, fma_cuda)
     feats8 = extract_features(stack_range_images(
         [scan_range_image(*scans[b], cfg, dev) for b in range(8)]), ex)
     sites = scatter_sites_twice(args, first, cfg, feats8)
@@ -2547,7 +2709,13 @@ def main() -> int:
              call=call, device_idle_share=1.0 - prof["device_busy_ms"]
              / prof["profiled_wall_ms"], **prof)
 
+    from k1_check import device_us_per_launch, host_us_per_call
+    fma_times = fma_timing(dev, fma_cuda, bound_us, device_us_per_launch,
+                           host_us_per_call)
+    emit("fma_f32_timing", nvidia_smi=smi, **fma_times)
+
     bench = k1_runs["bench"]
+    fma_t = fma_times["1m"]
     print(json.dumps({"kernels": [{
         "name": "k1_label_and_columns", "route": "cuda",
         "source": K1_SOURCE, "replaces": K1_REPLACES,
@@ -2565,7 +2733,18 @@ def main() -> int:
         "shape": [R, P], "per_scan": k1_runs,
         "per_batch": {str(B): run for B, run in k1_batches.items()},
         "vlp16": {"shape": [v_ex.n_rings, v_ex.max_points_per_ring],
-                  "per_scan": k1_vlp16}}]}),
+                  "per_scan": k1_vlp16}}, {
+        "name": "fma_f32", "route": "cuda", "source": FMA_SOURCE,
+        "replaces": FMA_REPLACES,
+        "launches": sum(fma_by_phase.values()),
+        "launches_by_phase": fma_by_phase,
+        "max_abs_err": fma_check["max_abs_err"],
+        "ms": fma_t["device_us"] / 1e3, "plain_ms": fma_t["plain_ms"],
+        "bound_ms": fma_t["bound_us"] / 1e3, "bound_by": fma_t["bound_by"],
+        # torch.addcmul(c, a, b): one PyTorch call of a * b + c; it is
+        # used nowhere in the port.
+        "library_ms": fma_t["library_ms"],
+        "timed": fma_times, "check": fma_check}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,11 +33,15 @@ class Pose(NamedTuple):
         scan of a batch."""
         return quat.quat_rotate(self.q[..., None, :], p) + self.t[..., None, :]
 
+    def apply_fma(self, p: torch.Tensor) -> torch.Tensor:
+        """``apply`` with ``quat_rotate_fma``: the points of the
+        registration's residual rows and queries, as the reference's
+        jitted code computes them."""
+        return quat.quat_rotate_fma(self.q, p) + self.t
+
     def apply_each_fma(self, p: torch.Tensor) -> torch.Tensor:
-        """``apply_each`` with ``quat_rotate_fma``: the query points of
-        the kNN fits, as the reference's jitted code computes them."""
-        return (quat.quat_rotate_fma(self.q[..., None, :], p)
-                + self.t[..., None, :])
+        """``apply_each`` with ``quat_rotate_fma`` (``apply_fma``)."""
+        return Pose(self.q[..., None, :], self.t[..., None, :]).apply_fma(p)
 
     def compose(self, other: "Pose") -> "Pose":
         """``self @ other``: first apply ``other``, then ``self``."""

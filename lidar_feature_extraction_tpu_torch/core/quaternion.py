@@ -5,6 +5,8 @@ functions the localization step and the closed loop use. Conventions are the
 reference's: quaternions are ``[..., 4]`` in **wxyz** order, rotations
 act as ``R(q) p``, and ``drpdq`` is Sola eq. 174. Every function takes
 arbitrary leading batch dimensions, broadcast between its arguments.
+In float32 the transcendental functions are glibc's (``sinf``, ``cosf``,
+``atan2f``), which XLA:CPU calls (``core/_xla_f32.py``, ROADMAP §C20).
 """
 
 from __future__ import annotations
@@ -56,8 +58,13 @@ def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
                             device=q.device)
 
 
-def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
+def _norm(v: torch.Tensor, keepdim: bool = False,
+          plain: bool = False) -> torch.Tensor:
+    """Euclidean norm over the last axis, the square root correctly
+    rounded (``xf.sqrt``: the CPU build of torch is an ulp off on some
+    float32 inputs); ``plain``: ``torch.sqrt``."""
+    sqrt = torch.sqrt if plain else xf.sqrt
+    return sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -150,9 +157,9 @@ def right_multiplication_matrix(q: torch.Tensor) -> torch.Tensor:
 def rpy_to_quat(roll, pitch, yaw) -> torch.Tensor:
     """ZYX-composed roll/pitch/yaw tensors -> quaternion (qz * qy * qx)."""
     hr, hp, hy = roll * 0.5, pitch * 0.5, yaw * 0.5
-    cr, sr = torch.cos(hr), torch.sin(hr)
-    cp, sp = torch.cos(hp), torch.sin(hp)
-    cy, sy = torch.cos(hy), torch.sin(hy)
+    cr, sr = xf.cos(hr), xf.sin(hr)
+    cp, sp = xf.cos(hp), xf.sin(hp)
+    cy, sy = xf.cos(hy), xf.sin(hy)
     return torch.stack([
         cy * cp * cr + sy * sp * sr,
         cy * cp * sr - sy * sp * cr,
@@ -164,43 +171,54 @@ def rpy_to_quat(roll, pitch, yaw) -> torch.Tensor:
 def quat_yaw(q: torch.Tensor) -> torch.Tensor:
     """Yaw (rotation about +z) of a quaternion, batched."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
-    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return xf.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
 
 
-def exp_so3(theta: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+def exp_so3(theta: torch.Tensor, eps: float = 1e-8,
+            plain: bool = False) -> torch.Tensor:
     """Angle-axis vector [..., 3] -> unit quaternion (exponential map),
-    with the reference's small-angle branch as a ``where``."""
-    k = _norm(theta, keepdim=True)
+    with the reference's small-angle branch as a ``where``. ``plain``:
+    torch's ``sqrt``, ``sin`` and ``cos`` in place of the float32 forms,
+    for callers that batch or differentiate it with ``torch.func``."""
+    sin, cos = (torch.sin, torch.cos) if plain else (xf.sin, xf.cos)
+    k = _norm(theta, keepdim=True, plain=plain)
     small = k < eps
     ksafe = torch.where(small, torch.ones_like(k), k)
     half = ksafe * 0.5
-    sinc = torch.where(small, torch.full_like(k, 0.5), torch.sin(half) / ksafe)
+    sinc = torch.where(small, torch.full_like(k, 0.5), sin(half) / ksafe)
     w = torch.where(small[..., 0], torch.ones_like(k[..., 0]),
-                    torch.cos(half[..., 0]))
+                    cos(half[..., 0]))
     return torch.cat([w[..., None], theta * sinc], dim=-1)
 
 
-def log_so3(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+def log_so3(q: torch.Tensor, eps: float = 1e-8,
+            plain: bool = False) -> torch.Tensor:
     """Unit quaternion -> angle-axis vector (logarithmic map), taking
-    the w >= 0 branch."""
+    the w >= 0 branch. ``plain``: torch's ``sqrt`` and ``atan2``, as in
+    ``exp_so3``."""
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
     w = torch.clamp(q[..., 0], -1.0, 1.0)
-    vn = _norm(q[..., 1:])
-    angle = 2.0 * torch.atan2(vn, w)
+    vn = _norm(q[..., 1:], plain=plain)
+    angle = 2.0 * (torch.atan2 if plain else xf.atan2)(vn, w)
     scale = torch.where(vn < eps, torch.full_like(vn, 2.0),
                         angle / torch.clamp_min(vn, eps))
     return q[..., 1:] * scale[..., None]
 
 
 def drpdq(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Jacobian d(R(q) p)/dq, [..., 3, 4] (Sola eq. 174)."""
+    """Jacobian d(R(q) p)/dq, [..., 3, 4] (Sola eq. 174), as the
+    reference's jitted residual rows compute it in float32 (ROADMAP
+    §C20): ``col0 = fma(w, p, v x p)`` with the cross product of
+    ``xf.cross``, ``v . p`` an in-order chain, and the right block
+    ``(v.p) I + v p^T`` (the diagonal added exactly), then
+    ``- p v^T`` and ``- w Hat(p)`` each fused into the running value.
+    Other dtypes round each operation."""
     w = q[..., :1]
     v = q[..., 1:]
-    col0 = w * p + _cross(v, p)                          # [..., 3]
-    vdotp = torch.sum(v * p, dim=-1, keepdim=True)       # [..., 1]
+    col0 = xf.fma(w, p, xf.cross(v, p))                  # [..., 3]
+    vdotp = xf.dot(v, p, keepdim=True)                   # [..., 1]
     eye = torch.eye(3, dtype=q.dtype, device=q.device)
-    right = (vdotp[..., None] * eye
-             + v[..., :, None] * p[..., None, :]
-             - p[..., :, None] * v[..., None, :]
-             - w[..., None] * hat(p))
+    right = vdotp[..., None] * eye + v[..., :, None] * p[..., None, :]
+    right = xf.fma(-p[..., :, None], v[..., None, :], right)
+    right = xf.fma(-w[..., None], hat(p), right)
     return 2.0 * torch.cat([col0[..., :, None], right], dim=-1)

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
 # 1 / norm.ppf(3/4): consistent-estimator factor for MAD -> stddev.
 MAD_CONSISTENCY = 1.482602218505602
 
@@ -70,13 +72,15 @@ def _wide_median(values: torch.Tensor, mask: torch.Tensor,
     below_ok = mask[..., :, None]
     for _ in range(rounds):
         w = (hi - lo) / branch
-        t = lo[..., None] + w[..., None] * steps            # [..., branch]
+        # lo + w * k, fused as the reference's jitted code fuses it
+        # (ROADMAP §C20)
+        t = xf.fma(w[..., None], steps, lo[..., None])     # [..., branch]
         below = torch.sum((values[..., :, None] <= t[..., None, :])
                           & below_ok, dim=-2, dtype=torch.int32)
         j = torch.clamp_max(torch.sum(below < half[..., None], dim=-1,
                                       dtype=torch.int32),
                             branch - 1).to(dtype)
-        lo, hi = lo + w * j, lo + w * (j + 1)
+        lo, hi = xf.fma(w, j, lo), xf.fma(w, j + 1, lo)
     med = 0.5 * (lo + hi)
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 

@@ -12,7 +12,6 @@ from __future__ import annotations
 import torch
 
 from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
-from lidar_feature_extraction_tpu_torch.core.quaternion import _cross
 
 
 def eigh3x3(a: torch.Tensor, eps: float = 1e-30):
@@ -20,70 +19,89 @@ def eigh3x3(a: torch.Tensor, eps: float = 1e-30):
 
     Returns ``(w [..., 3], v [..., 3, 3])`` with ``v[..., :, k]`` the unit
     eigenvector of ``w[..., k]``.
-    """
+
+    In float32 the steps take the forms of the reference's jitted map
+    build (ROADMAP §C20), those of ``principal_axis3x3`` and: the
+    smallest eigenvalue ``trace/3 + 2 p cos(phi + 2 pi/3)`` with
+    ``arccos(r)/3 + 2 pi/3`` fused; ``v0 - (v0 . v2) v2`` and the dot
+    products as ``fma`` chains; ``v2 x v0`` as ``xf.cross``. The
+    returned eigenvalues, which no map record holds, take the forms of
+    the jitted function alone: ``fma(2p, cos, q)``, the middle one
+    ``trace - w0 - w2``. The near-isotropic test stays unfused. Other
+    dtypes round each operation."""
     dtype, dev = a.dtype, a.device
-    q = (a[..., 0, 0] + a[..., 1, 1] + a[..., 2, 2]) / 3.0
-    a00 = a[..., 0, 0] - q
-    a11 = a[..., 1, 1] - q
-    a22 = a[..., 2, 2] - q
+    a00, a11, a22 = a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]
     a01, a02, a12 = a[..., 0, 1], a[..., 0, 2], a[..., 1, 2]
 
-    p2 = (a00 * a00 + a11 * a11 + a22 * a22
-          + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12))
-    p = torch.sqrt(torch.clamp_min(p2 / 6.0, eps))
+    def last(*v):
+        return torch.stack(v, dim=-1)
 
-    # det(B) where B = (A - q I) / p
-    b00, b11, b22 = a00 / p, a11 / p, a22 / p
-    b01, b02, b12 = a01 / p, a02 / p, a12 / p
-    detb = (b00 * (b11 * b22 - b12 * b12)
-            - b01 * (b01 * b22 - b12 * b02)
-            + b02 * (b01 * b12 - b11 * b02))
-    r = torch.clamp(detb / 2.0, -1.0, 1.0)
-    phi = torch.acos(r) / 3.0
+    tr = (a00 + a11) + a22
+    q = xf.div_const(tr, 3.0)
+    s00, s11, s22 = xf.div_add(-tr[..., None], 3.0,
+                               last(a00, a11, a22)).unbind(-1)
+    x0, x1, x2 = last(s00, a01), last(s11, a02), last(s22, a12)
+    diag, off = xf.fma(x2, x2, xf.fma(x0, x0, x1 * x1)).unbind(-1)
+    p2 = xf.fma(2.0, off, diag)
+    p = xf.sqrt(torch.clamp_min(xf.div_const(p2, 6.0), eps))
 
+    # det(B) / 2 where B = (A - q I) / p
+    b00, b11, b22, b01, b02, b12 = (
+        last(s00, s11, s22, a01, a02, a12) / p[..., None]).unbind(-1)
+    m0, m1, m2 = xf.fms(last(b22, b22, b12), last(b11, b01, b01),
+                        last(b12, b12, b11), last(b12, b02, b02)).unbind(-1)
+    detb = xf.fma(b02, m2, xf.fms(b00, m0, b01, m1))
+    acos = xf.acos(torch.clamp(detb * 0.5, -1.0, 1.0))
+
+    # The largest and smallest eigenvalues: q + 2 p cos(phi) and
+    # q + 2 p cos(phi + 2 pi/3), phi = arccos(r) / 3. The eigenvectors are
+    # found from them as the map build fuses them (lam), the returned
+    # eigenvalues as a lone jit of this function does (w).
     two_pi_3 = 2.0943951023931953
-    w2 = q + 2.0 * p * torch.cos(phi)                  # largest
-    w0 = q + 2.0 * p * torch.cos(phi + two_pi_3)       # smallest
-    w1 = 3.0 * q - w0 - w2
+    phi = xf.div_const(acos, 3.0)
+    cos2 = xf.cos(phi)
+    cos0 = xf.cos(xf.div_add(acos, 3.0, torch.full_like(acos, two_pi_3)))
+    lam = xf.div_add(tr[..., None], 3.0,
+                     (2.0 * p)[..., None] * last(cos2, cos0))
+    w2 = xf.fma(2.0 * p, cos2, q)
+    w0 = xf.fma(2.0 * p, xf.cos(phi + two_pi_3), q)
+    w1 = ((tr if xf._float32(tr) else 3.0 * q) - w0) - w2
     w = torch.stack([w0, w1, w2], dim=-1)
 
     # Near-isotropic matrices: all eigenvalues q, identity basis.
     iso = p2 < (1e-12 * q * q + 1e-30)
 
-    def eigenvector(lam):
-        """Unit eigenvector for eigenvalue lam via the largest cross
-        product of rows of (A - lam I)."""
-        r0 = torch.stack([a[..., 0, 0] - lam, a01, a02], dim=-1)
-        r1 = torch.stack([a01, a[..., 1, 1] - lam, a12], dim=-1)
-        r2 = torch.stack([a02, a12, a[..., 2, 2] - lam], dim=-1)
-        c01 = _cross(r0, r1)
-        c02 = _cross(r0, r2)
-        c12 = _cross(r1, r2)
-        n01 = torch.sum(c01 * c01, dim=-1, keepdim=True)
-        n02 = torch.sum(c02 * c02, dim=-1, keepdim=True)
-        n12 = torch.sum(c12 * c12, dim=-1, keepdim=True)
-        best = torch.where(n01 >= torch.maximum(n02, n12), c01,
-                           torch.where(n02 >= n12, c02, c12))
-        norm = torch.sqrt(torch.clamp_min(
-            torch.sum(best * best, dim=-1, keepdim=True), eps))
-        return best / norm
+    # Unit eigenvectors of w2 and w0 (stacked), each the largest cross
+    # product of two rows of (A - lam I).
+    e01, e02, e12 = (v[..., None].expand_as(lam) for v in (a01, a02, a12))
+    r0 = last(a00[..., None] - lam, e01, e02)
+    r1 = last(e01, a11[..., None] - lam, e12)
+    r2 = last(e02, e12, a22[..., None] - lam)
+    c = xf.cross(torch.stack([r0, r0, r1], dim=-2),
+                 torch.stack([r1, r2, r2], dim=-2))
+    n01, n02, n12 = xf.sum_squares(c, keepdim=True).unbind(-2)
+    c01, c02, c12 = c.unbind(-2)
+    best = torch.where(n01 >= torch.maximum(n02, n12), c01,
+                       torch.where(n02 >= n12, c02, c12))
+    best = best / xf.sqrt(torch.clamp_min(
+        xf.sum_squares(best, keepdim=True), eps))
+    v2, v0 = best.unbind(-2)
 
-    v2 = eigenvector(w2)
-    v0 = eigenvector(w0)
     # Orthogonalize v0 against v2; when the two smallest eigenvalues
     # coincide, fall back to a unit vector orthogonal to v2.
-    v0 = v0 - torch.sum(v0 * v2, dim=-1, keepdim=True) * v2
-    v0sq = torch.sum(v0 * v0, dim=-1, keepdim=True)
+    v0 = xf.fma(-xf.dot(v0, v2, keepdim=True), v2, v0)
+    v0sq = xf.dot(v0, v0, keepdim=True)
     pick_x = torch.abs(v2[..., 0:1]) < 0.9
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev)
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
-    fallback = _cross(torch.where(pick_x, ex, ey), v2)
-    fallback = fallback / torch.sqrt(torch.clamp_min(
-        torch.sum(fallback * fallback, dim=-1, keepdim=True), eps))
+    ex = torch.zeros_like(v2)     # made on the device: no copy from the host
+    ex[..., 0] = 1.0
+    ey = torch.roll(ex, 1, -1)
+    ez = torch.roll(ex, 2, -1)
+    fallback = xf.cross(torch.where(pick_x, ex, ey), v2)
+    fallback = fallback / xf.sqrt(torch.clamp_min(
+        xf.sum_squares(fallback, keepdim=True), eps))
     v0 = torch.where(v0sq < 1e-12, fallback,
-                     v0 / torch.sqrt(torch.clamp_min(v0sq, eps)))
-    v1 = _cross(v2, v0)
+                     v0 / xf.sqrt(torch.clamp_min(v0sq, eps)))
+    v1 = xf.cross(v2, v0)
 
     iso_b = iso[..., None]
     v0 = torch.where(iso_b, ex, v0)
@@ -103,9 +121,9 @@ def principal_axis3x3(a: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     as products with float32 reciprocals, fused into the shift
     ``a_ii - trace/3`` and into the eigenvalue ``trace/3 + 2 p cos(phi)``;
     the sums of squares and every cross product and 2x2 minor as
-    ``fma``s; ``arccos`` and ``cos`` rounded from float64 (``xf.acos``,
-    ``xf.cos``: the one step whose float32 bits can differ from the
-    reference's). Other dtypes: ``eigh3x3``'s arithmetic, bit for bit.
+    ``fma``s; ``arccos`` and ``cos`` as XLA:CPU computes them
+    (``xf.acos``, ``xf.cos``: glibc's ``atan2f`` and ``cosf``). Other
+    dtypes: ``eigh3x3``'s arithmetic, bit for bit.
     The near-isotropic test keeps its unfused threshold."""
     a00, a11, a22 = a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]
     a01, a02, a12 = a[..., 0, 1], a[..., 0, 2], a[..., 1, 2]

@@ -37,7 +37,7 @@ import torch
 
 from lidar_feature_extraction_tpu_torch.config import ExtractionConfig
 from lidar_feature_extraction_tpu_torch.core._xla_f32 import (
-    fma as _fma, sqrt as _sqrt)
+    _fma_plain as _fma, sqrt as _sqrt)
 from lidar_feature_extraction_tpu_torch.core.scan import RangeImage
 
 # Label codes — parity with the reference's PointLabel enum.

@@ -76,23 +76,25 @@ def _nvcc() -> str:
         or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: K1 cannot be built")
+        raise RuntimeError("nvcc not found: no kernel can be built")
     return path
 
 
-def build() -> Path:
-    """Compile K1 unless the library for this source and these flags
-    exists (it is named by their hash). The compiler's output
-    (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
-    library as ``.log``. Raises on failure."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libextraction_k1_{digest[:16]}.so"
+def build_library(sources, flags, stem: str, key: str = "") -> Path:
+    """Compile ``sources`` (one path or several) with ``nvcc flags`` into
+    ``build/kernels/`` unless the library for these sources, flags and
+    ``key`` exists (it is named ``lib<stem>_<hash>.so`` by their hash).
+    The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside the library as ``.log``. Raises on failure."""
+    sources = [sources] if isinstance(sources, Path) else list(sources)
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in sources)
+                            + (" ".join(flags) + key).encode()).hexdigest()
+    so = BUILD_DIR / f"lib{stem}_{digest[:16]}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
@@ -100,6 +102,11 @@ def build() -> Path:
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def build() -> Path:
+    """Compile K1 (``build_library``) unless it is built."""
+    return build_library(SOURCE, NVCC_FLAGS, "extraction_k1")
 
 
 class _Library:

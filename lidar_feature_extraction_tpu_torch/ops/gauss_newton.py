@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core import stats
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
@@ -96,7 +97,7 @@ def make_problem(blocks) -> Problem:
         *lead, n, d, _ = b.jacobian.shape
         jacs.append(b.jacobian.reshape(*lead, n * d, 7))
         ress.append(b.residual.reshape(*lead, n * d))
-        errs.append(torch.sum(b.residual * b.residual, dim=-1))
+        errs.append(xf.sum_squares(b.residual))
         valids.append(b.valid)
         shape.append((n, d))
     return Problem(jac_rows=torch.cat(jacs, dim=-2),

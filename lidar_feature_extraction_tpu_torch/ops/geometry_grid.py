@@ -17,7 +17,11 @@ Registration then needs one 8-float record gather per scan point per
 Gauss-Newton iteration (``fused_rows_from_grids``, or one grid at a
 time: ``edge_rows_from_grid`` / ``surface_rows_from_grid``). On the card
 the scatter-add sums each voxel's points in a fixed order
-(``ops/scatter.py``): the same bits every run, though not the CPU's.
+(``ops/scatter.py``): the same bits every run, though not necessarily
+the CPU's. In float32 the records and the rows take the fused forms of
+the reference's jitted map build and residual rows
+(``core/_xla_f32.py``; ROADMAP §C20), so on the CPU they equal its
+bits.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.ops.eig3 import eigh3x3
@@ -63,24 +68,29 @@ def _point_moments(y: torch.Tensor) -> torch.Tensor:
                         x1 * x1, x1 * x2, x2 * x2], dim=-1)
 
 
-def _translate_moments(m: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """Parallel-axis translation: moments of (y + o) from moments of y.
-    ``o`` [3] broadcasts against m's batch shape."""
-    n = m[..., 0:1]
-    s = m[..., 1:4]
-    o = torch.broadcast_to(o, s.shape)
-    s_new = s + n * o
-    sxx = m[..., 4] + 2 * s[..., 0] * o[..., 0] + n[..., 0] * o[..., 0] ** 2
-    sxy = (m[..., 5] + s[..., 0] * o[..., 1] + s[..., 1] * o[..., 0]
-           + n[..., 0] * o[..., 0] * o[..., 1])
-    sxz = (m[..., 6] + s[..., 0] * o[..., 2] + s[..., 2] * o[..., 0]
-           + n[..., 0] * o[..., 0] * o[..., 2])
-    syy = m[..., 7] + 2 * s[..., 1] * o[..., 1] + n[..., 0] * o[..., 1] ** 2
-    syz = (m[..., 8] + s[..., 1] * o[..., 2] + s[..., 2] * o[..., 1]
-           + n[..., 0] * o[..., 1] * o[..., 2])
-    szz = m[..., 9] + 2 * s[..., 2] * o[..., 2] + n[..., 0] * o[..., 2] ** 2
-    return torch.cat([n, s_new, torch.stack([sxx, sxy, sxz, syy, syz, szz],
-                                            dim=-1)], dim=-1)
+# The second moments' columns in a [..., 10] moment row, by (i, j).
+_SECOND = {(0, 0): 4, (0, 1): 5, (0, 2): 6, (1, 1): 7, (1, 2): 8, (2, 2): 9}
+
+
+def _translate_moments(m: torch.Tensor, axis: int,
+                       o: torch.Tensor) -> torch.Tensor:
+    """Parallel-axis translation along one axis: moments of
+    (y + o e_axis) from moments of y, ``o`` a scalar tensor. The sum
+    moves by n o; a second moment S_ij by s_i o_j + s_j o_i + n o_i o_j,
+    which leaves the entries off the axis unchanged. In float32 each
+    product is fused into the sum it feeds, as in the reference's jitted
+    map build: ``fma(n, o, s_a)``, ``fma(n, o^2, fma(2 o, s_a, S_aa))``
+    and ``fma(o, s_i, S_ai)`` (ROADMAP §C20)."""
+    n = m[..., 0]
+    s = list(m[..., 1:4].unbind(-1))
+    cols = list(m.unbind(-1))
+    cols[1 + axis] = xf.fma(o, n, s[axis])
+    for (i, j), c in _SECOND.items():
+        if i == j == axis:
+            cols[c] = xf.fma(o * o, n, xf.fma(2.0 * o, s[axis], cols[c]))
+        elif axis in (i, j):
+            cols[c] = xf.fma(o, s[j if i == axis else i], cols[c])
+    return torch.stack(cols, dim=-1)
 
 
 def voxel_moments(xyz: torch.Tensor, mask: torch.Tensor, voxel_size,
@@ -98,7 +108,7 @@ def voxel_moments(xyz: torch.Tensor, mask: torch.Tensor, voxel_size,
     c = _cell_of(xyz, voxel_size, origin)
     cell = _ravel(c, dims)
     cell = torch.where(mask, cell, torch.full_like(cell, capacity))
-    center = origin + (c.to(dtype) + 0.5) * voxel_size
+    center = xf.fma(voxel_size, c.to(dtype) + 0.5, origin)
     feats = _point_moments(xyz - center)
     feats = torch.where(mask[:, None], feats, 0.0)
     if weight is not None:
@@ -158,11 +168,9 @@ def neighborhood_moments(m: torch.Tensor, dims: tuple[int, int, int],
     g = m.reshape(nx, ny, nz, 10)
     h = torch.as_tensor(voxel_size, dtype=m.dtype, device=m.device)
     for axis in range(3):
-        e = torch.zeros(3, dtype=m.dtype, device=m.device)
-        e[axis] = h
         g = (g
-             + _translate_moments(_shift(g, axis, +1), e)
-             + _translate_moments(_shift(g, axis, -1), -e))
+             + _translate_moments(_shift(g, axis, +1), axis, h)
+             + _translate_moments(_shift(g, axis, -1), axis, -h))
     return g.reshape(-1, 10)
 
 
@@ -174,9 +182,9 @@ def _voxel_centers(dims: tuple[int, int, int], voxel_size, origin,
     cy = (idx // nz) % ny
     cz = idx % nz
     c = torch.stack([cx, cy, cz], dim=-1).to(dtype)
-    return (torch.as_tensor(origin, dtype=dtype, device=device)
-            + (c + 0.5) * torch.as_tensor(voxel_size, dtype=dtype,
-                                          device=device))
+    return xf.fma(torch.as_tensor(voxel_size, dtype=dtype, device=device),
+                  c + 0.5, torch.as_tensor(origin, dtype=dtype,
+                                           device=device))
 
 
 def _mean_cov(m: torch.Tensor):
@@ -189,7 +197,7 @@ def _mean_cov(m: torch.Tensor):
         torch.stack([m[..., 5], m[..., 7], m[..., 8]], dim=-1),
         torch.stack([m[..., 6], m[..., 8], m[..., 9]], dim=-1),
     ], dim=-2)
-    cov = s2 / n[..., None, None] - mu[..., :, None] * mu[..., None, :]
+    cov = xf.fma(-mu[..., :, None], mu[..., None, :], s2 / n[..., None, None])
     return m[..., 0], mu, cov
 
 
@@ -218,7 +226,7 @@ def surface_records_from_moments(m: torch.Tensor, dims, voxel_size,
     u = evecs[..., :, 0]                        # smallest eigenvalue axis
     centers = _voxel_centers(dims, voxel_size, origin, m.dtype, m.device)
     p0 = centers + mu
-    b = torch.sum(u * p0, dim=-1, keepdim=True)
+    b = xf.dot(u, p0, keepdim=True)
     rec = torch.cat([u, b, n[:, None],
                      torch.zeros((u.shape[0], 3), dtype=m.dtype,
                                  device=m.device)], dim=-1)
@@ -282,8 +290,8 @@ def fused_rows_from_grids(edge_grid: GeometryGrid,
 
     # One pose per lane, broadcast over that lane's points.
     pose = Pose(pose.q[..., None, :], pose.t[..., None, :])
-    pe = pose.apply(edge_pts)
-    ps = pose.apply(surf_pts)
+    pe = pose.apply_fma(edge_pts)
+    ps = pose.apply_fma(surf_pts)
     cells_e = _ravel(_cell_of(pe, edge_grid.voxel_size, edge_grid.origin),
                      edge_grid.dims)
     cells_s = _ravel(_cell_of(ps, surf_grid.voxel_size, surf_grid.origin),
@@ -303,8 +311,8 @@ def fused_rows_from_grids(edge_grid: GeometryGrid,
     p1, p2 = m - v, m + v
     khat = quat.hat(p2 - p1)
     dr_e = quat.drpdq(pose.q.expand(edge_pts.shape[:-1] + (4,)), edge_pts)
-    jac_e = torch.cat([khat @ dr_e, khat], dim=-1)
-    res_e = quat._cross(pe - p1, pe - p2)
+    jac_e = torch.cat([xf.matmul(khat, dr_e), khat], dim=-1)
+    res_e = xf.cross(pe - p1, pe - p2)
     ok_e = edge_valid & in_e & (cnt_e >= min_points)
     oef = ok_e[..., None]
     eb = ResidualBlock(jacobian=torch.where(oef[..., None], jac_e, 0.0),
@@ -313,9 +321,9 @@ def fused_rows_from_grids(edge_grid: GeometryGrid,
     # Surface rows: residual u . p - b, Jacobian [u^T DRpDq | u^T].
     u, b, cnt_s = rec_s[..., 0:3], rec_s[..., 3], rec_s[..., 4]
     dr_s = quat.drpdq(pose.q.expand(surf_pts.shape[:-1] + (4,)), surf_pts)
-    ju = torch.einsum("...i,...ij->...j", u, dr_s)
+    ju = xf.vecmat(u, dr_s)
     jac_s = torch.cat([ju, u], dim=-1)[..., None, :]
-    res_s = (torch.sum(u * ps, dim=-1) - b)[..., None]
+    res_s = (xf.dot(u, ps) - b)[..., None]
     ok_s = surf_valid & in_s & (cnt_s >= min_points)
     osf = ok_s[..., None]
     sb = ResidualBlock(jacobian=torch.where(osf[..., None], jac_s, 0.0),
@@ -333,14 +341,14 @@ def edge_rows_from_grid(grid: GeometryGrid, scan_pts, scan_valid,
                         pose: Pose, min_points: int) -> ResidualBlock:
     """Point-to-line rows with one record gather from one grid: residual
     (p - p1) x (p - p2), Jacobian [Hat(p2 - p1) DRpDq | Hat(p2 - p1)]."""
-    p_map = pose.apply(scan_pts)
+    p_map = pose.apply_fma(scan_pts)
     rec, in_grid = gather_records(grid, p_map)
     m, v, cnt = rec[..., 0:3], rec[..., 3:6], rec[..., 6]
     p1, p2 = m - v, m + v
     khat = quat.hat(p2 - p1)
     dr = quat.drpdq(pose.q.expand(scan_pts.shape[:-1] + (4,)), scan_pts)
-    jac = torch.cat([khat @ dr, khat], dim=-1)
-    res = quat._cross(p_map - p1, p_map - p2)
+    jac = torch.cat([xf.matmul(khat, dr), khat], dim=-1)
+    res = xf.cross(p_map - p1, p_map - p2)
     return _block(jac, res, scan_valid & in_grid & (cnt >= min_points))
 
 
@@ -348,11 +356,11 @@ def surface_rows_from_grid(grid: GeometryGrid, scan_pts, scan_valid,
                            pose: Pose, min_points: int) -> ResidualBlock:
     """Point-to-plane rows with one record gather from one grid: residual
     u . p - b, Jacobian [u^T DRpDq | u^T]."""
-    p_map = pose.apply(scan_pts)
+    p_map = pose.apply_fma(scan_pts)
     rec, in_grid = gather_records(grid, p_map)
     u, b, cnt = rec[..., 0:3], rec[..., 3], rec[..., 4]
     dr = quat.drpdq(pose.q.expand(scan_pts.shape[:-1] + (4,)), scan_pts)
-    ju = torch.einsum("...i,...ij->...j", u, dr)
+    ju = xf.vecmat(u, dr)
     jac = torch.cat([ju, u], dim=-1)[..., None, :]
-    res = (torch.sum(u * p_map, dim=-1) - b)[..., None]
+    res = (xf.dot(u, p_map) - b)[..., None]
     return _block(jac, res, scan_valid & in_grid & (cnt >= min_points))

@@ -111,13 +111,9 @@ def edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                              pose: Pose, min_neighbors: int
                              ) -> ResidualBlock:
     """Linearize point-to-line residuals given the k neighbourhoods."""
-    p_map = pose.apply_each(scan_pts)
     p1, p2 = _principal_line(nbrs, nvalid)
-    khat = quat.hat(p2 - p1)                           # [N, 3, 3]
-    jac = torch.cat([khat @ _drpdq_rows(pose, scan_pts), khat], dim=-1)
-    res = quat._cross(p_map - p1, p_map - p2)          # [N, 3]
-    return _masked_block(jac, res, _enough(scan_valid, nvalid,
-                                           min_neighbors))
+    return _edge_block(p1, p2, quat.hat(p2 - p1), scan_pts, pose,
+                       _enough(scan_valid, nvalid, min_neighbors))
 
 
 def fit_plane(nbrs: torch.Tensor, valid: torch.Tensor,
@@ -138,11 +134,25 @@ def _unit_normal(w):
     return w / torch.clamp_min(wnorm, 1e-12), wnorm
 
 
+def _edge_block(p1, p2, khat, scan_pts, pose: Pose, ok) -> ResidualBlock:
+    """Point-to-line rows at ``pose``: residual (p - p1) x (p - p2),
+    Jacobian [Hat(p2 - p1) DRpDq | Hat(p2 - p1)], in the float32 forms
+    of the reference's jitted rows (ROADMAP §C20)."""
+    p_map = pose.apply_each_fma(scan_pts)
+    jac = torch.cat([xf.matmul(khat, _drpdq_rows(pose, scan_pts)), khat],
+                    dim=-1)                            # [N, 3, 7]
+    res = xf.cross(p_map - p1, p_map - p2)             # [N, 3]
+    return _masked_block(jac, res, ok)
+
+
 def _surface_block(w, u, wnorm, scan_pts, pose: Pose, ok) -> ResidualBlock:
-    p_map = pose.apply_each(scan_pts)
-    ju = torch.einsum("...i,...ij->...j", u, _drpdq_rows(pose, scan_pts))
+    """Point-to-plane rows at ``pose``: residual (w . p + 1) / |w|,
+    Jacobian [u^T DRpDq | u^T], in the float32 forms of the reference's
+    jitted rows (ROADMAP §C20)."""
+    p_map = pose.apply_each_fma(scan_pts)
+    ju = xf.vecmat(u, _drpdq_rows(pose, scan_pts))
     jac = torch.cat([ju, u], dim=-1)[..., None, :]     # [N, 1, 7]
-    res = ((torch.sum(w * p_map, dim=-1, keepdim=True) + 1.0)
+    res = ((xf.dot(w, p_map, keepdim=True) + 1.0)
            / torch.clamp_min(wnorm, 1e-12))            # [N, 1]
     return _masked_block(jac, res, ok)
 
@@ -201,11 +211,8 @@ def fit_surface_geometry(cand, cand_ok, scan_pts, scan_valid, pose: Pose,
 def edge_rows_from_geometry(geom: EdgeGeometry, scan_pts,
                             pose: Pose) -> ResidualBlock:
     """Pose-dependent half of the edge linearization (inner GN loop)."""
-    p_map = pose.apply_each(scan_pts)
-    jac = torch.cat([geom.khat @ _drpdq_rows(pose, scan_pts), geom.khat],
-                    dim=-1)
-    res = quat._cross(p_map - geom.p1, p_map - geom.p2)
-    return _masked_block(jac, res, geom.valid)
+    return _edge_block(geom.p1, geom.p2, geom.khat, scan_pts, pose,
+                       geom.valid)
 
 
 def surface_rows_from_geometry(geom: SurfaceGeometry, scan_pts,

@@ -5,7 +5,8 @@ a process group.
 Port of ``lidar_feature_extraction_tpu/parallel/imu_graph.py``. Both
 factor families are linearized with ``torch.func.jacfwd`` under
 ``torch.func.vmap`` and reduced to dense [9K, 9K] normal equations as in
-``pose_graph.py``. With ``group=`` (the reference's ``axis_name``) each
+``pose_graph.py``, with the same plain exponential and logarithmic
+maps (``plain=True``). With ``group=`` (the reference's ``axis_name``) each
 rank holds the graph whole and its shard of the factors and constraints
 (each IMU factor on the same rank as the chain constraint over its
 pair), and the sums are ``all_reduce``d where the reference ``psum``s:
@@ -77,7 +78,8 @@ def imu_residual_9(qi, ti, vi, qj, tj, vj, dq, dv, dp, dt, gravity=GRAVITY):
     gravity = torch.as_tensor(gravity, dtype=ti.dtype, device=ti.device)
     qi_inv = quat.quat_conjugate(qi)
     rel_q = quat.quat_multiply(qi_inv, qj)
-    r_theta = quat.log_so3(quat.quat_multiply(quat.quat_conjugate(dq), rel_q))
+    r_theta = quat.log_so3(quat.quat_multiply(quat.quat_conjugate(dq), rel_q),
+                           plain=True)
     r_v = quat.quat_rotate(qi_inv, vj - vi - gravity * dt) - dv
     r_p = quat.quat_rotate(
         qi_inv, tj - ti - vi * dt - 0.5 * gravity * dt * dt) - dp
@@ -86,7 +88,7 @@ def imu_residual_9(qi, ti, vi, qj, tj, vj, dq, dv, dp, dt, gravity=GRAVITY):
 
 def _perturb9(q, t, v, xi):
     """Right perturbation of a 9-dim state: (dtheta, dt_local, dv)."""
-    return (quat.quat_multiply(q, quat.exp_so3(xi[:3])),
+    return (quat.quat_multiply(q, quat.exp_so3(xi[:3], plain=True)),
             t + quat.quat_rotate(q, xi[3:6]), v + xi[6:9])
 
 
@@ -137,8 +139,9 @@ def fold_bias_into_factors(imu: ImuFactors, dbg, dba) -> ImuFactors:
     """Move the factors' linearization point by (dbg, dba) through the
     stored first-order Jacobians (re-linearization without
     re-integration); the Jacobians are kept for further shifts."""
+    dtheta = torch.einsum("mij,j->mi", imu.dq_dbg, dbg)
     dq2 = quat.quat_normalize(quat.quat_multiply(
-        imu.dq, quat.exp_so3(torch.einsum("mij,j->mi", imu.dq_dbg, dbg))))
+        imu.dq, quat.exp_so3(dtheta, plain=True)))
     dv2 = imu.dv + torch.einsum("mij,j->mi", imu.dv_dbg, dbg) \
         + torch.einsum("mij,j->mi", imu.dv_dba, dba)
     dp2 = imu.dp + torch.einsum("mij,j->mi", imu.dp_dbg, dbg) \
@@ -147,8 +150,9 @@ def fold_bias_into_factors(imu: ImuFactors, dbg, dba) -> ImuFactors:
 
 
 def _bias_residual(dq, j_dbg, z, bg):
-    dq_b = quat.quat_multiply(dq, quat.exp_so3(j_dbg @ bg))
-    return quat.log_so3(quat.quat_multiply(quat.quat_conjugate(dq_b), z))
+    dq_b = quat.quat_multiply(dq, quat.exp_so3(j_dbg @ bg, plain=True))
+    return quat.log_so3(quat.quat_multiply(quat.quat_conjugate(dq_b), z),
+                        plain=True)
 
 
 def _bias_linearize_one(dq, j_dbg, z, bg):
@@ -301,7 +305,7 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
         dx = -torch.linalg.solve_ex(hn, g / d)[0] / d
 
         xi = dx.reshape(k, 9)
-        dq = quat.exp_so3(xi[:, :3])
+        dq = quat.exp_so3(xi[:, :3], plain=True)
         cand = ImuGraph(
             poses_q=quat.quat_normalize(quat.quat_multiply(graph.poses_q,
                                                            dq)),

@@ -9,7 +9,11 @@ r = log(Z_ij^-1 (T_i^-1 T_j)) in R^6 (rotation, local translation);
 its Jacobians with respect to right tangent perturbations of T_i and T_j
 are ``torch.func.jacfwd`` at zero under ``torch.func.vmap``, the
 reference's ``jax.vmap(jax.jacfwd(...))``, cast back to the state's
-dtype (``_jac``). The 6x6 blocks scatter into the normal equations, and
+dtype (``_jac``). The exponential and logarithmic maps are torch's
+plain functions (``quaternion.exp_so3(..., plain=True)``), in the
+residual, the perturbation and the update alike: ``torch.func`` cannot
+batch the float32 forms that the registration's maps use
+(``core/_xla_f32.py``). The 6x6 blocks scatter into the normal equations, and
 the CG solver's rows through ``ops/scatter.py``, in a fixed order on
 the card and on the CPU (``scatter_normal_equations``), so a solve gives
 the same bits every run. The dense solve is ``torch.linalg.solve_ex``
@@ -59,7 +63,7 @@ class Constraints(NamedTuple):
 
 def _perturb(q, t, xi):
     """Right perturbation T * Exp(xi): xi = (dtheta, dt_local)."""
-    q2 = quat.quat_multiply(q, quat.exp_so3(xi[:3]))
+    q2 = quat.quat_multiply(q, quat.exp_so3(xi[:3], plain=True))
     return q2, t + quat.quat_rotate(q, xi[3:])
 
 
@@ -69,7 +73,7 @@ def constraint_residual(qi, ti, qj, tj, z_q, z_t):
     rel_t = quat.quat_rotate(quat.quat_conjugate(qi), tj - ti)
     err_q = quat.quat_multiply(quat.quat_conjugate(z_q), rel_q)
     err_t = quat.quat_rotate(quat.quat_conjugate(z_q), rel_t - z_t)
-    return torch.cat([quat.log_so3(err_q), err_t], dim=-1)
+    return torch.cat([quat.log_so3(err_q, plain=True), err_t], dim=-1)
 
 
 def _linearize_one(qi, ti, qj, tj, z_q, z_t):
@@ -187,7 +191,7 @@ def _local_normal_equations(graph: PoseGraph, cons: Constraints,
 def _apply_update(graph: PoseGraph, dx: torch.Tensor) -> PoseGraph:
     k = graph.poses_q.shape[0]
     xi = dx.reshape(k, 6)
-    dq = quat.exp_so3(xi[:, :3])
+    dq = quat.exp_so3(xi[:, :3], plain=True)
     q2 = quat.quat_normalize(quat.quat_multiply(graph.poses_q, dq))
     t2 = graph.poses_t + quat.quat_rotate(graph.poses_q, xi[:, 3:])
     return PoseGraph(poses_q=q2, poses_t=t2)

@@ -38,6 +38,7 @@ curvature equal the record's bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 
@@ -251,3 +252,242 @@ def register_on_features(maps, feats: tuple, poses: list, cfg) -> dict:
             maps, *feats, p, cfg, pre_downsampled=True) for p in poses])
     return results_arrays([localization.register_scan(maps, *feats, p, cfg)
                            for p in poses])
+
+
+# --- eval_ate.py's closed-loop drive (ROADMAP §C20) ---------------------
+#
+# The second record, ``tests/data/torch_reference_drive.npz`` and its
+# manifest, holds what the JAX package's ``FusedLocalizationPipeline``
+# computes over eval_ate.py's 20-scan drive (numpy seed 0: 50 poles over
+# 35 m, 30,000 ground map points, 64 x 2048 ray-cast scans with vehicle
+# twists) under ``kitti_hdl64()`` (production: compact extraction,
+# GeometryMaps) and its faithful variant (full extraction, FeatureMaps,
+# a refit every iteration): per scan the prior the EKF gave, the Gauss-
+# Newton status, iterations, error and scale, and the measured and fused
+# poses; and, at one scan's prior per drive, the first iteration's
+# per-correspondence errors, valid mask and scale with digests of its
+# Jacobian and residual rows. The inputs are the port's worldsim draws,
+# held to the record by a digest.
+
+DRIVE_RECORD = os.path.join(HERE, "tests", "data",
+                            "torch_reference_drive.npz")
+DRIVE_MANIFEST = os.path.join(HERE, "tests", "data",
+                              "torch_reference_drive.json")
+DRIVES = ("production", "faithful")
+DRIVE_SCANS = 20
+# The scan at whose prior each drive's first Gauss-Newton problem is
+# recorded: where the two packages parted before §C20.
+DRIVE_PROBE = {"production": 4, "faithful": 10}
+# Measured and fused positions against the record (metres).
+DRIVE_T_ATOL = 1e-4
+
+
+def drive_config(name: str, production):
+    """The drive's configuration (either package's ``PipelineConfig``):
+    ``production`` itself, or its faithful variant."""
+    if name == "production":
+        return production
+    return dataclasses.replace(
+        production, compact_extraction=False,
+        registration=dataclasses.replace(production.registration,
+                                         refit_per_iteration=True))
+
+
+def drive_inputs():
+    """eval_ate.py's draws, made by the port's worldsim: (edge map
+    cloud, surface map cloud, scans [(points, ring ids)], ground-truth
+    positions, twists), then the world and the generator, which
+    eval_ate.py's SLAM drives go on drawing from."""
+    from lidar_feature_extraction_tpu_torch.utils import worldsim
+
+    rng = np.random.default_rng(0)
+    world = worldsim.make_world(rng, n_poles=50, extent=35.0)
+    edges, surfs = worldsim.world_maps(world, rng, n_ground=30000)
+    scans, gt = worldsim.make_scan_sequence(
+        world, rng, n_scans=DRIVE_SCANS, n_rings=64, n_az=2048,
+        elev_deg=(2.0, -24.8))
+    twists = worldsim.synth_twists(len(scans), rng=rng)
+    return edges, surfs, scans, gt, twists, world, rng
+
+
+def drive_inputs_sha256(edges, surfs, scans, gt, twists) -> str:
+    """The digest of the drive's inputs, as the record holds it."""
+    h = hashlib.sha256()
+    for a in (edges, surfs, gt, twists):
+        h.update(np.ascontiguousarray(a, dtype=np.float64).tobytes())
+    for pts, ring in scans:
+        h.update(np.ascontiguousarray(pts, dtype=np.float64).tobytes())
+        h.update(np.ascontiguousarray(ring, dtype=np.int64).tobytes())
+    return h.hexdigest()
+
+
+def rows_sha256(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def load_drive():
+    """(arrays by ``<drive>.<name>``, the manifest) of the drive record."""
+    return load(DRIVE_RECORD, DRIVE_MANIFEST)
+
+
+def drive_arrays(arrays: dict, name: str) -> dict:
+    """The drive record's arrays of one drive, by their short names."""
+    return case_arrays(arrays, name)
+
+
+def scan_fields(results) -> dict:
+    """Per-scan fields of a drive (either package's results: (prior,
+    GNResult, measured pose, fused pose) per scan) as the record's
+    stacked arrays."""
+    def vec(get):
+        return np.stack([np.asarray(a.cpu() if hasattr(a, "cpu") else a,
+                                    dtype=np.float32)
+                         for a in map(get, results)])
+
+    return {"status": np.int32([int(g.status) for _, g, _, _ in results]),
+            "iterations": np.int32([int(g.iterations)
+                                    for _, g, _, _ in results]),
+            "error": vec(lambda r: r[1].error),
+            "scale": vec(lambda r: r[1].scale),
+            "prior_q": vec(lambda r: r[0].q), "prior_t": vec(lambda r: r[0].t),
+            "measured_q": vec(lambda r: r[2].q),
+            "measured_t": vec(lambda r: r[2].t),
+            "fused_q": vec(lambda r: r[3].q), "fused_t": vec(lambda r: r[3].t)}
+
+
+def port_drive(maps, cfg, scans, twists, device, n_scans=None,
+               ms=None) -> dict:
+    """The port's ``FusedLocalizationPipeline`` over the first
+    ``n_scans`` of the drive on ``device``: the record's per-scan
+    fields. With ``ms`` a list, each scan's host time in milliseconds is
+    appended to it (``process_scan`` through ``torch.cuda.synchronize()``
+    on a CUDA device)."""
+    import time
+
+    import torch
+
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose
+    from lidar_feature_extraction_tpu_torch.pipeline import replay
+
+    pipeline = replay.FusedLocalizationPipeline(
+        maps, cfg, initial_pose=Pose.identity(device=device), device=device)
+    steps, results = [], []
+    localize = replay.localize_scan
+
+    def recorded(maps_, image, prior, cfg_):
+        out = localize(maps_, image, prior, cfg_)
+        steps.append((prior, out[0]))
+        return out
+
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else lambda: None)
+    replay.localize_scan = recorded
+    try:
+        sync()
+        for i, (pts, ring) in enumerate(scans[:n_scans]):
+            start = time.perf_counter()
+            r = pipeline.process_scan(pts, ring, stamp=0.1 * i,
+                                      twist=twists[i])
+            if ms is not None:
+                sync()
+                ms.append(1e3 * (time.perf_counter() - start))
+            results.append((*steps[-1], r.measured_pose, r.fused_pose))
+    finally:
+        replay.localize_scan = localize
+    return scan_fields(results)
+
+
+def port_first_problem(maps, image, prior, cfg):
+    """The first Gauss-Newton problem ``localize_scan`` builds from
+    ``prior`` (the port's): the Problem and its MAD scale."""
+    from lidar_feature_extraction_tpu_torch.core import stats
+    from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        localize_scan)
+
+    seen = []
+    make = gn.make_problem
+
+    def recorded(blocks):
+        seen.append(make(blocks))
+        return seen[-1]
+
+    gn.make_problem = recorded
+    try:
+        localize_scan(maps, image, prior, one_iteration(cfg))
+    finally:
+        gn.make_problem = make
+    problem = seen[0]
+    return problem, stats.masked_scale_bisect(problem.errors, problem.valid)
+
+
+def drive_gaps(got: dict, want: dict, n: int) -> dict:
+    """How the first ``n`` scans of a drive (``port_drive``'s fields)
+    differ from the record's: the scans whose status or iterations
+    differ, the first of them, and the largest measured and fused
+    position gaps (metres)."""
+    differ = [int(i) for i in np.nonzero(
+        (got["status"][:n] != want["status"][:n])
+        | (got["iterations"][:n] != want["iterations"][:n]))[0]]
+    gap = {k: float(np.abs(got[k][:n] - want[k][:n]).max())
+           for k in ("measured_t", "fused_t")}
+    far = [int(i) for i in np.nonzero(np.abs(
+        got["measured_t"][:n] - want["measured_t"][:n]).max(-1)
+        > DRIVE_T_ATOL)[0]]
+    return {"scans": n, "status_or_iterations_differ": differ,
+            "positions_beyond_atol": far,
+            "first_scan_that_differs": min(differ + far, default=None),
+            "max_measured_t_gap_m": gap["measured_t"],
+            "max_fused_t_gap_m": gap["fused_t"]}
+
+
+def main(argv=None) -> int:
+    """Run the port's two drives over the drive record's inputs on a
+    device and print, per drive, the record's and the port's ATE and how
+    the port's scans differ from the record's (``drive_gaps`` over all
+    scans, and the measured position gap of every scan)."""
+    import argparse
+    import sys
+
+    import torch
+
+    from lidar_feature_extraction_tpu_torch.config import kitti_hdl64
+    from lidar_feature_extraction_tpu_torch.pipeline.localization import (
+        build_feature_maps, build_geometry_maps)
+    from lidar_feature_extraction_tpu_torch.utils.evaluation import ate_rmse
+
+    ap = argparse.ArgumentParser(description=main.__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    sys.path.insert(0, HERE)
+    edges, surfs, scans, gt, twists, _, _ = drive_inputs()
+    arrays, manifest = load_drive()
+    if drive_inputs_sha256(edges, surfs, scans, gt, twists) \
+            != manifest["inputs_sha256"]:
+        print("the worldsim draws differ from the record's inputs")
+        return 1
+    clouds = (torch.as_tensor(edges, dtype=torch.float32, device=dev),
+              torch.ones(len(edges), dtype=torch.bool, device=dev),
+              torch.as_tensor(surfs, dtype=torch.float32, device=dev),
+              torch.ones(len(surfs), dtype=torch.bool, device=dev))
+    for name in DRIVES:
+        cfg = drive_config(name, kitti_hdl64())
+        build = (build_geometry_maps if name == "production"
+                 else build_feature_maps)
+        got = port_drive(build(*clouds, cfg), cfg, scans, twists, dev)
+        want = drive_arrays(arrays, name)
+        print(json.dumps({
+            "drive": name, "device": str(dev),
+            "record_ate_m": manifest["drives"][name]["ate_rmse_m"],
+            "port_ate_m": ate_rmse(np.float64(got["measured_t"]), gt,
+                                   align=False),
+            **drive_gaps(got, want, DRIVE_SCANS),
+            "measured_t_gap_per_scan_m": np.abs(
+                got["measured_t"] - want["measured_t"]).max(-1).tolist()}),
+            flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -179,7 +179,8 @@ _ROOT = Path(__file__).resolve().parents[1]
 _PORT_FILES = sorted(
     [p for p in (_ROOT / "lidar_feature_extraction_tpu_torch").rglob("*.py")]
     + [_ROOT / name for name in ("chip_smoke.py", "k1_check.py",
-                                 "profile_fits.py", "profile_k1.py",
+                                 "profile_drive.py", "profile_fits.py",
+                                 "profile_k1.py",
                                  "reference_cases.py", "scatter_probe.py",
                                  "tests/torch_parallel_worker.py")])
 

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from torch_parity import np32, t32, to_np  # noqa: E402
@@ -50,12 +51,15 @@ def _sign_align(got, want, axis=-2):
 
 
 def test_eigh3x3_matches_reference():
+    """Against the jitted reference, whose float32 forms the port computes
+    (ROADMAP §C20): on the rank-one matrices its zero eigenvalues are
+    -9e-4, not the eager function's -2.4e-7."""
     rng = np.random.default_rng(0)
     a = _spd(rng, 256, 3)
     a[:8] = np32(np.eye(3) * 2.0)           # isotropic branch
     line = rng.normal(size=(8, 3))
     a[8:16] = np32(line[:, :, None] * line[:, None, :])   # rank one
-    jw, jv = jeig.eigh3x3(jnp.asarray(a))
+    jw, jv = jax.jit(jeig.eigh3x3)(jnp.asarray(a))
     tw, tv = teig.eigh3x3(t32(a))
     np.testing.assert_allclose(to_np(tw), np32(jw), rtol=RTOL, atol=1e-5)
     # Eigenvectors of well-separated eigenvalues, compared up to sign.

@@ -5,6 +5,15 @@ manifest): what the JAX package computes on the CPU for every case of
 
     JAX_PLATFORMS=cpu python tests/torch_reference_record.py --write
     JAX_PLATFORMS=cpu python tests/torch_reference_record.py   # compare
+    JAX_PLATFORMS=cpu python tests/torch_reference_record.py --drive --write
+
+With ``--drive`` it writes (or checks) the second record,
+``tests/data/torch_reference_drive.npz`` and its manifest: eval_ate.py's
+closed-loop drive through the JAX package's ``FusedLocalizationPipeline``
+under both configurations (``reference_cases.py`` says what it holds).
+XLA:CPU runs the normal equations' matrix products through Eigen, whose
+summation order depends on the number of threads it is given, so the
+drive record is what a machine with the manifest's ``cpu_count`` writes.
 
 Per case (a scene under ``kitti_hdl64()`` or ``vlp16()`` at full width)
 and prior: the reference's labels (int8, and their sha256) and
@@ -215,32 +224,165 @@ def differences(arrays: dict, manifest: dict, want_arrays: dict,
         if a.dtype != b.dtype or a.shape != b.shape \
                 or a.tobytes() != b.tobytes():
             out.append(k)
-    strip = lambda m: {k: v for k, v in m.items() if k != "versions"}  # noqa: E731
+    strip = lambda m: {k: v for k, v in m.items()  # noqa: E731
+                       if k not in ("versions", "cpu_count")}
     if json.loads(json.dumps(strip(manifest))) != strip(want_manifest):
         out.append("manifest")
     return out
 
 
-def write(arrays: dict, manifest: dict) -> None:
-    os.makedirs(os.path.dirname(rc.RECORD), exist_ok=True)
-    np.savez_compressed(rc.RECORD, **arrays)
-    with open(rc.MANIFEST, "w") as f:
+def write(arrays: dict, manifest: dict, record: str = rc.RECORD,
+          manifest_path: str = rc.MANIFEST) -> None:
+    os.makedirs(os.path.dirname(record), exist_ok=True)
+    np.savez_compressed(record, **arrays)
+    with open(manifest_path, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
+
+
+def reference_drive(name: str, inputs) -> tuple[dict, dict]:
+    """What the JAX package's ``FusedLocalizationPipeline`` computes over
+    eval_ate.py's drive under ``name``: the record's per-scan fields, and
+    the first Gauss-Newton problem at the prior of scan
+    ``rc.DRIVE_PROBE[name]`` (errors, valid mask, scale, digests of the
+    rows). The problem is read from the program the drive runs, the
+    jitted ``localize_scan``, traced again with ``jax.debug.callback`` on
+    ``make_problem``'s and the MAD scale's outputs; that program must
+    give the drive's result bit for bit, or this raises."""
+    from lidar_feature_extraction_tpu.core import stats as jstats
+    from lidar_feature_extraction_tpu.ops import gauss_newton as jgn
+    from lidar_feature_extraction_tpu.pipeline.replay import (
+        FusedLocalizationPipeline)
+
+    edges, surfs, scans, _, twists = inputs
+    cfg = rc.drive_config(name, jconfig.kitti_hdl64())
+    build = (jloc.build_geometry_maps if name == "production"
+             else jloc.build_feature_maps)
+    maps = build(jnp.asarray(edges, jnp.float32),
+                 jnp.ones(len(edges), bool),
+                 jnp.asarray(surfs, jnp.float32),
+                 jnp.ones(len(surfs), bool), cfg)
+    pipeline = FusedLocalizationPipeline(maps, cfg,
+                                         initial_pose=JPose.identity())
+    step, steps, results = pipeline._step, [], []
+
+    def recorded(m, image, prior):
+        out = step(m, image, prior)
+        steps.append((image, prior, out[0]))
+        return out
+
+    pipeline._step = recorded
+    for i, (pts, ring) in enumerate(scans):
+        r = pipeline.process_scan(pts, ring, stamp=0.1 * i, twist=twists[i])
+        results.append((steps[-1][1], steps[-1][2], r.measured_pose,
+                        r.fused_pose))
+
+    image, prior, want = steps[rc.DRIVE_PROBE[name]]
+    seen = {"problem": [], "scale": []}
+    make, scale = jgn.make_problem, jstats.masked_scale_bisect
+
+    def make_cb(blocks):
+        p = make(blocks)
+        jax.debug.callback(lambda *v: seen["problem"].append(
+            [np.asarray(a) for a in v]), p.jac_rows, p.res_rows, p.errors,
+            p.valid)
+        return p
+
+    def scale_cb(e, v):
+        s = scale(e, v)
+        jax.debug.callback(lambda x: seen["scale"].append(np.asarray(x)), s)
+        return s
+
+    jgn.make_problem, jstats.masked_scale_bisect = make_cb, scale_cb
+    try:
+        jax.clear_caches()
+        got, _ = jax.jit(lambda m, im, p: jloc.localize_scan(
+            m, im, p, cfg))(maps, image, prior)
+        jax.effects_barrier()
+    finally:
+        jgn.make_problem, jstats.masked_scale_bisect = make, scale
+        jax.clear_caches()
+    same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in (
+        (got.status, want.status), (got.iterations, want.iterations),
+        (got.pose.q, want.pose.q), (got.pose.t, want.pose.t),
+        (got.error, want.error), (got.scale, want.scale)))
+    if not same:
+        raise RuntimeError(f"{name}: the traced program with callbacks does "
+                           "not give the drive's result")
+    jac, res, errors, valid = seen["problem"][0]
+    probe = {"probe_errors": errors, "probe_valid": valid,
+             "probe_scale": np.float32(seen["scale"][0])}
+    digests = {"jac_rows_sha256": rc.rows_sha256(jac),
+               "res_rows_sha256": rc.rows_sha256(res),
+               "rows": int(jac.shape[0]), "correspondences": int(len(errors))}
+    return {**rc.scan_fields(results), **probe}, digests
+
+
+def reference_drive_inputs():
+    """eval_ate.py's draws from the JAX package's worldsim: (edge map
+    cloud, surface map cloud, scans, ground truth, twists)."""
+    from lidar_feature_extraction_tpu.utils import worldsim
+
+    rng = np.random.default_rng(0)
+    world = worldsim.make_world(rng, n_poles=50, extent=35.0)
+    edges, surfs = worldsim.world_maps(world, rng, n_ground=30000)
+    scans, gt = worldsim.make_scan_sequence(
+        world, rng, n_scans=rc.DRIVE_SCANS, n_rings=64, n_az=2048,
+        elev_deg=(2.0, -24.8))
+    return edges, surfs, scans, gt, worldsim.synth_twists(len(scans),
+                                                          rng=rng)
+
+
+def build_drive_record() -> tuple[dict, dict]:
+    """(arrays by ``<drive>.<name>``, manifest) of both drives."""
+    from lidar_feature_extraction_tpu.utils.evaluation import ate_rmse
+
+    inputs = reference_drive_inputs()
+    arrays, drives = {}, {}
+    for name in rc.DRIVES:
+        fields, digests = reference_drive(name, inputs)
+        for k, a in fields.items():
+            arrays[f"{name}.{k}"] = a
+        drives[name] = {
+            "probe_scan": rc.DRIVE_PROBE[name], **digests,
+            "ate_rmse_m": ate_rmse(np.float64(fields["measured_t"]),
+                                   inputs[3], align=False),
+            "status": fields["status"].tolist(),
+            "iterations": fields["iterations"].tolist()}
+    manifest = {
+        "written_by": "JAX_PLATFORMS=cpu python tests/"
+                      "torch_reference_record.py --drive --write",
+        "versions": {"jax": jax.__version__, "numpy": np.__version__,
+                     "torch": torch.__version__,
+                     "python": sys.version.split()[0]},
+        "jax_enable_x64": True, "cpu_count": os.cpu_count(),
+        "inputs_sha256": rc.drive_inputs_sha256(*inputs),
+        "inputs": "eval_ate.py's drive from the JAX package's worldsim: "
+                  "numpy seed 0, 50 poles over 35 m, 30000 ground points, "
+                  "20 scans of 64 x 2048, twists",
+        "drives": drives}
+    return arrays, manifest
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", action="store_true",
                     help="write the record (else compare with it)")
+    ap.add_argument("--drive", action="store_true",
+                    help="the drive record (else the full-width one)")
     args = ap.parse_args()
-    arrays, manifest = build_record()
+    if args.drive:
+        arrays, manifest = build_drive_record()
+        paths = (rc.DRIVE_RECORD, rc.DRIVE_MANIFEST)
+    else:
+        arrays, manifest = build_record()
+        paths = (rc.RECORD, rc.MANIFEST)
     if args.write:
-        write(arrays, manifest)
-        print(f"wrote {rc.RECORD} ({os.path.getsize(rc.RECORD)} B) and "
-              f"{rc.MANIFEST}")
+        write(arrays, manifest, *paths)
+        print(f"wrote {paths[0]} ({os.path.getsize(paths[0])} B) and "
+              f"{paths[1]}")
         return 0
-    diff = differences(arrays, manifest, *rc.load())
+    diff = differences(arrays, manifest, *rc.load(*paths))
     print("record equals a fresh computation" if not diff
           else f"record differs: {diff}")
     return 1 if diff else 0
