@@ -11,13 +11,22 @@ record of the JAX package's results at full width under both presets.
 Phases, each of which must pass (any failure exits non-zero):
 
 1. build: ``nvcc`` builds kernel K1 from ``lidar_feature_extraction_tpu_
-   torch/csrc/extraction_k1.cu`` and ``fma_f32`` from ``csrc/fma_f32.cu``
-   with its PyTorch operator ``csrc/fma_f32_op.cpp``, both started
+   torch/csrc/extraction_k1.cu``, ``fma_f32`` from ``csrc/fma_f32.cu``
+   with its PyTorch operator ``csrc/fma_f32_op.cpp`` and
+   ``normal_equations`` from ``csrc/normal_equations.cu`` with its
+   operators ``csrc/normal_equations_op.cpp``, all three started
    together; then ``fma_f32`` (the one-launch float32 fused
    multiply-add of ``core/_xla_f32.py::fma``) against its plain version
    on the card, bit for bit (NaN against NaN): 10^6 random triples of
    every magnitude, signed zeros, subnormals, infinities, NaN, exact
    cancellations, near-halfway sums, and broadcast and strided operands;
+   and ``normal_equations`` (the Gauss-Newton D, A and b in XLA:CPU's
+   summation order, ROADMAP §C21) against its plain version
+   ``core/_xla_dot.py::normal_equations_plain``, bit for bit: its tree
+   equal to ``contraction_tree`` for every row count up to 16,384, then
+   seeded problems at row counts of every regime (not multiples of a
+   block among them) at B = 1, 8 and 32, rows read through strides, each
+   lane equal to its lone launch;
 2. scenes: the reference ``bench.py`` scene (seed 0, 64 x 2304 range
    image, a map of the scan's features at 7 noisy keyframe poses) and a
    street canyon ray-cast from 7 keyframes of one world, both at
@@ -52,12 +61,13 @@ Phases, each of which must pass (any failure exits non-zero):
    (``tests/data/torch_reference_drive.npz``, what the JAX package's
    ``FusedLocalizationPipeline`` computes over this drive on the CPU;
    ``reference_cases.py`` reads it), and each drive is held to it: the
-   first ``DRIVE_HELD_SCANS`` scans (production all 20, faithful 9,
-   ROADMAP §C21) with the record's status and iterations and measured
-   and fused positions within 1e-4 m; every scan's gaps and the first
-   scan that differs are printed. K1's and fma_f32's counts are reset
-   just before each run and read just after; each must be at least the
-   number of scans. Per run: ATE, xy ATE, mean step drift, ms/scan (host
+   first ``DRIVE_HELD_SCANS`` scans (both drives all 20, ROADMAP §C21)
+   with the record's status and iterations and measured and fused
+   positions within ``reference_cases.DRIVE_T_ATOL`` (1e-6 m); every
+   scan's gaps and the first scan that differs are printed. K1's,
+   fma_f32's and normal_equations' counts are reset just before each
+   run and read just after; each must be at least the number of
+   scans. Per run: ATE, xy ATE, mean step drift, ms/scan (host
    clock ending in ``synchronize()``: mean, median, first scan), GN
    iterations and status counts, and the wall time of the last scan's
    ``localize_scan`` alone, run again from the previous scan's fused
@@ -236,7 +246,11 @@ Phases, each of which must pass (any failure exits non-zero):
    of one GN iteration on them, of one that refits, and of the whole
    registration). Last, ``fma_f32`` timed at 2^20 elements and at a row
    block's [8192, 3] (profiler device time, host time, the plain
-   version's and ``torch.addcmul``'s CUDA-event time, the bytes bound).
+   version's and ``torch.addcmul``'s CUDA-event time, the bytes bound);
+   and ``normal_equations`` at the drives' row counts (10,240 and 14,336)
+   alone and as a batch of 32 (profiler device time, host time, the
+   plain version's CUDA-event time and one ``torch.matmul`` of the
+   stacked operands', the bytes bound).
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -268,8 +282,22 @@ FMA_REPLACES = ("none (the plain version, lidar_feature_extraction_tpu_"
                 "torch/core/_xla_f32.py::_fma_plain)")
 FMA_RANDOM = 1_000_000
 FMA_LAUNCHES = 200
+NE_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/normal_equations.cu"
+# normal_equations ports no TPU kernel either: the reference leaves the
+# normal equations to XLA (lidar_feature_extraction_tpu/ops/
+# gauss_newton.py:158-160), and no library product fixes its order.
+NE_REPLACES = ("none (XLA:CPU's dots in lidar_feature_extraction_tpu/ops/"
+               "gauss_newton.py:158-160; the plain version lidar_feature_"
+               "extraction_tpu_torch/core/_xla_dot.py::"
+               "normal_equations_plain)")
+# normal_equations' check: row counts (unsharded, 6 and 8 blocks, the
+# drives', some not multiples of a block) and the trees compared.
+NE_ROWS = (1, 7, 385, 609, 1000, 4099, 7990, 7991, 8197, 8198, 10240, 10243,
+           14336)
+NE_TREE_ROWS = 16384
+NE_LAUNCHES = 200
 # Scans of each drive held to the drive record (ROADMAP §C20, §C21).
-DRIVE_HELD_SCANS = {"production": 20, "faithful": 9}
+DRIVE_HELD_SCANS = {"production": 20, "faithful": 20}
 # The drive's acceptance limits. ATE_EVAL.json's closed-loop ATE-RMSE of
 # the reference (JAX on the CPU, eval_ate.py), the factor and margin a
 # run on the card may reach, and docs/design.md §8's production/faithful
@@ -489,13 +517,18 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
     from lidar_feature_extraction_tpu_torch.utils.evaluation import (
         ate_rmse, relative_translation_errors)
 
+    from lidar_feature_extraction_tpu_torch.ops import (
+        normal_equations_cuda as ne)
+
     ms = []
     torch.cuda.synchronize()
     k1.label_and_columns_cuda.launches = 0
     fma.fma_f32_cuda.launches = 0
+    ne.normal_equations_cuda.launches = 0
     fields = rc.port_drive(maps, cfg, scans, twists, device, ms=ms)
     launches = k1.label_and_columns_cuda.launches
     fma_launches = fma.fma_f32_cuda.launches
+    ne_launches = ne.normal_equations_cuda.launches
 
     est = fields["measured_t"]
     poses = np.concatenate([fields[k] for k in (
@@ -512,7 +545,7 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
     last_ms = 1e3 * (time.perf_counter() - start)
     return {
         "scans": len(scans), "k1_launches": launches,
-        "fma_launches": fma_launches,
+        "fma_launches": fma_launches, "ne_launches": ne_launches,
         "finite": bool(np.isfinite(poses).all()),
         "ate_rmse_m": ate_rmse(est, gt, align=False),
         "ate_xy_rmse_m": ate_rmse(np.pad(est[:, :2], ((0, 0), (0, 1))),
@@ -2109,6 +2142,103 @@ def fma_timing(dev, fma, bound_us, device_us_per_launch,
     return out
 
 
+def ne_operands(m: int, batch: int, device):
+    """A seeded problem for normal_equations: (jv, jw, j, wr) with
+    ``batch`` lanes of ``m`` rows on ``device``, j read through strides
+    (a column-major view), 90% of the rows valid, exponential weights."""
+    import torch
+
+    g = torch.Generator().manual_seed(1000 * m + batch)
+    j = torch.randn(batch, m, 7, generator=g)
+    valid = (torch.rand(batch, m, 1, generator=g) < 0.9).float()
+    w = torch.rand(batch, m, 1, generator=g).exponential_() * valid
+    r = torch.randn(batch, m, generator=g)
+    j = j.to(device)
+    strided = j.transpose(1, 2).contiguous().transpose(1, 2)
+    return (j * valid.to(device), j * w.to(device), strided,
+            (w[..., 0] * r).to(device))
+
+
+def ne_phase(dev, ne) -> dict:
+    """normal_equations against its plain version
+    (``_xla_dot.normal_equations_plain``) on the card, bit for bit: the
+    kernel's tree (``lidar_port::normal_equations_tree``) equal to
+    ``contraction_tree`` for every row count up to ``NE_TREE_ROWS``;
+    seeded problems at ``NE_ROWS`` rows at B = 1 and 8 (and 32 at the
+    drives' rows), each lane also equal to its lone launch. The launches
+    made here are not counted for any main path."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    saved = ne.normal_equations_cuda.launches
+    trees = [m for m in range(1, NE_TREE_ROWS + 1)
+             if ne.tree(m).tolist() != [
+                 [lo, hi, b] for b, blk in enumerate(xd.contraction_tree(m)[1])
+                 for lo, hi in blk]]
+    out = {"trees_compared": NE_TREE_ROWS, "trees_differ": trees[:10],
+           "cases": {}}
+    err = 0.0
+    for m in NE_ROWS:
+        for batch in (1, 8, 32) if m in (10240, 14336) else (1, 8):
+            args = ne_operands(m, batch, dev)
+            got = ne.normal_equations_cuda(*args)
+            want = xd.normal_equations_plain(*args)
+            lone = ne.normal_equations_cuda(*(a[-1] for a in args))
+            err = max(err, *(float((g - w).abs().max())
+                             for g, w in zip(got, want)))
+            out["cases"][f"{m}x{batch}"] = {
+                "equal": all(torch.equal(bits(g), bits(w))
+                             for g, w in zip(got, want)),
+                "lane_equals_lone": all(torch.equal(bits(g[-1]), bits(x))
+                                        for g, x in zip(got, lone))}
+    torch.cuda.synchronize()
+    ne.normal_equations_cuda.launches = saved
+    out["max_abs_err"] = err
+    bad = {k: v for k, v in out["cases"].items() if not all(v.values())}
+    check(not trees, f"normal_equations: trees differ at rows {trees[:10]}")
+    check(not bad, f"normal_equations: differs from its plain version: {bad}")
+    return out
+
+
+def ne_timing(dev, ne, bound_us, device_us_per_launch,
+              host_us_per_call) -> dict:
+    """normal_equations timed on the card at the drives' row counts
+    (10,240: faithful; 14,336: production), alone and as a batch of 32:
+    device time per launch (profiler), host time per call, the plain
+    version's time and one ``torch.matmul`` of the stacked operands
+    (``[jv | jw | j]^T [j | wr]``, a superset of D, A and b) by CUDA
+    events, and the bound: the operands read once and the 105 outputs
+    written once at the memory rate, against 105 multiply-adds per row."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+
+    saved = ne.normal_equations_cuda.launches
+    out = {}
+    for m, batch in ((10240, 1), (14336, 1), (14336, 32)):
+        args = ne_operands(m, batch, dev)
+        lhs = torch.cat(args[:3], dim=-1).transpose(-1, -2)
+        rhs = torch.cat([args[2], args[3][..., None]], dim=-1)
+        nbytes = 4 * batch * (m * (3 * 7 + 1) + 105)
+        bound, by = bound_us(nbytes, 2 * 105 * m * batch)
+        dev_us, seen = device_us_per_launch(
+            lambda: ne.normal_equations_cuda(*args),
+            "normal_equations_kernel", NE_LAUNCHES)
+        out[f"{m}x{batch}"] = {
+            "rows": m, "batch": batch, "device_us": dev_us,
+            "device_launches_seen": seen,
+            "host_us": host_us_per_call(
+                lambda: ne.normal_equations_cuda(*args)),
+            "plain_ms": time_ms(lambda: xd.normal_equations_plain(*args),
+                                reps=3, warmup=1),
+            "library_ms": time_ms(lambda: torch.matmul(lhs, rhs)),
+            "bound_us": bound, "bound_by": by, "bytes": nbytes}
+    ne.normal_equations_cuda.launches = saved
+    return out
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -2143,6 +2273,8 @@ def main() -> int:
     from lidar_feature_extraction_tpu_torch.pipeline.localization import (
         localize_scan)
     from lidar_feature_extraction_tpu_torch.ops import fma_cuda
+    from lidar_feature_extraction_tpu_torch.ops import (
+        normal_equations_cuda as ne_cuda)
     from k1_check import bound_us, check_and_time, k1_args, k1_work
     import reference_cases as rc
 
@@ -2164,21 +2296,26 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        so, fma_so = [f.result() for f in (pool.submit(k1.build),
-                                           pool.submit(fma_cuda.build))]
+    with ThreadPoolExecutor(3) as pool:
+        so, fma_so, ne_so = [f.result() for f in (
+            pool.submit(k1.build), pool.submit(fma_cuda.build),
+            pool.submit(ne_cuda.build))]
     k1.load()
     fma_cuda.load()
+    ne_cuda.load()
     emit("build", seconds=time.perf_counter() - start, library=so.name,
-         fma_library=fma_so.name)
-    for lib in (so, fma_so):
+         fma_library=fma_so.name, ne_library=ne_so.name)
+    for lib in (so, fma_so, ne_so):
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip(), flush=True)
 
-    # fma_f32 against its plain version, bit for bit.
+    # fma_f32 and normal_equations against their plain versions, bit for
+    # bit.
     fma_check = fma_phase(dev, fma_cuda)
     emit("fma_f32", **fma_check)
+    ne_check = ne_phase(dev, ne_cuda)
+    emit("normal_equations", **ne_check)
 
     # 2. scenes
     cfg = kitti_hdl64()
@@ -2200,6 +2337,7 @@ def main() -> int:
     chains = {}
     k1.label_and_columns_cuda.launches = 0
     fma_cuda.fma_f32_cuda.launches = 0
+    ne_cuda.normal_equations_cuda.launches = 0
     for scene, (maps, img) in (("bench", (bench_maps, bench_img)),
                                ("street", (street_maps, street_img))):
         for noisy in (False, True):
@@ -2208,9 +2346,14 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = k1.label_and_columns_cuda.launches
     fma_launches = fma_cuda.fma_f32_cuda.launches
+    ne_launches = ne_cuda.normal_equations_cuda.launches
     launches_by_phase = {"localize": launches}
     fma_by_phase = {"localize": fma_launches}
+    ne_by_phase = {"localize": ne_launches}
     n_scans = sum(len(c) for c in chains.values())
+    check(ne_launches >= n_scans,
+          f"localize: normal_equations launched {ne_launches} times for "
+          f"{n_scans} scans")
     check(launches >= n_scans,
           f"localize: K1 launched {launches} times for {n_scans} scans")
     check(fma_launches >= n_scans,
@@ -2326,6 +2469,10 @@ def main() -> int:
               f"drive {name}: fma_f32 launched {run['fma_launches']} times "
               f"for {run['scans']} scans")
         fma_by_phase[f"drive {name}"] = run["fma_launches"]
+        check(run["ne_launches"] >= run["scans"],
+              f"drive {name}: normal_equations launched "
+              f"{run['ne_launches']} times for {run['scans']} scans")
+        ne_by_phase[f"drive {name}"] = run["ne_launches"]
         check(run["finite"], f"drive {name}: non-finite pose")
         check(run["ate_rmse_m"] <= limit,
               f"drive {name}: ATE {run['ate_rmse_m']} m above {limit} m")
@@ -2389,10 +2536,14 @@ def main() -> int:
             run["k1_launches"]
 
     # 7. batch: the batched localizer at B = 1, 8, 32 on both scenes.
+    ne_cuda.normal_equations_cuda.launches = 0
     batch_launches, batch_later = batch_phase(
         {"bench": (bench_maps, bench_img), "street": (street_maps,
                                                        street_img)},
         cfg, dev, k1)
+    ne_by_phase["batch"] = ne_cuda.normal_equations_cuda.launches
+    check(ne_by_phase["batch"] >= 1,
+          "batch: normal_equations never launched on the batched path")
     launches += batch_launches
     launches_by_phase["batch"] = batch_launches
 
@@ -2713,9 +2864,13 @@ def main() -> int:
     fma_times = fma_timing(dev, fma_cuda, bound_us, device_us_per_launch,
                            host_us_per_call)
     emit("fma_f32_timing", nvidia_smi=smi, **fma_times)
+    ne_times = ne_timing(dev, ne_cuda, bound_us, device_us_per_launch,
+                         host_us_per_call)
+    emit("normal_equations_timing", nvidia_smi=smi, **ne_times)
 
     bench = k1_runs["bench"]
     fma_t = fma_times["1m"]
+    ne_t = ne_times["10240x1"]
     print(json.dumps({"kernels": [{
         "name": "k1_label_and_columns", "route": "cuda",
         "source": K1_SOURCE, "replaces": K1_REPLACES,
@@ -2744,7 +2899,20 @@ def main() -> int:
         # torch.addcmul(c, a, b): one PyTorch call of a * b + c; it is
         # used nowhere in the port.
         "library_ms": fma_t["library_ms"],
-        "timed": fma_times, "check": fma_check}]}),
+        "timed": fma_times, "check": fma_check}, {
+        "name": "normal_equations", "route": "cuda", "source": NE_SOURCE,
+        "replaces": NE_REPLACES,
+        "launches": sum(ne_by_phase.values()),
+        "launches_by_phase": ne_by_phase,
+        "max_abs_err": ne_check["max_abs_err"],
+        "ms": ne_t["device_us"] / 1e3, "plain_ms": ne_t["plain_ms"],
+        "bound_ms": ne_t["bound_us"] / 1e3, "bound_by": ne_t["bound_by"],
+        # One torch.matmul of the stacked operands computes D, A and b
+        # (and more); it is used nowhere in the port.
+        "library_ms": ne_t["library_ms"],
+        "device_us": ne_t["device_us"], "host_us": ne_t["host_us"],
+        "timed": ne_times, "check": {
+            k: v for k, v in ne_check.items() if k != "cases"}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

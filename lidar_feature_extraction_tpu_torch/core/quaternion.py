@@ -60,11 +60,14 @@ def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
 
 def _norm(v: torch.Tensor, keepdim: bool = False,
           plain: bool = False) -> torch.Tensor:
-    """Euclidean norm over the last axis, the square root correctly
-    rounded (``xf.sqrt``: the CPU build of torch is an ulp off on some
-    float32 inputs); ``plain``: ``torch.sqrt``."""
-    sqrt = torch.sqrt if plain else xf.sqrt
-    return sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
+    """Euclidean norm over the last axis as the reference's jitted code
+    reduces it: in float32 the in-order fused chain of squares
+    (``xf.sum_squares``), the square root correctly rounded (``xf.sqrt``:
+    the CPU build of torch is an ulp off on some float32 inputs);
+    ``plain``: ``torch.sqrt`` of ``torch.sum``."""
+    if plain:
+        return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
+    return xf.sqrt(xf.sum_squares(v, keepdim))
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -156,10 +159,10 @@ def right_multiplication_matrix(q: torch.Tensor) -> torch.Tensor:
 
 def rpy_to_quat(roll, pitch, yaw) -> torch.Tensor:
     """ZYX-composed roll/pitch/yaw tensors -> quaternion (qz * qy * qx)."""
-    hr, hp, hy = roll * 0.5, pitch * 0.5, yaw * 0.5
-    cr, sr = xf.cos(hr), xf.sin(hr)
-    cp, sp = xf.cos(hp), xf.sin(hp)
-    cy, sy = xf.cos(hy), xf.sin(hy)
+    sines, cosines = xf.sincos(torch.stack([roll * 0.5, pitch * 0.5,
+                                            yaw * 0.5]))
+    sr, sp, sy = sines.unbind(0)
+    cr, cp, cy = cosines.unbind(0)
     return torch.stack([
         cy * cp * cr + sy * sp * sr,
         cy * cp * sr - sy * sp * cr,
@@ -180,14 +183,14 @@ def exp_so3(theta: torch.Tensor, eps: float = 1e-8,
     with the reference's small-angle branch as a ``where``. ``plain``:
     torch's ``sqrt``, ``sin`` and ``cos`` in place of the float32 forms,
     for callers that batch or differentiate it with ``torch.func``."""
-    sin, cos = (torch.sin, torch.cos) if plain else (xf.sin, xf.cos)
     k = _norm(theta, keepdim=True, plain=plain)
     small = k < eps
     ksafe = torch.where(small, torch.ones_like(k), k)
     half = ksafe * 0.5
-    sinc = torch.where(small, torch.full_like(k, 0.5), sin(half) / ksafe)
-    w = torch.where(small[..., 0], torch.ones_like(k[..., 0]),
-                    cos(half[..., 0]))
+    sin, cos = (torch.sin(half), torch.cos(half)) if plain else \
+        xf.sincos(half)
+    sinc = torch.where(small, torch.full_like(k, 0.5), sin / ksafe)
+    w = torch.where(small[..., 0], torch.ones_like(k[..., 0]), cos[..., 0])
     return torch.cat([w[..., None], theta * sinc], dim=-1)
 
 

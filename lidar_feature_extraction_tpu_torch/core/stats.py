@@ -105,6 +105,9 @@ def huber(e: torch.Tensor, k: float = 1.345) -> torch.Tensor:
 
 def huber_derivative(e: torch.Tensor, k: float = 1.345) -> torch.Tensor:
     """IRLS weight d/de Huber(e) for squared error ``e``: 1 below the
-    elbow, ``k / sqrt(e)`` above."""
+    elbow, ``k / sqrt(e)`` above; in float32 ``k * rsqrt(e)`` as the
+    reference's jitted code computes it (``_xla_f32.rsqrt``)."""
     safe = torch.clamp_min(e, k * k)
-    return torch.where(e < k * k, torch.ones_like(e), k / torch.sqrt(safe))
+    above = (k * xf.rsqrt(safe) if e.dtype == torch.float32
+             else k / torch.sqrt(safe))
+    return torch.where(e < k * k, torch.ones_like(e), above)

@@ -14,15 +14,24 @@ Port of ``lidar_feature_extraction_tpu/fusion/ekf.py:1-218``. State
 The state lives on the device of the tensors it was made from (the
 card, unless the caller asks for the CPU); the queues and clocks are
 the host's (``pipeline/``).
+
+In float32 ``predict``, ``update_pose``, ``update_twist`` and
+``filter1d_update`` compute the reference's jitted arithmetic (ROADMAP
+§C21): glibc's ``sinf``/``cosf``/``atan2f`` (``core/_xla_f32.py``), the
+time step rounded to float32 first, the products XLA:CPU fuses as fused
+multiply-adds, the process noise as ``float32(dt^2 c^2)``, and the
+filter's products as ``fusion/kalman.py`` says.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from lidar_feature_extraction_tpu_torch.config import EkfConfig
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.fusion import kalman
 
 DIM_X = 6
@@ -30,34 +39,52 @@ IDX_X, IDX_Y, IDX_YAW, IDX_YAWB, IDX_VX, IDX_WZ = range(6)
 
 
 def normalize_yaw(yaw):
-    """atan2(sin, cos) wrap."""
-    return torch.atan2(torch.sin(yaw), torch.cos(yaw))
+    """atan2(sin, cos) wrap (in float32 glibc's functions)."""
+    return xf.atan2(*xf.sincos(yaw))
 
 
-def predict_next_state(x, dt):
-    """Nonlinear bicycle-model step."""
-    yaw = x[IDX_YAW] + x[IDX_YAWB]
+def _step(x, dt: float) -> float:
+    """The time step as the reference's jitted code uses it with float32
+    state: rounded to float32 first."""
+    return float(np.float32(dt)) if x.dtype == torch.float32 else dt
+
+
+def _heading(x):
+    """(sin, cos) of the biased yaw, which the step and its Jacobian
+    share."""
+    return xf.sincos(x[IDX_YAW] + x[IDX_YAWB])
+
+
+def predict_next_state(x, dt, heading=None):
+    """Nonlinear bicycle-model step; in float32 each ``p + v * dt`` fused
+    (``fma(v, dt, p)``). ``heading``: ``_heading(x)`` if already
+    computed."""
+    dt = _step(x, dt)
+    sin, cos = _heading(x) if heading is None else heading
+    vx, wz = x[IDX_VX], x[IDX_WZ]
     return torch.stack([
-        x[IDX_X] + x[IDX_VX] * torch.cos(yaw) * dt,
-        x[IDX_Y] + x[IDX_VX] * torch.sin(yaw) * dt,
-        normalize_yaw(x[IDX_YAW] + x[IDX_WZ] * dt),
+        xf.fma(dt, vx * cos, x[IDX_X]),
+        xf.fma(dt, vx * sin, x[IDX_Y]),
+        normalize_yaw(xf.fma(dt, wz, x[IDX_YAW])),
         x[IDX_YAWB],
-        x[IDX_VX],
-        x[IDX_WZ],
+        vx,
+        wz,
     ])
 
 
-def state_transition_matrix(x, dt):
-    """Analytic 6x6 Jacobian A of ``predict_next_state``."""
-    yaw = x[IDX_YAW] + x[IDX_YAWB]
+def state_transition_matrix(x, dt, heading=None):
+    """Analytic 6x6 Jacobian A of ``predict_next_state`` (``heading`` as
+    there)."""
+    dt = _step(x, dt)
     vx = x[IDX_VX]
+    sin, cos = _heading(x) if heading is None else heading
     a = torch.eye(DIM_X, dtype=x.dtype, device=x.device)
-    a[IDX_X, IDX_YAW] = -vx * torch.sin(yaw) * dt
-    a[IDX_X, IDX_YAWB] = -vx * torch.sin(yaw) * dt
-    a[IDX_X, IDX_VX] = torch.cos(yaw) * dt
-    a[IDX_Y, IDX_YAW] = vx * torch.cos(yaw) * dt
-    a[IDX_Y, IDX_YAWB] = vx * torch.cos(yaw) * dt
-    a[IDX_Y, IDX_VX] = torch.sin(yaw) * dt
+    a[IDX_X, IDX_YAW] = -vx * sin * dt
+    a[IDX_X, IDX_YAWB] = -vx * sin * dt
+    a[IDX_X, IDX_VX] = cos * dt
+    a[IDX_Y, IDX_YAW] = vx * cos * dt
+    a[IDX_Y, IDX_YAWB] = vx * cos * dt
+    a[IDX_Y, IDX_VX] = sin * dt
     a[IDX_YAW, IDX_WZ] = dt
     return a
 
@@ -72,7 +99,12 @@ def process_noise(variances, dtype=torch.float32,
 
 
 def squared_mahalanobis(x, y, cov):
+    """d^T cov^-1 d of d = x - y; in float32 (2 or 3 entries) the
+    reference's LAPACK solve (``kalman.lu_solve``) and an in-order FMA
+    chain."""
     d = x - y
+    if d.dtype == torch.float32 and d.shape[-1] in (2, 3):
+        return xf.dot(d, kalman.lu_solve(*kalman.lu_factor(cov), d))
     return d @ torch.linalg.solve_ex(cov, d).result
 
 
@@ -98,13 +130,16 @@ def predict(state: EkfState, dt: float, cfg: EkfConfig) -> EkfState:
     """One timer tick: nonlinear predict through the shift register."""
     x = state.td.x
     x_curr = x[:DIM_X]
-    x_next = predict_next_state(x_curr, dt)
-    a = state_transition_matrix(x_curr, dt)
-    yaw_bias_var = ((cfg.proc_stddev_yaw_bias_c * dt) ** 2
+    heading = _heading(x_curr)
+    x_next = predict_next_state(x_curr, dt, heading)
+    a = state_transition_matrix(x_curr, dt, heading)
+    # (c dt)^2 as XLA folds it: dt * dt * (c * c), in float64.
+    var = (lambda c: dt * dt * (c * c)) if x.dtype == torch.float32 else (
+        lambda c: (c * dt) ** 2)
+    yaw_bias_var = (var(cfg.proc_stddev_yaw_bias_c)
                     if cfg.enable_yaw_bias_estimation else 0.0)
-    q = process_noise([(cfg.proc_stddev_yaw_c * dt) ** 2, yaw_bias_var,
-                       (cfg.proc_stddev_vx_c * dt) ** 2,
-                       (cfg.proc_stddev_wz_c * dt) ** 2],
+    q = process_noise([var(cfg.proc_stddev_yaw_c), yaw_bias_var,
+                       var(cfg.proc_stddev_vx_c), var(cfg.proc_stddev_wz_c)],
                       dtype=x.dtype, device=x.device)
     return EkfState(td=kalman.predict_with_delay(state.td, x_next, a, q))
 
@@ -184,11 +219,15 @@ class Filter1D(NamedTuple):
 
 
 def filter1d_update(f: Filter1D, obs, obs_stddev, dt) -> Filter1D:
+    """One scalar update; in float32 as the reference's jitted program
+    fuses it: ``sqrt(fma(s, s, (p dt)^2))``, ``g^2 / fma(o, o, g^2)``,
+    ``fma(gain, obs - x, x)``, square roots correctly rounded."""
     proc = f.proc_stddev * dt
-    pred_std = torch.sqrt(f.stddev ** 2 + proc ** 2)
-    gain = pred_std ** 2 / (pred_std ** 2 + obs_stddev ** 2)
-    x_new = f.x + gain * (obs - f.x)
-    std_new = torch.sqrt(1 - gain) * pred_std
+    pred_std = xf.sqrt(xf.fma(f.stddev, f.stddev, proc * proc))
+    pred2 = pred_std * pred_std
+    gain = pred2 / xf.fma(obs_stddev, obs_stddev, pred2)
+    x_new = xf.fma(gain, obs - f.x, f.x)
+    std_new = xf.sqrt(1 - gain) * pred_std
     init = f.initialized
     return Filter1D(
         x=torch.where(init, x_new, obs),

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
 from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core import stats
@@ -148,17 +149,31 @@ def weighted_update(q: torch.Tensor, weights: torch.Tensor,
                     problem: Problem, degeneracy_threshold: float):
     """One GN solve: dx = -(M^T A M)^{-1} M^T b, or zero when the
     unweighted Hessian is degenerate or the solve is not finite.
-    Returns ``(dx [..., 6], H [..., 6, 6])``; a batch's normal equations
-    are summed lane by lane (``_lanewise``), the rest is batched."""
+    Returns ``(dx [..., 6], H [..., 6, 6])``.
+
+    In float32 every step is the reference's jitted arithmetic
+    (``core/_xla_dot.py``, ROADMAP §C21): D, A and b in XLA:CPU's
+    summation order (on CUDA one launch of ``csrc/normal_equations.cu``
+    for a problem or a batch, each lane summed in the lone problem's
+    tree), ``M^T A M`` and ``M^T b`` as in-order FMA chains, and the
+    Cholesky solve in its fused forms. Other dtypes sum a batch's normal
+    equations lane by lane (``_lanewise``)."""
     w = torch.where(problem.valid, weights, 0.0)
     vf = problem.valid.to(problem.jac_rows.dtype)
     w_rows = rows_from_corr(problem, w)[..., None]
     v_rows = rows_from_corr(problem, vf)[..., None]
     j = problem.jac_rows
-    D, H, g = _lanewise(j.dim() == 3, _normal_equations, j * v_rows,
-                        j * w_rows, j,
-                        w_rows[..., 0] * problem.res_rows, make_m(q))
-    dx = -smallalg.cholesky_solve(H, g)
+    jv, jw, wr = j * v_rows, j * w_rows, w_rows[..., 0] * problem.res_rows
+    M = make_m(q)
+    if j.dtype == torch.float32:
+        D, A, b = xd.normal_equations(jv, jw, j, wr)
+        mt = M.transpose(-1, -2)
+        H = xf.matmul(xf.matmul(mt, A), M)
+        dx = -xd.cholesky_solve(H, xf.matmul(mt, b[..., None])[..., 0])
+    else:
+        D, H, g = _lanewise(j.dim() == 3, _normal_equations, jv, jw, j, wr,
+                            M)
+        dx = -smallalg.cholesky_solve(H, g)
 
     degenerate = smallalg.min_eigval_below(D, degeneracy_threshold)
     bad = degenerate | ~torch.all(torch.isfinite(dx), dim=-1)
@@ -182,17 +197,26 @@ def gn_iteration(problem: Problem, pose: Pose, huber_k: float = 1.345,
     """One Gauss-Newton iteration at ``pose`` on the device: the error,
     the MAD scale, the Huber-weighted solve and the updated pose, with no
     status logic (``_gn_body`` adds the fused loop's,
-    ``run_gauss_newton_host`` runs the reference's on the host)."""
+    ``run_gauss_newton_host`` runs the reference's on the host). In
+    float32 the error total, the Huber weights and the pose update are
+    the reference's jitted forms too (``core/_xla_dot.py``)."""
     n_valid = torch.sum(problem.valid, dim=-1, dtype=torch.int32)
     errors = torch.where(problem.valid, problem.errors, 0.0)
-    error, = _lanewise(errors.dim() == 2, lambda e: (torch.sum(e),), errors)
+    if errors.dtype == torch.float32:
+        error = xd.reduce_sum(errors)
+    else:
+        error, = _lanewise(errors.dim() == 2, lambda e: (torch.sum(e),),
+                           errors)
     scale = stats.masked_scale_bisect(problem.errors, problem.valid)
     normalized = errors / (scale[..., None] + 1e-16)
     weights = stats.huber_derivative(normalized, huber_k)
     dx, hess = weighted_update(pose.q, weights, problem, degeneracy_threshold)
-    dq = quat.exp_so3(dx[..., :3])
     dt = dx[..., 3:]
-    q_new = quat.quat_normalize(quat.quat_multiply(pose.q, dq))
+    if dx.dtype == torch.float32:
+        q_new, dq = xd.pose_update(pose.q, dx)
+    else:
+        dq = quat.exp_so3(dx[..., :3])
+        q_new = quat.quat_normalize(quat.quat_multiply(pose.q, dq))
     return GNStep(pose=Pose(q_new, pose.t + dt), error=error, scale=scale,
                   n_valid=n_valid, dq_norm=quat._norm(dq[..., 1:]),
                   dt_norm=quat._norm(dt), hessian=hess)

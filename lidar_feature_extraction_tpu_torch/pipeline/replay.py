@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from lidar_feature_extraction_tpu_torch.config import PipelineConfig
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.core.scan import (RangeImage,
@@ -142,9 +143,9 @@ class FusedLocalizationPipeline:
         self.ekf = ekf_mod.update_pose(self.ekf, y, self.pose_r, 0,
                                        self.cfg.ekf)
         # z / roll / pitch scalar filters (observation stddev sqrt(.1)).
-        roll = torch.atan2(2 * (mq[0] * mq[1] + mq[2] * mq[3]),
-                           1 - 2 * (mq[1] ** 2 + mq[2] ** 2))
-        pitch = torch.asin(torch.clamp(
+        roll = xf.atan2(2 * (mq[0] * mq[1] + mq[2] * mq[3]),
+                        1 - 2 * (mq[1] ** 2 + mq[2] ** 2))
+        pitch = xf.asin(torch.clamp(
             2 * (mq[0] * mq[2] - mq[3] * mq[1]), -1, 1))
         dt = self._t(self.ekf_dt)
         std = self._t(np.sqrt(0.1))

@@ -278,8 +278,65 @@ DRIVE_SCANS = 20
 # The scan at whose prior each drive's first Gauss-Newton problem is
 # recorded: where the two packages parted before §C20.
 DRIVE_PROBE = {"production": 4, "faithful": 10}
-# Measured and fused positions against the record (metres).
-DRIVE_T_ATOL = 1e-4
+# Measured and fused positions against the record (metres). Since ROADMAP
+# §C21 the port's drives equal the record bit for bit on the CPU and the
+# card; 1e-6 m is the tolerance the repair was held to.
+DRIVE_T_ATOL = 1e-6
+
+
+# The normal equations held to the JAX package's (ROADMAP §C21): seeded
+# problems of these row counts (XLA:CPU's contraction unsharded, sharded
+# in 6 blocks, in 8, and the faithful and production drives' rows; all at
+# least 4096 rows, where XLA keeps the gradient's tiled matrix-vector
+# loop), their D = jv^T j, A = jw^T j and b = j^T wr, and the ±2^40 probe
+# pairs of each, whose sums fingerprint the summation tree; and Huber
+# weights (XLA's float32 rsqrt) of seeded squared errors.
+NE_ROWS = (4099, 7991, 8198, 10240, 14336)
+NE_PROBE_PAIRS = 24
+HUBER_SAMPLES = 4096
+
+
+def ne_problem(m: int) -> tuple:
+    """(jv, jw, j, wr) float32 of the seeded problem with ``m`` rows:
+    ``j`` normal, 90% of the rows valid, exponential weights, normal
+    residuals."""
+    rng = np.random.default_rng(m)
+    j = np.float32(rng.normal(size=(m, 7)))
+    valid = np.float32(rng.random(m) < 0.9)
+    w = np.float32(rng.exponential(size=m)) * valid
+    r = np.float32(rng.normal(size=m))
+    return (np.float32(j * valid[:, None]), np.float32(j * w[:, None]), j,
+            np.float32(w * r))
+
+
+def ne_probe_pairs(m: int) -> np.ndarray:
+    """[NE_PROBE_PAIRS, 2] rows (p < q) of the probe: neighbours, pairs a
+    block size apart, the ends, and seeded ones."""
+    rng = np.random.default_rng(1000 + m)
+    fixed = [(0, 1), (0, m - 1), (m - 2, m - 1), (0, 320), (319, 320),
+             (0, m // 2), (m // 4, 3 * m // 4), (7, 608)]
+    pairs = [(p, q) for p, q in fixed if p < q < m]
+    while len(pairs) < NE_PROBE_PAIRS:
+        p, q = sorted(int(x) for x in rng.choice(m, 2, replace=False))
+        pairs.append((p, q))
+    return np.int64(pairs)
+
+
+def probe_operands(m: int, p: int, q: int) -> tuple:
+    """The probe's ``a`` (all ones, rows p and q +2^40 and -2^40) and
+    ``b`` (all ones), [m, 7] float32: entry (i, j) of ``a.T @ b`` counts
+    the rows added after rows p and q met."""
+    a = np.ones((m, 7), np.float32)
+    a[p], a[q] = 2.0 ** 40, -2.0 ** 40
+    return a, np.ones((m, 7), np.float32)
+
+
+def huber_inputs() -> np.ndarray:
+    """Seeded float32 squared errors over twelve decades, for the Huber
+    weights."""
+    rng = np.random.default_rng(5)
+    return np.float32(rng.exponential(size=HUBER_SAMPLES)
+                      * 10.0 ** rng.uniform(-3, 9, HUBER_SAMPLES))
 
 
 def drive_config(name: str, production):

@@ -1,4 +1,5 @@
-"""Kernel K1 on the card against its plain PyTorch version, and the paths
+"""Kernel K1 and the normal equations' kernel on the card against their
+plain PyTorch versions, and the paths
 that run it (full extraction, one closed-loop scan, the odometry step,
 IMU preintegration, the pose-graph and IMU-graph solvers, a short
 mapping run with a loop closure, K1 at vlp16's widths against the CPU
@@ -967,3 +968,32 @@ def test_exact_medians_on_the_card_equal_the_cpu(cuda, name):
     got = fn(v.to(cuda), m.to(cuda)).cpu()
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
     assert torch.isnan(got[2]) and not torch.isnan(got[[0, 1, 3, 4]]).any()
+
+
+@pytest.mark.parametrize("m", [7, 1000, 7991, 10243])
+def test_normal_equations_kernel_matches_plain_version(cuda, m):
+    """csrc/normal_equations.cu against ``_xla_dot.normal_equations_plain``
+    on the card, bit for bit, for a batch of 3 read through strides and
+    for its lanes alone (ROADMAP §C21)."""
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+    from lidar_feature_extraction_tpu_torch.ops.normal_equations_cuda import (
+        normal_equations_cuda)
+
+    g = torch.Generator().manual_seed(m)
+    j = torch.randn(3, m, 7, generator=g)
+    w = torch.rand(3, m, 1, generator=g) * (torch.rand(3, m, 1, generator=g)
+                                            < 0.9)
+    r = torch.randn(3, m, generator=g)
+    j = j.to(cuda)
+    args = ((j != 0) * j, j * w.to(cuda),
+            j.transpose(1, 2).contiguous().transpose(1, 2),
+            (w[..., 0] * r).to(cuda))
+    got = normal_equations_cuda(*args)
+    want = xd.normal_equations_plain(*args)
+    for k in range(3):
+        lone = normal_equations_cuda(*(a[k] for a in args))
+        for g_, w_, l_ in zip(got, want, lone):
+            assert torch.equal(g_[k].view(torch.int32),
+                               w_[k].contiguous().view(torch.int32))
+            assert torch.equal(l_.view(torch.int32),
+                               g_[k].contiguous().view(torch.int32))

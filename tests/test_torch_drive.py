@@ -1,5 +1,5 @@
 """The port's closed loop held to the JAX package's, scan by scan, over
-eval_ate.py's 20-scan drive at full width (ROADMAP §C20).
+eval_ate.py's 20-scan drive at full width (ROADMAP §C20, §C21).
 
 The reference is the committed drive record,
 ``tests/data/torch_reference_drive.npz`` (``reference_cases.py`` reads it,
@@ -9,14 +9,17 @@ JAX package's ``FusedLocalizationPipeline`` computes on the CPU under
 
 - the record's inputs are the port's worldsim draws (a digest);
 - at the recorded prior of each drive (production scan 4, faithful scan
-  10, where the packages parted before §C20) the first Gauss-Newton
-  problem's Jacobian and residual rows (digests), per-correspondence
-  errors, valid mask and MAD scale equal the reference's bit for bit;
-- the drives' first scans (production 8, faithful 9) have the record's
-  status and iterations, measured and fused positions within 1e-4 m.
-  The faithful drive parts from the record at scan 10, and its scan 9 is
-  a knife edge whose pose moves with the summation order of the
-  Gauss-Newton update, so with the thread count (ROADMAP §C21);
+  10) the first Gauss-Newton problem's Jacobian and residual rows
+  (digests), per-correspondence errors, valid mask and MAD scale, the
+  Huber weights and the normal equations D, A and b equal the
+  reference's bit for bit;
+- the faithful drive's 20 scans and the production drive's first 8: the
+  record's status and iterations, measured and fused positions within
+  ``DRIVE_T_ATOL`` (1e-6 m); the faithful ATE within 1e-6 m of the
+  record's;
+- the time-delay EKF's ``predict``, ``update_twist`` and ``update_pose``
+  fed the record's measurements equal the jitted reference's bit for bit
+  after every call;
 - the port's GeometryMaps equal the JAX package's jitted map build bit
   for bit;
 - the knife-edge forms: glibc's float32 ``acos`` / ``cos`` / ``sin`` /
@@ -34,23 +37,37 @@ import jax.numpy as jnp  # noqa: E402
 
 import reference_cases as rc  # noqa: E402
 from lidar_feature_extraction_tpu import config as jconfig  # noqa: E402
+from lidar_feature_extraction_tpu.fusion import ekf as jekf  # noqa: E402
+from lidar_feature_extraction_tpu.fusion import kalman as jkal  # noqa: E402
 from lidar_feature_extraction_tpu.core import quaternion as jquat  # noqa: E402
 from lidar_feature_extraction_tpu.core.pose import Pose as JPose  # noqa: E402
 from lidar_feature_extraction_tpu.pipeline import (  # noqa: E402
     localization as jloc)
-from lidar_feature_extraction_tpu_torch.config import kitti_hdl64  # noqa: E402
+from lidar_feature_extraction_tpu_torch.config import (  # noqa: E402
+    EkfConfig, kitti_hdl64)
+from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf  # noqa: E402
+from lidar_feature_extraction_tpu_torch.core import stats  # noqa: E402
+from lidar_feature_extraction_tpu_torch.fusion import ekf  # noqa: E402
+from lidar_feature_extraction_tpu_torch.fusion import kalman  # noqa: E402
+from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn  # noqa: E402
 from lidar_feature_extraction_tpu_torch.core.pose import Pose  # noqa: E402
 from lidar_feature_extraction_tpu_torch.pipeline import (  # noqa: E402
     localization as tloc)
 from lidar_feature_extraction_tpu_torch.pipeline.replay import (  # noqa: E402
     scan_range_image)
+from lidar_feature_extraction_tpu_torch.utils.evaluation import (  # noqa: E402
+    ate_rmse)
 
 jax.config.update("jax_enable_x64", True)   # as in-suite
 
-# The first scans of each drive held to the record (the faithful drive's
-# as in chip_smoke.py's DRIVE_HELD_SCANS).
-HELD_SCANS = {"production": 8, "faithful": 9}
+# The scans of each drive held to the record: the faithful drive's all 20
+# since ROADMAP §C21; the production drive's first 8 (its 20 are held on
+# the card by chip_smoke.py's DRIVE_HELD_SCANS and run on the CPU by
+# ``python3 reference_cases.py --device cpu``; 8 keep the suite's time).
+HELD_SCANS = {"production": 8, "faithful": 20}
+# The drive's ATE against the record's (metres).
+ATE_ATOL = 1e-6
 
 
 def _bits(a) -> np.ndarray:
@@ -97,6 +114,20 @@ def test_problem_at_the_recorded_prior_equals_the_reference(drive, name):
     assert _bits(scale) == _bits(rec["probe_scale"])
     assert rc.rows_sha256(problem.jac_rows.numpy()) == want["jac_rows_sha256"]
     assert rc.rows_sha256(problem.res_rows.numpy()) == want["res_rows_sha256"]
+    # The update's Huber weights (XLA's float32 rsqrt) and normal
+    # equations (ROADMAP §C21), as weighted_update forms them.
+    errors = torch.where(problem.valid, problem.errors, 0.0)
+    weights = stats.huber_derivative(errors / (scale + 1e-16),
+                                     cfg.registration.huber_k)
+    np.testing.assert_array_equal(_bits(weights), _bits(rec["probe_weights"]))
+    w = gn.rows_from_corr(problem, torch.where(problem.valid, weights, 0.0))
+    v = gn.rows_from_corr(problem, problem.valid.float())
+    j = problem.jac_rows
+    got = xd.normal_equations(j * v[:, None], j * w[:, None], j,
+                              w * problem.res_rows)
+    for key, value in zip("DAb", got):
+        np.testing.assert_array_equal(_bits(value),
+                                      _bits(rec[f"probe_{key}"]), key)
 
 
 @pytest.mark.parametrize("name", rc.DRIVES)
@@ -108,6 +139,82 @@ def test_drive_follows_the_record(drive, name):
     gaps = rc.drive_gaps(got, rc.drive_arrays(drive["arrays"], name), n)
     assert gaps["first_scan_that_differs"] is None, gaps
     assert gaps["max_fused_t_gap_m"] <= rc.DRIVE_T_ATOL, gaps
+    if n == rc.DRIVE_SCANS:
+        ate = ate_rmse(np.float64(got["measured_t"]), drive["inputs"][3],
+                       align=False)
+        want = drive["manifest"]["drives"][name]["ate_rmse_m"]
+        assert abs(ate - want) <= ATE_ATOL, (ate, want)
+
+
+def test_ekf_steps_equal_the_jitted_reference(drive):
+    """The drive's EKF calls (50 Hz predicts up to each scan, the twist,
+    then the pose measured by the record's registration) through the
+    jitted reference and the port in float32: x and P equal bit for bit
+    after every call. (The EKF's products, LAPACK inverse and solve are
+    single-threaded, so a live reference is the running machine's.)"""
+    rec = rc.drive_arrays(drive["arrays"], "production")
+    twists = drive["inputs"][4]
+    jcfg, cfg = jconfig.EkfConfig(), EkfConfig()
+    dt = 1.0 / cfg.predict_frequency
+    pose_r = np.diag(np.float32([1.0, 1.0, 0.1])) * cfg.pose_smoothing_steps
+    twist_r = np.diag(np.float32([0.04, 0.01])) * cfg.twist_smoothing_steps
+    js = jekf.init_ekf(jcfg, dtype=jnp.float32)
+    ts = ekf.init_ekf(cfg, dtype=torch.float32, device="cpu")
+    calls, clock = 0, 0.0
+    for i in range(len(twists)):
+        steps = []
+        while clock < 0.1 * i:
+            steps.append(("predict", dt))
+            clock += dt
+        y_pose = np.float32([*rec["measured_t"][i][:2], float(xf.atan2(
+            *_yaw_terms(torch.as_tensor(rec["measured_q"][i]))))])
+        steps += [("twist", np.float32(twists[i])), ("pose", y_pose)]
+        for kind, arg in steps:
+            if kind == "predict":
+                js = jekf.predict(js, arg, jcfg)
+                ts = ekf.predict(ts, arg, cfg)
+            else:
+                update = {"twist": (jekf.update_twist, ekf.update_twist,
+                                    twist_r),
+                          "pose": (jekf.update_pose, ekf.update_pose,
+                                   pose_r)}[kind]
+                js = update[0](js, jnp.asarray(arg), jnp.asarray(update[2]),
+                               jnp.asarray(0), jcfg)
+                ts = update[1](ts, torch.as_tensor(arg),
+                               torch.as_tensor(update[2]), 0, cfg)
+            calls += 1
+            for g, w in ((ts.td.x, js.td.x), (ts.td.p, js.td.p)):
+                np.testing.assert_array_equal(_bits(g), _bits(w),
+                                              f"scan {i} {kind}")
+    assert calls > 3 * len(twists)
+
+
+def _yaw_terms(q: torch.Tensor):
+    """``quat_yaw``'s atan2 arguments, as the closed loop forms them."""
+    w, x, y, z = q
+    return 2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z)
+
+
+def test_lu_forms_equal_the_jitted_reference():
+    """``kalman.lu_inverse`` and ``lu_solve`` of float32 2 x 2 and 3 x 3
+    matrices (random and symmetric positive definite) equal jitted
+    ``jnp.linalg.inv`` and ``solve`` (LAPACK's ``sgetrf`` and ``strsm``)
+    bit for bit."""
+    rng = np.random.default_rng(9)
+    inv, solve = jax.jit(jnp.linalg.inv), jax.jit(jnp.linalg.solve)
+    for n in (2, 3):
+        for t in range(400):
+            a = np.float32(rng.normal(size=(n, n)))
+            if t % 2:
+                a = np.float32(a @ a.T + np.eye(n))
+            b = np.float32(rng.normal(size=n))
+            ta = torch.as_tensor(a)
+            np.testing.assert_array_equal(
+                _bits(kalman.lu_inverse(ta)), _bits(inv(a)))
+            np.testing.assert_array_equal(
+                _bits(kalman.lu_solve(*kalman.lu_factor(ta),
+                                      torch.as_tensor(b))),
+                _bits(solve(a, b)))
 
 
 def test_geometry_maps_equal_the_jitted_reference(drive):

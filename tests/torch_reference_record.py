@@ -10,10 +10,16 @@ manifest): what the JAX package computes on the CPU for every case of
 With ``--drive`` it writes (or checks) the second record,
 ``tests/data/torch_reference_drive.npz`` and its manifest: eval_ate.py's
 closed-loop drive through the JAX package's ``FusedLocalizationPipeline``
-under both configurations (``reference_cases.py`` says what it holds).
-XLA:CPU runs the normal equations' matrix products through Eigen, whose
-summation order depends on the number of threads it is given, so the
-drive record is what a machine with the manifest's ``cpu_count`` writes.
+under both configurations (``reference_cases.py`` says what it holds),
+with the first update's Huber weights and normal equations at each
+drive's recorded prior; and what XLA:CPU computes for the normal
+equations of seeded problems, for ±2^40 probe pairs and for the Huber
+weights (ROADMAP §C21). XLA:CPU runs the normal equations' matrix
+products through Eigen, whose summation order depends on the number of
+threads it is given, so the drive record is what a machine with the
+manifest's ``cpu_count`` writes; the writer raises unless the port's
+forms (``core/_xla_dot.py``) give the same bits on the writing machine, and
+names their parameters in the manifest (``xla_cpu_contraction``).
 
 Per case (a scene under ``kitti_hdl64()`` or ``vlp16()`` at full width)
 and prior: the reference's labels (int8, and their sha256) and
@@ -251,6 +257,7 @@ def reference_drive(name: str, inputs) -> tuple[dict, dict]:
     give the drive's result bit for bit, or this raises."""
     from lidar_feature_extraction_tpu.core import stats as jstats
     from lidar_feature_extraction_tpu.ops import gauss_newton as jgn
+    from lidar_feature_extraction_tpu.ops import smallalg as jsmallalg
     from lidar_feature_extraction_tpu.pipeline.replay import (
         FusedLocalizationPipeline)
 
@@ -293,7 +300,30 @@ def reference_drive(name: str, inputs) -> tuple[dict, dict]:
         jax.debug.callback(lambda x: seen["scale"].append(np.asarray(x)), s)
         return s
 
+    update = jgn.weighted_update
+    seen["update"] = []
+
+    def update_cb(q, weights, problem, degeneracy_threshold):
+        # The reference's weighted_update, with D, A and b read out.
+        w = jnp.where(problem.valid, weights, 0.0)
+        vf = problem.valid.astype(problem.jac_rows.dtype)
+        w_rows = jgn.rows_from_corr(problem, w)[:, None]
+        v_rows = jgn.rows_from_corr(problem, vf)[:, None]
+        j = problem.jac_rows
+        D = (j * v_rows).T @ j
+        A = (j * w_rows).T @ j
+        b = j.T @ (w_rows[:, 0] * problem.res_rows)
+        M = jgn.make_m(q)
+        H = M.T @ A @ M
+        dx = -jsmallalg.cholesky_solve(H, M.T @ b)
+        degenerate = jsmallalg.min_eigval_below(D, degeneracy_threshold)
+        bad = degenerate | ~jnp.all(jnp.isfinite(dx))
+        jax.debug.callback(lambda *v: seen["update"].append(
+            [np.asarray(a) for a in v]), weights, D, A, b)
+        return jnp.where(bad, jnp.zeros_like(dx), dx), H
+
     jgn.make_problem, jstats.masked_scale_bisect = make_cb, scale_cb
+    jgn.weighted_update = update_cb
     try:
         jax.clear_caches()
         got, _ = jax.jit(lambda m, im, p: jloc.localize_scan(
@@ -301,6 +331,7 @@ def reference_drive(name: str, inputs) -> tuple[dict, dict]:
         jax.effects_barrier()
     finally:
         jgn.make_problem, jstats.masked_scale_bisect = make, scale
+        jgn.weighted_update = update
         jax.clear_caches()
     same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in (
         (got.status, want.status), (got.iterations, want.iterations),
@@ -310,8 +341,11 @@ def reference_drive(name: str, inputs) -> tuple[dict, dict]:
         raise RuntimeError(f"{name}: the traced program with callbacks does "
                            "not give the drive's result")
     jac, res, errors, valid = seen["problem"][0]
+    weights, d, a, b = seen["update"][0]
     probe = {"probe_errors": errors, "probe_valid": valid,
-             "probe_scale": np.float32(seen["scale"][0])}
+             "probe_scale": np.float32(seen["scale"][0]),
+             "probe_weights": weights, "probe_D": d, "probe_A": a,
+             "probe_b": b}
     digests = {"jac_rows_sha256": rc.rows_sha256(jac),
                "res_rows_sha256": rc.rows_sha256(res),
                "rows": int(jac.shape[0]), "correspondences": int(len(errors))}
@@ -333,12 +367,66 @@ def reference_drive_inputs():
                                                           rng=rng)
 
 
+def normal_equations_record() -> tuple[dict, dict]:
+    """What XLA:CPU computes for the Gauss-Newton normal equations on this
+    machine (ROADMAP §C21): D = jv^T j, A = jw^T j and b = j^T wr of
+    ``rc.ne_problem(m)`` for each of ``rc.NE_ROWS`` and the full
+    ``a.T @ b`` of each probe pair (the reference's expressions, jitted),
+    and the reference's jitted Huber weights of ``rc.huber_inputs()``.
+    The port's plain versions must give the same bits, or this raises:
+    then the contraction tree of the running machine (its thread count, its
+    caches) is not the one ``core/_xla_dot.py`` encodes. Returns the
+    arrays and the manifest entry naming the tree's parameters."""
+    from lidar_feature_extraction_tpu.core import stats as jstats
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+    from lidar_feature_extraction_tpu_torch.core import stats as tstats
+
+    ne = jax.jit(lambda jv, jw, j, wr: (jv.T @ j, jw.T @ j, j.T @ wr))
+    probe = jax.jit(lambda a, b: a.T @ b)
+    arrays, differ = {}, []
+    for m in rc.NE_ROWS:
+        args = rc.ne_problem(m)
+        want = [np.asarray(x) for x in ne(*map(jnp.asarray, args))]
+        got = xd.normal_equations_plain(*map(torch.as_tensor, args))
+        sums = np.stack([np.asarray(probe(*map(jnp.asarray,
+                                               rc.probe_operands(m, p, q))))
+                         for p, q in rc.ne_probe_pairs(m)])
+        port = np.stack([xd.normal_equations_plain(*map(
+            torch.as_tensor, (a, a, b, b[:, 0])))[0].numpy()
+            for a, b in (rc.probe_operands(m, p, q)
+                         for p, q in rc.ne_probe_pairs(m))])
+        for key, w, g in (("D", want[0], got[0]), ("A", want[1], got[1]),
+                          ("b", want[2], got[2]), ("probe", sums, port)):
+            arrays[f"normal_equations.{m}.{key}"] = w
+            if not np.array_equal(np.asarray(g).view(np.int32),
+                                  w.view(np.int32)):
+                differ.append(f"{m}.{key}")
+    e = rc.huber_inputs()
+    arrays["huber.weights"] = np.asarray(jax.jit(jstats.huber_derivative)(
+        jnp.asarray(e)))
+    if not np.array_equal(tstats.huber_derivative(torch.as_tensor(e)).numpy(
+    ).view(np.int32), arrays["huber.weights"].view(np.int32)):
+        differ.append("huber")
+    if differ:
+        raise RuntimeError("the port's XLA:CPU forms are not the running "
+                           "machine's: "
+                           f"{differ}")
+    tree = {"threads": xd.XLA_CPU_THREADS, "single_kc": xd.SINGLE_KC,
+            "threaded_kc": xd.THREADED_KC, "dnnl_k_block": xd.DNNL_K_BLOCK,
+            "shard_above": xd.SHARD_ABOVE, "eight_above": xd.EIGHT_ABOVE,
+            "group": xd.GROUP, "packet_entries": xd.PACKET_ENTRIES,
+            "rows": list(rc.NE_ROWS)}
+    return arrays, tree
+
+
 def build_drive_record() -> tuple[dict, dict]:
-    """(arrays by ``<drive>.<name>``, manifest) of both drives."""
+    """(arrays by ``<drive>.<name>``, manifest) of both drives, and the
+    normal equations' and Huber weights' record."""
     from lidar_feature_extraction_tpu.utils.evaluation import ate_rmse
 
     inputs = reference_drive_inputs()
-    arrays, drives = {}, {}
+    arrays, tree = normal_equations_record()
+    drives = {}
     for name in rc.DRIVES:
         fields, digests = reference_drive(name, inputs)
         for k, a in fields.items():
@@ -356,6 +444,7 @@ def build_drive_record() -> tuple[dict, dict]:
                      "torch": torch.__version__,
                      "python": sys.version.split()[0]},
         "jax_enable_x64": True, "cpu_count": os.cpu_count(),
+        "xla_cpu_contraction": tree,
         "inputs_sha256": rc.drive_inputs_sha256(*inputs),
         "inputs": "eval_ate.py's drive from the JAX package's worldsim: "
                   "numpy seed 0, 50 poles over 35 m, 30000 ground points, "
