@@ -21,12 +21,16 @@ Phases, each of which must pass (any failure exits non-zero):
    every magnitude, signed zeros, subnormals, infinities, NaN, exact
    cancellations, near-halfway sums, and broadcast and strided operands;
    and ``normal_equations`` (the Gauss-Newton D, A and b in XLA:CPU's
-   summation order, ROADMAP §C21) against its plain version
+   summation order, ROADMAP §C21, §C22) against its plain version
    ``core/_xla_dot.py::normal_equations_plain``, bit for bit: its tree
    equal to ``contraction_tree`` for every row count up to 16,384, then
-   seeded problems at row counts of every regime (not multiples of a
-   block among them) at B = 1, 8 and 32, rows read through strides, each
-   lane equal to its lone launch;
+   seeded problems at row counts of every regime (the gradient's loops
+   under 4,096 rows and its tiled loop from there, not multiples of a
+   block among them) at B = 1, 8 and 32, with j read through strides,
+   row-major (bulk copies) and starting off a 16-byte boundary, each
+   lane equal to its lone launch; and the kernel against the drive
+   record's reference bits (the JAX package's jitted expressions) at its
+   15 small and 5 large row counts and the two cut-width first updates;
 2. scenes: the reference ``bench.py`` scene (seed 0, 64 x 2304 range
    image, a map of the scan's features at 7 noisy keyframe poses) and a
    street canyon ray-cast from 7 keyframes of one world, both at
@@ -247,10 +251,16 @@ Phases, each of which must pass (any failure exits non-zero):
    registration). Last, ``fma_f32`` timed at 2^20 elements and at a row
    block's [8192, 3] (profiler device time, host time, the plain
    version's and ``torch.addcmul``'s CUDA-event time, the bytes bound);
-   and ``normal_equations`` at the drives' row counts (10,240 and 14,336)
-   alone and as a batch of 32 (profiler device time, host time, the
-   plain version's CUDA-event time and one ``torch.matmul`` of the
-   stacked operands', the bytes bound).
+   ``normal_equations`` at the drives' row counts (10,240 and 14,336)
+   alone and as a batch of 32, and at 2,047 rows, on row-major operands
+   as the main path's (profiler device time, also with j column-major,
+   host time, the plain version's CUDA-event time and one
+   ``torch.matmul`` of the stacked operands', the bytes bound and the
+   order's chain floor, in the timing line only: its longest chain's
+   dependent FMAs at an assumed 4 cycles each and the SM clock's
+   maximum, computed, not measured); and the launch floor, the device
+   time per launch of PyTorch's near-empty spin kernel
+   (``torch.cuda._sleep(0)``; the profiler, as for the kernels).
 
 Prints the card's name and power limit, one JSON line per phase, the
 kernel summary line, and as its last line
@@ -290,12 +300,24 @@ NE_REPLACES = ("none (XLA:CPU's dots in lidar_feature_extraction_tpu/ops/"
                "gauss_newton.py:158-160; the plain version lidar_feature_"
                "extraction_tpu_torch/core/_xla_dot.py::"
                "normal_equations_plain)")
-# normal_equations' check: row counts (unsharded, 6 and 8 blocks, the
-# drives', some not multiples of a block) and the trees compared.
-NE_ROWS = (1, 7, 385, 609, 1000, 4099, 7990, 7991, 8197, 8198, 10240, 10243,
-           14336)
+# normal_equations' check: row counts (the gradient's loops under 4,096
+# rows and its tiled loop from there, unsharded, 6 and 8 blocks, the
+# drives', some not multiples of a block, and one whose sums are too
+# many to fold from shared memory) and the trees compared.
+NE_ROWS = (1, 7, 49, 50, 64, 65, 100, 352, 353, 385, 609, 1000, 2047, 4095,
+           4096, 4099, 7990, 7991, 8197, 8198, 10240, 10243, 14336, 81920)
 NE_TREE_ROWS = 16384
 NE_LAUNCHES = 200
+# The layouts of the check's operands: j column-major (read one float at a
+# time), all row-major (16-byte copies), and all starting one float into
+# their buffers (16-byte copies from a shifted start).
+NE_LAYOUTS = ("strided", "contiguous", "offset")
+# The launch floor: PyTorch's spin kernel for 0 cycles
+# (torch.cuda._sleep(0)), timed as the others.
+SPIN_KERNEL = "spin_kernel"
+# Cycles assumed for one dependent float32 FMA, for the order's chain
+# floor (computed, not measured; reported in the timing line only).
+FMA_LATENCY_CYCLES = 4
 # Scans of each drive held to the drive record (ROADMAP §C20, §C21).
 DRIVE_HELD_SCANS = {"production": 20, "faithful": 20}
 # The drive's acceptance limits. ATE_EVAL.json's closed-loop ATE-RMSE of
@@ -2142,21 +2164,72 @@ def fma_timing(dev, fma, bound_us, device_us_per_launch,
     return out
 
 
-def ne_operands(m: int, batch: int, device):
+def ne_operands(m: int, batch: int, device, layout: str = "strided"):
     """A seeded problem for normal_equations: (jv, jw, j, wr) with
-    ``batch`` lanes of ``m`` rows on ``device``, j read through strides
-    (a column-major view), 90% of the rows valid, exponential weights."""
+    ``batch`` lanes of ``m`` rows on ``device``, 90% of the rows valid,
+    exponential weights; laid out as ``NE_LAYOUTS`` says."""
     import torch
 
     g = torch.Generator().manual_seed(1000 * m + batch)
     j = torch.randn(batch, m, 7, generator=g)
     valid = (torch.rand(batch, m, 1, generator=g) < 0.9).float()
-    w = torch.rand(batch, m, 1, generator=g).exponential_() * valid
+    w = torch.rand(batch, m, 1, generator=g).exponential_(generator=g) * valid
     r = torch.randn(batch, m, generator=g)
     j = j.to(device)
-    strided = j.transpose(1, 2).contiguous().transpose(1, 2)
-    return (j * valid.to(device), j * w.to(device), strided,
-            (w[..., 0] * r).to(device))
+    args = [j * valid.to(device), j * w.to(device), j,
+            (w[..., 0] * r).to(device)]
+    if layout == "strided":
+        args[2] = j.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "offset":
+        for i, a in enumerate(args):
+            buf = torch.empty(a.numel() + 1, device=device)
+            args[i] = buf[1:].view(a.shape)
+            args[i].copy_(a)
+    return tuple(args)
+
+
+def chain_floor_fmas(m: int) -> int:
+    """The longest chain of dependent FMAs in the order the kernel keeps
+    for ``m`` rows: a chunk of D and A, or b's longest path (the tiled
+    loop's lanes; under 4,096 rows the vector loop's lanes, its epilogue
+    and the scalar rows after it)."""
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+
+    chunk = max(hi - lo for blk in xd.contraction_tree(m)[1]
+                for lo, hi in blk)
+    if m >= xd.GEMV_TILED_FROM:
+        return max(chunk, m // 8)
+    width, trips, unrolled, epilogue, etrips = xd.gemv_loop(m)
+    if not width:
+        return max(chunk, m)
+    main = trips * (width // 8 if unrolled else 1)
+    rest = m - trips * width - epilogue * etrips
+    return max(chunk, main + etrips + rest)
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock's maximum (``nvidia-smi --query-gpu=clocks.max.sm``),
+    in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()
+    return float(out[0])
+
+
+def launch_floor(device_us_per_launch, host_us_per_call) -> dict:
+    """The device time per launch (profiler, as the kernels' timings) and
+    host time per call of PyTorch's spin kernel for 0 cycles, a kernel
+    that reads the clock once and returns: what any launch costs."""
+    import torch
+
+    def launch():
+        torch.cuda._sleep(0)
+
+    dev_us, seen = device_us_per_launch(launch, SPIN_KERNEL, NE_LAUNCHES)
+    return {"kernel": "torch.cuda._sleep(0)", "device_us": dev_us,
+            "device_launches_seen": seen,
+            "host_us": host_us_per_call(launch)}
 
 
 def ne_phase(dev, ne) -> dict:
@@ -2173,6 +2246,8 @@ def ne_phase(dev, ne) -> dict:
     def bits(x):
         return x.contiguous().view(torch.int32)
 
+    import reference_cases as rc
+
     saved = ne.normal_equations_cuda.launches
     trees = [m for m in range(1, NE_TREE_ROWS + 1)
              if ne.tree(m).tolist() != [
@@ -2183,42 +2258,74 @@ def ne_phase(dev, ne) -> dict:
     err = 0.0
     for m in NE_ROWS:
         for batch in (1, 8, 32) if m in (10240, 14336) else (1, 8):
-            args = ne_operands(m, batch, dev)
-            got = ne.normal_equations_cuda(*args)
-            want = xd.normal_equations_plain(*args)
-            lone = ne.normal_equations_cuda(*(a[-1] for a in args))
-            err = max(err, *(float((g - w).abs().max())
-                             for g, w in zip(got, want)))
-            out["cases"][f"{m}x{batch}"] = {
-                "equal": all(torch.equal(bits(g), bits(w))
-                             for g, w in zip(got, want)),
-                "lane_equals_lone": all(torch.equal(bits(g[-1]), bits(x))
-                                        for g, x in zip(got, lone))}
+            for layout in NE_LAYOUTS if batch < 32 else ("strided",):
+                args = ne_operands(m, batch, dev, layout)
+                got = ne.normal_equations_cuda(*args)
+                want = xd.normal_equations_plain(*args)
+                lone = ne.normal_equations_cuda(*(a[-1] for a in args))
+                err = max(err, *(float((g - w).abs().max())
+                                 for g, w in zip(got, want)))
+                out["cases"][f"{m}x{batch}.{layout}"] = {
+                    "equal": all(torch.equal(bits(g), bits(w))
+                                 for g, w in zip(got, want)),
+                    "lane_equals_lone": all(
+                        torch.equal(bits(g[-1]), bits(x))
+                        for g, x in zip(got, lone))}
+    # The reference's own bits (the drive record, written from the JAX
+    # package's jitted expressions): seeded problems at every recorded
+    # row count, and the first update of the cut-width scenes.
+    arrays, manifest = rc.load_drive()
+    record = {}
+    for m in (*rc.NE_SMALL_ROWS, *rc.NE_ROWS):
+        got = ne.normal_equations_cuda(*(torch.as_tensor(a, device=dev)
+                                         for a in rc.ne_problem(m)))
+        record[str(m)] = all(
+            torch.equal(bits(g), bits(torch.as_tensor(
+                arrays[f"normal_equations.{m}.{k}"], device=dev)))
+            for g, k in zip(got, "DAb"))
+    for scene in rc.CUT_SCENES:
+        got = rc.cut_normal_equations(
+            *(arrays[f"cut.{scene}.{k}"] for k in (
+                "jac_rows", "res_rows", "valid", "weights")),
+            manifest["cut_updates"][scene]["shape"], device=dev.type)
+        record[f"cut.{scene}"] = all(
+            torch.equal(bits(g), bits(torch.as_tensor(
+                arrays[f"cut.{scene}.{k}"], device=dev)))
+            for g, k in zip(got, "DAb"))
+    out["record_equal"] = record
     torch.cuda.synchronize()
     ne.normal_equations_cuda.launches = saved
     out["max_abs_err"] = err
     bad = {k: v for k, v in out["cases"].items() if not all(v.values())}
     check(not trees, f"normal_equations: trees differ at rows {trees[:10]}")
     check(not bad, f"normal_equations: differs from its plain version: {bad}")
+    off = [k for k, v in record.items() if not v]
+    check(not off, f"normal_equations: differs from the record at {off}")
     return out
 
 
 def ne_timing(dev, ne, bound_us, device_us_per_launch,
               host_us_per_call) -> dict:
     """normal_equations timed on the card at the drives' row counts
-    (10,240: faithful; 14,336: production), alone and as a batch of 32:
-    device time per launch (profiler), host time per call, the plain
-    version's time and one ``torch.matmul`` of the stacked operands
-    (``[jv | jw | j]^T [j | wr]``, a superset of D, A and b) by CUDA
-    events, and the bound: the operands read once and the 105 outputs
-    written once at the memory rate, against 105 multiply-adds per row."""
+    (10,240: faithful; 14,336: production), alone and as a batch of 32,
+    and at 2,047 rows (the gradient's loop fusion), on row-major operands
+    as the main path gives them: device time per launch (profiler; also
+    with j column-major, read float by float), host time per call, the
+    plain version's time and one ``torch.matmul`` of the stacked operands (``[jv | jw | j]^T
+    [j | wr]``, a superset of D, A and b) by CUDA events, the bound (the
+    operands read once and the 105 outputs written once at the memory
+    rate, against 105 multiply-adds per row). ``ne_chain_floor`` gives
+    each case's chain floor beside it."""
     import torch
     from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
 
     saved = ne.normal_equations_cuda.launches
     out = {}
-    for m, batch in ((10240, 1), (14336, 1), (14336, 32)):
-        args = ne_operands(m, batch, dev)
+    for m, batch in ((2047, 1), (10240, 1), (14336, 1), (14336, 32)):
+        # Row-major, as the main path's problems are (b's stages come in
+        # by bulk copies); the column-major j's time beside it.
+        args = ne_operands(m, batch, dev, "contiguous")
+        strided = ne_operands(m, batch, dev, "strided")
         lhs = torch.cat(args[:3], dim=-1).transpose(-1, -2)
         rhs = torch.cat([args[2], args[3][..., None]], dim=-1)
         nbytes = 4 * batch * (m * (3 * 7 + 1) + 105)
@@ -2229,6 +2336,9 @@ def ne_timing(dev, ne, bound_us, device_us_per_launch,
         out[f"{m}x{batch}"] = {
             "rows": m, "batch": batch, "device_us": dev_us,
             "device_launches_seen": seen,
+            "strided_device_us": device_us_per_launch(
+                lambda: ne.normal_equations_cuda(*strided),
+                "normal_equations_kernel", NE_LAUNCHES)[0],
             "host_us": host_us_per_call(
                 lambda: ne.normal_equations_cuda(*args)),
             "plain_ms": time_ms(lambda: xd.normal_equations_plain(*args),
@@ -2236,6 +2346,21 @@ def ne_timing(dev, ne, bound_us, device_us_per_launch,
             "library_ms": time_ms(lambda: torch.matmul(lhs, rhs)),
             "bound_us": bound, "bound_by": by, "bytes": nbytes}
     ne.normal_equations_cuda.launches = saved
+    return out
+
+
+def ne_chain_floor(times: dict) -> dict:
+    """The order's chain floor of each case of ``ne_timing``: its
+    longest chain's dependent FMAs (``chain_floor_fmas``) at an assumed
+    ``FMA_LATENCY_CYCLES`` each and the SM clock's maximum. A computed
+    figure, not a measurement."""
+    mhz = sm_clock_mhz()
+    out = {"fma_latency_cycles_assumed": FMA_LATENCY_CYCLES,
+           "sm_clock_max_mhz": mhz}
+    for case, t in times.items():
+        fmas = chain_floor_fmas(t["rows"])
+        out[case] = {"fmas": fmas,
+                     "us": fmas * FMA_LATENCY_CYCLES / mhz}
     return out
 
 
@@ -2866,7 +2991,10 @@ def main() -> int:
     emit("fma_f32_timing", nvidia_smi=smi, **fma_times)
     ne_times = ne_timing(dev, ne_cuda, bound_us, device_us_per_launch,
                          host_us_per_call)
-    emit("normal_equations_timing", nvidia_smi=smi, **ne_times)
+    emit("normal_equations_timing", nvidia_smi=smi,
+         chain_floor=ne_chain_floor(ne_times), **ne_times)
+    floor = launch_floor(device_us_per_launch, host_us_per_call)
+    emit("launch_floor", nvidia_smi=smi, **floor)
 
     bench = k1_runs["bench"]
     fma_t = fma_times["1m"]
@@ -2899,6 +3027,9 @@ def main() -> int:
         # torch.addcmul(c, a, b): one PyTorch call of a * b + c; it is
         # used nowhere in the port.
         "library_ms": fma_t["library_ms"],
+        # A near-empty kernel's device time per launch, to read
+        # fma_f32's against.
+        "launch_floor_ms": floor["device_us"] / 1e3,
         "timed": fma_times, "check": fma_check}, {
         "name": "normal_equations", "route": "cuda", "source": NE_SOURCE,
         "replaces": NE_REPLACES,

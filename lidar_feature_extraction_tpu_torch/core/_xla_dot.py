@@ -10,11 +10,16 @@ in three ways, each with its own order of float32 sums:
   oneDNN ``sgemm`` inside each task. The summation tree is a function of
   M and of the thread count (``contraction_tree``); within each chunk of
   rows the sum is a fused multiply-add chain from +0 in row order;
-- the gradient ``b = j^T (w r)`` is XLA's tiled row-major matrix-vector
+- the gradient ``b = j^T (w r)`` (``w r`` rounded first, in a fusion of
+  its own) is, from 4,096 rows, XLA's tiled row-major matrix-vector
   loop: eight lanes, lane l an FMA chain over rows l, l + 8, ..., the
   lanes added as (l, l + 4), then (l, l + 2), then (0, 1), and the last
-  M mod 8 rows an FMA chain of their own added last (``gemv_plain``;
-  from 4,096 rows, where XLA emits that loop: ROADMAP §C22);
+  M mod 8 rows an FMA chain of their own added last; below 4,096 rows
+  XLA fuses the transpose into a naive dot loop that LLVM vectorizes:
+  a rounded product at one row, one FMA chain per column up to 49
+  rows, else 8-lane registers (2 or 4 a trip) with an epilogue loop and
+  a scalar tail, whose order ``gemv_loop`` and ``_gemv_fused`` give
+  (``gemv_plain``; ROADMAP §C22);
 - the small products after them (``M^T A M``, ``M^T b``) are FMA chains
   from the first product in index order (``_xla_f32.matmul``), and the
   unrolled Cholesky solve, the exponential map and the quaternion update
@@ -27,7 +32,11 @@ confirmed bit for bit on random data at 49 row counts from 1 to 40,960
 and on every update of eval_ate.py's two drives, read from the jitted
 program with ``jax.debug.callback`` (the drive record,
 ``tests/data/torch_reference_drive.npz``, keeps the reference's sums and
-its manifest these parameters).
+its manifest these parameters). The small gradient's order was read
+from the fusion's optimized LLVM IR and its x86 code (the backend
+reassociates a loop that is unrolled whole) and confirmed bit for bit at
+every row count from 1 to 4,199 and on the first update of the jitted
+``localize_scan`` at two cut widths (also in the drive record).
 
 In float32 every function here computes those forms; ``normal_equations``
 sends CUDA tensors to the kernel ``csrc/normal_equations.cu`` (one launch
@@ -71,6 +80,33 @@ EIGHT_ABOVE = 8197
 GROUP = 4
 PACKET_ENTRIES = 48
 
+# The gradient b = j^T (w r) ([M, 7]^T [M]). From GEMV_TILED_FROM rows
+# XLA:CPU runs its tiled matrix-vector loop. Below, it fuses the transpose
+# into the dot and emits a naive loop (per column, acc += j[k] * v[k]
+# with a reassociable add), which LLVM vectorizes for the x86 target
+# (8 float32 lanes, the product fused into the add):
+# - 1 row: one rounded product; up to GEMV_SERIAL_MAX rows the row loop is
+#   unrolled first and the columns vectorized: one FMA chain per column
+#   from +0 in row order;
+# - above, a vector loop of 2 registers (16 rows) a trip up to
+#   GEMV_INTERLEAVE2_MAX rows, else 4 (32 rows), over (M - 1) // width
+#   trips, one row always left to the scalar loop; lane l of register u
+#   is an FMA chain over rows width * i + 8u + l, lane 0 of register 0
+#   from +0 and every other lane from -0; the registers are added in
+#   order and the lanes as (l, l + 4), (l, l + 2), (0, 1);
+# - up to GEMV_FULL_UNROLL trips the loop is unrolled whole and the
+#   backend reassociates: one register's chain from the start vector
+#   over register 0's trips in order, then each other register's trips
+#   with the first two swapped (trips 1, 0, 2, 3, ...);
+# - an epilogue loop of 2, 4 or 8 lanes (by the cost of the M mod width
+#   rows left, gemv_loop) starts from the sum in lane 0 and -0 in the
+#   others, and is reduced the same way; the scalar loop then goes on
+#   as one FMA chain from that sum.
+GEMV_TILED_FROM = 4096
+GEMV_SERIAL_MAX = 49
+GEMV_INTERLEAVE2_MAX = 64
+GEMV_FULL_UNROLL = 10
+
 
 def _slices(k: int, kc: int) -> list[tuple[int, int]]:
     """TensorFlow's contraction kernel: ``k`` rows in slices of about
@@ -113,8 +149,10 @@ def contraction_tree(m: int) -> tuple[bool, tuple]:
     return True, tuple(blocks)
 
 
-def _chains(a: torch.Tensor, b: torch.Tensor, rows: tuple) -> torch.Tensor:
-    """Float32 FMA chains from +0: for each chain c (``rows[c]``, row
+def _chains(a: torch.Tensor, b: torch.Tensor, rows: tuple,
+            init: torch.Tensor | None = None) -> torch.Tensor:
+    """Float32 FMA chains from ``init`` (float32, broadcast to
+    [..., C, I, J]; +0 when None): for each chain c (``rows[c]``, row
     indices in order), ``acc = fma(a[k, i], b[k, j], acc)`` over its
     rows. ``a`` [..., M, I], ``b`` [..., M, J] -> [..., C, I, J].
 
@@ -128,8 +166,10 @@ def _chains(a: torch.Tensor, b: torch.Tensor, rows: tuple) -> torch.Tensor:
     whose calls on small arrays cost a fraction of torch's (a chain has
     up to M / 8 steps)."""
     out_shape = (*a.shape[:-2], len(rows), a.shape[-1], b.shape[-1])
+    init = (a.new_zeros(out_shape) if init is None
+            else init.to(a.device).expand(out_shape))
     if max((len(r) for r in rows), default=0) == 0:
-        return a.new_zeros(out_shape)
+        return init.clone()
     index, pad = _chain_index(rows)
     cpu = a.device.type == "cpu"
     if cpu:
@@ -145,20 +185,20 @@ def _chains(a: torch.Tensor, b: torch.Tensor, rows: tuple) -> torch.Tensor:
     if pad is not None:
         prod[..., torch.as_tensor(pad) if not cpu else pad, :, :] = -0.0
     sums = lib.empty_like(prod)
-    acc = lib.zeros_like(prod[..., 0, :, :, :])
+    acc = init.numpy().astype(f64) if cpu else init.double()
     for k in range(index.shape[0]):
         step = sums[..., k, :, :, :]
         lib.add(prod[..., k, :, :, :], acc, out=step)
         acc = (step.astype(np.float32).astype(f64) if cpu
                else step.float().double())
-    if _inexact(sums, prod, cpu):
+    if _inexact(sums, prod, init, cpu):
         return _chains_exact(torch.as_tensor(ga), torch.as_tensor(gb), pad,
-                             out_shape)
+                             init)
     last = sums[..., -1, :, :, :]
     return torch.from_numpy(last.astype(np.float32)) if cpu else last.float()
 
 
-def _inexact(sums, prod, cpu: bool) -> bool:
+def _inexact(sums, prod, init: torch.Tensor, cpu: bool) -> bool:
     """Whether a step of ``_chains`` may have rounded otherwise than one
     FMA: its float64 sum lies in the float32 subnormal range, or it is a
     float32 halfway point that the float64 addition reached inexactly
@@ -185,16 +225,20 @@ def _inexact(sums, prod, cpu: bool) -> bool:
     prev = sums[prev_at]
     prev = (prev.astype(np.float32).astype(np.float64) if cpu
             else prev.float().double())
-    prev[step == 0] = 0.0
+    first = step == 0
+    if first.any():
+        start = (init.numpy() if cpu else init)[tuple(
+            i[first] for i in (*at[:-4], *at[-3:]))]
+        prev[first] = start.astype(np.float64) if cpu else start.double()
     s, p = sums[at], prod[at]
     v = s - p
     return bool((((p - (s - v)) + (prev - v)) != 0).any())
 
 
-def _chains_exact(ga, gb, pad, out_shape) -> torch.Tensor:
+def _chains_exact(ga, gb, pad, init) -> torch.Tensor:
     """``_chains`` by ``_xla_f32._fma_plain`` step by step (the slow,
     always exact path) from the gathered operands."""
-    acc = torch.zeros(out_shape, dtype=torch.float32, device=ga.device)
+    acc = init.clone()
     for k in range(ga.shape[-3]):
         nxt = xf._fma_plain(ga[..., k, :, :, None], gb[..., k, :, None, :],
                             acc)
@@ -240,16 +284,97 @@ def _add_blocks(parts: list[torch.Tensor]) -> torch.Tensor:
     return _fold(groups)
 
 
-def gemv_plain(jt_rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``sum_k j[k, r] v[k]`` ([..., M, 7], [..., M] -> [..., 7]) as XLA's
-    tiled row-major matrix-vector loop computes it (float32)."""
+def _lane_tree(s: torch.Tensor) -> torch.Tensor:
+    """The horizontal sum of a vector register, lanes on axis -3
+    ([..., L, I, J], L a power of two): lane l plus lane l + L/2, then
+    the same on the lower half, down to one (x86's shuffle reduction)."""
+    while s.shape[-3] > 1:
+        half = s.shape[-3] // 2
+        s = s[..., :half, :, :] + s[..., half:, :, :]
+    return s[..., 0, :, :]
+
+
+def _lane_init(lanes: int, first: torch.Tensor | None,
+               like: torch.Tensor) -> torch.Tensor:
+    """A reduction's start vector [..., lanes, 7, 1]: ``first`` (or +0)
+    in lane 0, -0 (the identity of a reassociable sum) in the others."""
+    init = like.new_full((*like.shape[:-2], lanes, like.shape[-1], 1), -0.0)
+    init[..., 0, :, :] = 0.0 if first is None else first[..., None]
+    return init
+
+
+def gemv_loop(m: int) -> tuple:
+    """The loop LLVM makes of XLA:CPU's gradient fusion for ``m`` rows
+    (1 < ``m`` < ``GEMV_TILED_FROM``): (width, trips, unrolled,
+    epilogue width, epilogue trips), where ``width`` rows (``width`` / 8
+    registers of 8 lanes) go in each of the vector loop's ``trips``, the
+    ``epilogue`` loop takes ``epilogue`` rows at a time and the scalar
+    loop the rest; (0, 0, False, 0, 0) for a scalar loop."""
+    if m <= GEMV_SERIAL_MAX:
+        return 0, 0, False, 0, 0
+    width = 8 * (2 if m <= GEMV_INTERLEAVE2_MAX else 4)
+    trips = (m - 1) // width         # one row is always left to the scalar
+    rem = m % width
+    if rem < 2:
+        epilogue = 0
+    elif rem < 4 or rem in (6, 7):
+        epilogue = 2
+    else:
+        epilogue = 8 if rem >= 8 and rem % 8 < 4 else 4
+    etrips = (m - 1 - trips * width) // epilogue if epilogue else 0
+    return width, trips, trips <= GEMV_FULL_UNROLL, epilogue, etrips
+
+
+def _gemv_fused(jt_rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``gemv_plain`` below ``GEMV_TILED_FROM`` rows: the vectorized loop
+    of ``gemv_loop(M)``, per output column (float32)."""
     m = jt_rows.shape[-2]
+    b = v[..., None]
+    if m == 1:
+        return jt_rows[..., 0, :] * v[..., :1]
+    width, trips, unrolled, epilogue, etrips = gemv_loop(m)
+    s, done = None, 0
+    if trips:
+        regs = width // 8
+        block = lambda i, u: range(width * i + 8 * u,  # noqa: E731
+                                   width * i + 8 * u + 8)
+        if unrolled:
+            order = lambda u: (range(trips) if u == 0 or trips == 1  # noqa: E731
+                               else (1, 0, *range(2, trips)))
+            lanes = tuple(zip(*(block(i, u) for u in range(regs)
+                                for i in order(u))))
+            acc = _chains(jt_rows, b, lanes, _lane_init(8, None, jt_rows))
+        else:
+            lanes = tuple(tuple(range(8 * u + l, width * trips, width))
+                          for u in range(regs) for l in range(8))
+            parts = _chains(jt_rows, b, lanes,
+                            _lane_init(width, None, jt_rows))
+            acc = _fold([parts[..., 8 * u:8 * u + 8, :, :]
+                         for u in range(regs)])
+        s = _lane_tree(acc)[..., 0]
+        done = width * trips
+    if etrips:
+        lanes = tuple(tuple(range(done + l, done + epilogue * etrips,
+                                  epilogue)) for l in range(epilogue))
+        acc = _chains(jt_rows, b, lanes, _lane_init(epilogue, s, jt_rows))
+        s = _lane_tree(acc)[..., 0]
+        done += epilogue * etrips
+    tail = _chains(jt_rows, b, (tuple(range(done, m)),),
+                   None if s is None else s[..., None, :, None])
+    return tail[..., 0, :, 0]
+
+
+def gemv_plain(jt_rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``sum_k j[k, r] v[k]`` ([..., M, 7], [..., M] -> [..., 7]) as
+    XLA:CPU computes ``j.T @ v`` in the reference's update (float32):
+    from ``GEMV_TILED_FROM`` rows its tiled row-major matrix-vector loop,
+    below it the loop fusion that LLVM vectorizes (``_gemv_fused``)."""
+    m = jt_rows.shape[-2]
+    if m < GEMV_TILED_FROM:
+        return _gemv_fused(jt_rows, v)
     k8 = (m // 8) * 8
     lanes = tuple(tuple(range(lane, k8, 8)) for lane in range(8))
-    acc = _chains(jt_rows, v[..., None], lanes)[..., 0]     # [..., 8, 7]
-    s4 = acc[..., 0:4, :] + acc[..., 4:8, :]
-    s2 = s4[..., 0:2, :] + s4[..., 2:4, :]
-    s1 = s2[..., 0, :] + s2[..., 1, :]
+    s1 = _lane_tree(_chains(jt_rows, v[..., None], lanes))[..., 0]
     tail = _chains(jt_rows, v[..., None], (tuple(range(k8, m)),))
     return s1 + tail[..., 0, :, 0]
 
@@ -258,7 +383,8 @@ def normal_equations_plain(jv: torch.Tensor, jw: torch.Tensor,
                            j: torch.Tensor, wr: torch.Tensor):
     """(D, A, b) of float32 problems ``jv``, ``jw``, ``j`` [..., M, 7] and
     ``wr`` [..., M] in XLA:CPU's order: D = jv^T j and A = jw^T j summed
-    in ``contraction_tree(M)``, b = j^T wr in ``gemv_plain``'s. Leading
+    in ``contraction_tree(M)`` (at every M), b = j^T wr in
+    ``gemv_plain``'s (its loop depends on M). Leading
     dimensions are a batch; every lane is summed in the lone problem's
     tree. The plain version of ``csrc/normal_equations.cu``."""
     sharded, blocks = contraction_tree(j.shape[-2])

@@ -40,7 +40,6 @@ namespace {
 
 constexpr int64_t kOut = 2 * 49 + 7;
 constexpr int64_t kPerChunk = 98;
-constexpr int64_t kLaneSums = 8 * 7 + 7;
 
 // [B, M, k] view of a [M, k] or [B, M, k] operand (k = 7), or of wr.
 at::Tensor batched(const char* name, const at::Tensor& t, bool batch,
@@ -79,7 +78,7 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> normal_equations_op(
   const int chunks = normal_equations_chunks(static_cast<int>(m), &blocks);
   at::Tensor out = at::empty({bsz, kOut}, jj.options());
   at::Tensor work =
-      at::empty({bsz, chunks * kPerChunk + kLaneSums}, jj.options());
+      at::empty({bsz, chunks * kPerChunk}, jj.options());
   at::Tensor tickets = at::zeros({bsz}, jj.options().dtype(at::kInt));
   const long long sv[3] = {v.stride(0), v.stride(1), v.stride(2)};
   const long long sw[3] = {w.stride(0), w.stride(1), w.stride(2)};

@@ -145,6 +145,19 @@ def _normal_equations(jv, jw, j, wr, M):
     return D, M.T @ A @ M, M.T @ b
 
 
+def update_operands(weights: torch.Tensor, problem: Problem):
+    """(jv, jw, j, wr): the rows of D = jv^T j, A = jw^T j and
+    b = j^T wr, with the weights of invalid correspondences zeroed
+    (``wr``, the weights times the residuals, rounded as the reference
+    rounds it before its product with ``j``)."""
+    w = torch.where(problem.valid, weights, 0.0)
+    vf = problem.valid.to(problem.jac_rows.dtype)
+    w_rows = rows_from_corr(problem, w)[..., None]
+    v_rows = rows_from_corr(problem, vf)[..., None]
+    j = problem.jac_rows
+    return j * v_rows, j * w_rows, j, w_rows[..., 0] * problem.res_rows
+
+
 def weighted_update(q: torch.Tensor, weights: torch.Tensor,
                     problem: Problem, degeneracy_threshold: float):
     """One GN solve: dx = -(M^T A M)^{-1} M^T b, or zero when the
@@ -158,12 +171,7 @@ def weighted_update(q: torch.Tensor, weights: torch.Tensor,
     tree), ``M^T A M`` and ``M^T b`` as in-order FMA chains, and the
     Cholesky solve in its fused forms. Other dtypes sum a batch's normal
     equations lane by lane (``_lanewise``)."""
-    w = torch.where(problem.valid, weights, 0.0)
-    vf = problem.valid.to(problem.jac_rows.dtype)
-    w_rows = rows_from_corr(problem, w)[..., None]
-    v_rows = rows_from_corr(problem, vf)[..., None]
-    j = problem.jac_rows
-    jv, jw, wr = j * v_rows, j * w_rows, w_rows[..., 0] * problem.res_rows
+    jv, jw, j, wr = update_operands(weights, problem)
     M = make_m(q)
     if j.dtype == torch.float32:
         D, A, b = xd.normal_equations(jv, jw, j, wr)

@@ -292,21 +292,55 @@ DRIVE_T_ATOL = 1e-6
 # pairs of each, whose sums fingerprint the summation tree; and Huber
 # weights (XLA's float32 rsqrt) of seeded squared errors.
 NE_ROWS = (4099, 7991, 8198, 10240, 14336)
+# Problems under 4,096 rows (ROADMAP §C22), where XLA:CPU fuses the
+# gradient into a vectorized loop (``_xla_dot.gemv_loop``): one row, the
+# scalar chain, the loop's edges (2 and 4 registers, unrolled whole or
+# not), the epilogue widths, oneDNN's split slices, and the edge at 4,096.
+NE_SMALL_ROWS = (1, 7, 49, 50, 64, 65, 100, 352, 353, 385, 609, 1000, 2047,
+                 4095, 4096)
 NE_PROBE_PAIRS = 24
 HUBER_SAMPLES = 4096
+# The cut-width scenes whose first Gauss-Newton update the drive record
+# keeps (``tests/torch_reference_record.py::cut_scene``): problems under
+# 4,096 rows inside the reference's own program.
+CUT_SCENES = ("bench", "street")
 
 
-def ne_problem(m: int) -> tuple:
-    """(jv, jw, j, wr) float32 of the seeded problem with ``m`` rows:
-    ``j`` normal, 90% of the rows valid, exponential weights, normal
-    residuals."""
+def ne_inputs(m: int) -> tuple:
+    """(j, valid, w, r) float32 of the seeded problem with ``m`` rows:
+    ``j`` normal, 90% of the rows valid, exponential weights (0 where
+    invalid), normal residuals."""
     rng = np.random.default_rng(m)
     j = np.float32(rng.normal(size=(m, 7)))
     valid = np.float32(rng.random(m) < 0.9)
     w = np.float32(rng.exponential(size=m)) * valid
     r = np.float32(rng.normal(size=m))
+    return j, valid, w, r
+
+
+def ne_problem(m: int) -> tuple:
+    """(jv, jw, j, wr) float32 of ``ne_inputs(m)``: the rows of the
+    reference's ``(j v)^T j``, ``(j w)^T j`` and ``j^T (w r)``, each
+    product rounded to float32 as XLA:CPU rounds it."""
+    j, valid, w, r = ne_inputs(m)
     return (np.float32(j * valid[:, None]), np.float32(j * w[:, None]), j,
             np.float32(w * r))
+
+
+def cut_normal_equations(jac_rows, res_rows, valid, weights, shape,
+                         device: str = "cpu") -> tuple:
+    """The port's (D, A, b) of a recorded Gauss-Newton problem (numpy
+    rows, valid mask and weights; ``shape`` its blocks), its operands
+    formed as the port's ``weighted_update`` forms them."""
+    import torch
+
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+    from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+
+    t = lambda a: torch.as_tensor(np.array(a), device=device)  # noqa: E731
+    problem = gn.Problem(t(jac_rows), t(res_rows), t(np.zeros_like(weights)),
+                         t(valid), tuple(map(tuple, shape)))
+    return xd.normal_equations(*gn.update_operands(t(weights), problem))
 
 
 def ne_probe_pairs(m: int) -> np.ndarray:

@@ -181,6 +181,7 @@ _PORT_FILES = sorted(
     + [_ROOT / name for name in ("chip_smoke.py", "k1_check.py",
                                  "profile_drive.py", "profile_fits.py",
                                  "profile_k1.py",
+                                 "profile_normal_equations.py",
                                  "reference_cases.py", "scatter_probe.py",
                                  "tests/torch_parallel_worker.py")])
 

@@ -970,11 +970,12 @@ def test_exact_medians_on_the_card_equal_the_cpu(cuda, name):
     assert torch.isnan(got[2]) and not torch.isnan(got[[0, 1, 3, 4]]).any()
 
 
-@pytest.mark.parametrize("m", [7, 1000, 7991, 10243])
+@pytest.mark.parametrize("m", [7, 1000, 7991, 10243, 81920])
 def test_normal_equations_kernel_matches_plain_version(cuda, m):
     """csrc/normal_equations.cu against ``_xla_dot.normal_equations_plain``
     on the card, bit for bit, for a batch of 3 read through strides and
-    for its lanes alone (ROADMAP §C21)."""
+    for its lanes alone (ROADMAP §C21). At 81,920 rows a lane's sums are
+    too many for shared memory, and its fold reads them from L2."""
     from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
     from lidar_feature_extraction_tpu_torch.ops.normal_equations_cuda import (
         normal_equations_cuda)
@@ -997,3 +998,90 @@ def test_normal_equations_kernel_matches_plain_version(cuda, m):
                                w_[k].contiguous().view(torch.int32))
             assert torch.equal(l_.view(torch.int32),
                                g_[k].contiguous().view(torch.int32))
+
+
+def _ne_args(m, batch, device, layout):
+    """Seeded (jv, jw, j, wr) of ``batch`` lanes of ``m`` rows: row-major
+    ("contiguous"), j column-major ("strided", read one float at a time),
+    or every operand one float into its buffer ("offset")."""
+    g = torch.Generator().manual_seed(m)
+    j = torch.randn(batch, m, 7, generator=g)
+    w = torch.rand(batch, m, 1, generator=g) * (
+        torch.rand(batch, m, 1, generator=g) < 0.9)
+    r = torch.randn(batch, m, generator=g)
+    args = [(j != 0) * j, j * w, j, w[..., 0] * r]
+    args = [a.to(device) for a in args]
+    if layout == "strided":
+        args[2] = args[2].transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "offset":
+        for i, a in enumerate(args):
+            buf = torch.empty(a.numel() + 1, device=device)
+            args[i] = buf[1:].view(a.shape)
+            args[i].copy_(a)
+    return args
+
+
+def _assert_kernel_is_plain_and_lanes_lone(args):
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+    from lidar_feature_extraction_tpu_torch.ops.normal_equations_cuda import (
+        normal_equations_cuda)
+
+    got = normal_equations_cuda(*args)
+    want = xd.normal_equations_plain(*args)
+    for k in range(args[0].shape[0]):
+        lone = normal_equations_cuda(*(a[k] for a in args))
+        for g_, w_, l_ in zip(got, want, lone):
+            assert torch.equal(g_[k].view(torch.int32),
+                               w_[k].contiguous().view(torch.int32))
+            assert torch.equal(l_.view(torch.int32),
+                               g_[k].contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("m", [1, 7, 49, 50, 64, 65, 100, 352, 353, 2047,
+                               4095, 4096])
+def test_normal_equations_kernel_small_rows_match_plain_version(cuda, m):
+    """The gradient's loops under 4,096 rows (ROADMAP §C22: one product,
+    the scalar chain, the vector loop of 2 and 4 registers unrolled
+    whole or not, the epilogues) and the tiled loop from 4,096, on
+    row-major operands read 16 bytes at a time."""
+    _assert_kernel_is_plain_and_lanes_lone(_ne_args(m, 2, cuda, "contiguous"))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "offset"])
+def test_normal_equations_kernel_reads_any_layout(cuda, layout):
+    """At 385 rows the second oneDNN half starts on row 193, off a 16-byte
+    boundary: each layout's staged copies bit-equal to the plain
+    version."""
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+
+    m = 385
+    assert any(lo * 28 % 16 for blk in xd.contraction_tree(m)[1]
+               for lo, _ in blk)
+    _assert_kernel_is_plain_and_lanes_lone(_ne_args(m, 3, cuda, layout))
+
+
+def test_normal_equations_kernel_equals_the_record(cuda):
+    """The kernel on the drive record's seeded problems (under and over
+    4,096 rows) and the cut-width scenes' first updates gives the JAX
+    package's bits (tests/data/torch_reference_drive.npz)."""
+    import reference_cases as rc
+    from lidar_feature_extraction_tpu_torch.ops.normal_equations_cuda import (
+        normal_equations_cuda)
+
+    arrays, manifest = rc.load_drive()
+    for m in (*rc.NE_SMALL_ROWS, *rc.NE_ROWS):
+        got = normal_equations_cuda(*(torch.as_tensor(a, device=cuda)
+                                      for a in rc.ne_problem(m)))
+        for g_, key in zip(got, "DAb"):
+            want = arrays[f"normal_equations.{m}.{key}"]
+            assert np.array_equal(g_.cpu().numpy().view(np.int32),
+                                  want.view(np.int32)), (m, key)
+    for scene in rc.CUT_SCENES:
+        got = rc.cut_normal_equations(
+            *(arrays[f"cut.{scene}.{k}"] for k in (
+                "jac_rows", "res_rows", "valid", "weights")),
+            manifest["cut_updates"][scene]["shape"], device="cuda")
+        for g_, key in zip(got, "DAb"):
+            assert np.array_equal(
+                g_.cpu().numpy().view(np.int32),
+                arrays[f"cut.{scene}.{key}"].view(np.int32)), (scene, key)

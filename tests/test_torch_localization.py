@@ -4,11 +4,19 @@ of 7 noisy keyframe copies of the scan's features) and a street scene
 ray-cast from 7 keyframes of one world (16 x 576), where the true pose
 (identity) is recoverable.
 
-Tolerances: Gauss-Newton status and iteration count equal; the final
-pose within 1e-4 m in translation and 1e-4 in each quaternion
-component (about 2e-4 rad), the float32 normal equations being summed
-in another order. On the street scene the port's pose is within 0.1 m
-of the truth.
+Tolerances: Gauss-Newton status and iteration count equal, and the
+final pose equal bit for bit: the float32 normal equations of these
+problems (under 4,096 rows) are summed in the reference's order since
+ROADMAP §C22 (before, the pose was held within 1e-4). On the street
+scene the port's pose is within 0.1 m of the truth.
+
+The reference is jitted here, on the machine that runs the test, so the
+exact pose presumes a CPU on which XLA:CPU sums as it did on the machine
+that wrote the drive record (its thread count, L1 size and vector
+width; PERF.md §7). ``test_torch_xla_dot.py`` says whether it does: its
+record tests hold the port's forms machine-independently, and its live
+ones (``test_gradient_loops_meet_at_the_reference_edge``) fail on a CPU
+that sums otherwise.
 """
 
 import dataclasses
@@ -46,8 +54,8 @@ from lidar_feature_extraction_tpu_torch.utils.synthetic import (  # noqa: E402
     bench_scan, keyframe_copies, street_scan, street_world, to_world)
 
 R, P = 8, 256
-T_ATOL = 1e-4
-Q_ATOL = 1e-4
+T_ATOL = 0.0
+Q_ATOL = 0.0
 
 
 def _cut(cfg):

@@ -12,7 +12,14 @@ pool may differ. Checked here:
 - the port's tree constants are the recorded machine's;
 - D, A and b of seeded problems at the record's row counts (unsharded,
   sharded in 6 and in 8 blocks, the faithful and production drives'
-  rows) and every ±2^40 probe pair's sums equal the record bit for bit;
+  rows, and under 4,096 rows, where XLA fuses the gradient into a
+  vectorized loop: ROADMAP §C22) and every ±2^40 probe pair's sums equal
+  the record bit for bit;
+- D, A and b of the first update of the reference's own jitted
+  ``localize_scan`` at the cut widths (8 x 256 and 16 x 576), recorded
+  with its rows, equal the port's bit for bit;
+- at 4,095 and 4,096 rows (the knife edge between the gradient's two
+  loops) the port equals the reference's expressions jitted live;
 - the tree covers the rows in order, in at most ``XLA_CPU_THREADS``
   blocks, and a batch's lanes are summed like their lone problems;
 - the Huber weights (XLA's float32 rsqrt: the x86 estimate and two
@@ -52,18 +59,52 @@ def test_contraction_constants_are_the_recorded_machines(record):
            "threaded_kc": xd.THREADED_KC, "dnnl_k_block": xd.DNNL_K_BLOCK,
            "shard_above": xd.SHARD_ABOVE, "eight_above": xd.EIGHT_ABOVE,
            "group": xd.GROUP, "packet_entries": xd.PACKET_ENTRIES,
-           "rows": list(rc.NE_ROWS)}
+           "rows": list(rc.NE_ROWS), "small_rows": list(rc.NE_SMALL_ROWS),
+           "gemv_tiled_from": xd.GEMV_TILED_FROM,
+           "gemv_serial_max": xd.GEMV_SERIAL_MAX,
+           "gemv_interleave2_max": xd.GEMV_INTERLEAVE2_MAX,
+           "gemv_full_unroll": xd.GEMV_FULL_UNROLL}
     assert got == want
     assert xd.XLA_CPU_THREADS == manifest["cpu_count"]
 
 
-@pytest.mark.parametrize("m", rc.NE_ROWS)
+@pytest.mark.parametrize("m", rc.NE_SMALL_ROWS + rc.NE_ROWS)
 def test_normal_equations_equal_the_record(record, m):
     arrays, _ = record
     got = xd.normal_equations_plain(*map(torch.as_tensor, rc.ne_problem(m)))
     for key, value in zip("DAb", got):
         np.testing.assert_array_equal(
             _bits(value), _bits(arrays[f"normal_equations.{m}.{key}"]), key)
+
+
+@pytest.mark.parametrize("scene", rc.CUT_SCENES)
+def test_cut_width_first_update_equals_the_reference(record, scene):
+    """The first Gauss-Newton update of the jitted ``localize_scan`` at a
+    cut width (a problem under 4,096 rows), read from the reference's
+    program by the record's writer: the port's D, A and b of its rows,
+    formed as the port's ``weighted_update`` forms them, bit for bit."""
+    arrays, manifest = record
+    got = rc.cut_normal_equations(
+        *(arrays[f"cut.{scene}.{k}"] for k in (
+            "jac_rows", "res_rows", "valid", "weights")),
+        manifest["cut_updates"][scene]["shape"])
+    assert manifest["cut_updates"][scene]["rows"] < 4096
+    for key, value in zip("DAb", got):
+        np.testing.assert_array_equal(
+            _bits(value), _bits(arrays[f"cut.{scene}.{key}"]), key)
+
+
+@pytest.mark.parametrize("m", [4095, 4096])
+def test_gradient_loops_meet_at_the_reference_edge(m):
+    """Either side of the edge between XLA's fused gradient loop and its
+    tiled one, the port equals the reference's expressions
+    (gauss_newton.py:158-160) jitted live."""
+    ne = jax.jit(lambda j, v, w, r: ((j * v[:, None]).T @ j,
+                                     (j * w[:, None]).T @ j, j.T @ (w * r)))
+    want = ne(*map(jnp.asarray, rc.ne_inputs(m)))
+    got = xd.normal_equations_plain(*map(torch.as_tensor, rc.ne_problem(m)))
+    for key, g, w in zip("DAb", got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w), key)
 
 
 @pytest.mark.parametrize("m", rc.NE_ROWS)

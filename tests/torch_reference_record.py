@@ -44,6 +44,7 @@ CPU with two threads, as in the parity tests (``port_labels``, which
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -367,12 +368,140 @@ def reference_drive_inputs():
                                                           rng=rng)
 
 
+def cut_scene(scene: str):
+    """(maps, image, prior, config) of the JAX package's cut-width scene
+    ``scene`` of ``rc.CUT_SCENES``: kitti_hdl64 at 8 x 256 with 512 edge
+    and 2,048 surface slots on bench.py's scan and its map of 7 noisy
+    keyframe copies (``tests/test_torch_localization.py``'s ``scene``),
+    or at 16 x 576 on the street scene mapped from 7 keyframes
+    (its ``test_localize_scan_street_scene_recovers_the_pose``); the
+    prior t = (0.3, -0.2, 0.05)."""
+    from lidar_feature_extraction_tpu_torch.utils.synthetic import (
+        bench_scan, keyframe_copies, street_scan, street_world, to_world)
+
+    base = jconfig.kitti_hdl64()
+    r, p = (8, 256) if scene == "bench" else (16, 576)
+    ex = dataclasses.replace(base.extraction, n_rings=r, max_points_per_ring=p)
+    if scene == "bench":
+        ex = dataclasses.replace(ex, max_edges=512, max_surfaces=2048)
+    cfg = dataclasses.replace(base, extraction=ex)
+    if scene == "bench":
+        rng = np.random.default_rng(0)
+        xyz = bench_scan(rng, r, p)
+        f = jex.extract_features(ref_image(xyz), ex)
+        edge, surf = (keyframe_copies(rng, np.float32(a)[np.asarray(v)])
+                      for a, v in ((f.edge_xyz, f.edge_valid),
+                                   (f.surface_xyz, f.surface_valid)))
+    else:
+        rng = np.random.default_rng(1)
+        world = street_world(rng)
+        edges, surfs = [], []
+        for k in range(7):
+            o = ((0.0, 0.0) if k == 0
+                 else tuple(rng.uniform(-3, 3, 2) * [1, .3]))
+            yaw = 0.0 if k == 0 else float(rng.uniform(-0.05, 0.05))
+            scan = street_scan(world, rng, r, p, o, yaw)
+            xyz = scan if k == 0 else xyz
+            f = jex.extract_features(ref_image(scan), ex)
+            edges.append(to_world(np.float32(f.edge_xyz)[
+                np.asarray(f.edge_valid)], o, yaw))
+            surfs.append(to_world(np.float32(f.surface_xyz)[
+                np.asarray(f.surface_valid)], o, yaw))
+        edge, surf = np.concatenate(edges), np.concatenate(surfs)
+    maps = jloc.build_geometry_maps(
+        jnp.asarray(np.float32(edge)), jnp.ones(len(edge), bool),
+        jnp.asarray(np.float32(surf)), jnp.ones(len(surf), bool), cfg)
+    prior = JPose(jnp.asarray(np.float32([1, 0, 0, 0])),
+                  jnp.asarray(np.float32(rc.BEST_T)))
+    return maps, ref_image(xyz), prior, cfg
+
+
+def cut_update_record() -> tuple[dict, dict]:
+    """The first Gauss-Newton update of the jitted ``localize_scan`` at
+    each of ``rc.CUT_SCENES`` (problems under 4,096 rows, ROADMAP §C22):
+    its rows, valid mask and Huber weights, and D, A and b as the
+    program computes them, read with ``jax.debug.callback`` on an
+    instrumented ``weighted_update``; the traced program must give the
+    plain one's result bit for bit, and the port's plain normal
+    equations the recorded bits, or this raises. Returns the arrays
+    (``cut.<scene>.<name>``) and the manifest entry (rows, block
+    shape)."""
+    from lidar_feature_extraction_tpu.ops import gauss_newton as jgn
+    from lidar_feature_extraction_tpu.ops import smallalg as jsmallalg
+
+    arrays, manifest, differ = {}, {}, []
+    update = jgn.weighted_update
+    for scene in rc.CUT_SCENES:
+        maps, image, prior, cfg = cut_scene(scene)
+        run = lambda: jax.jit(lambda m, im, p: jloc.localize_scan(  # noqa: E731
+            m, im, p, cfg))(maps, image, prior)[0]
+        want = run()
+        seen = []
+
+        def update_cb(q, weights, problem, degeneracy_threshold):
+            # The reference's weighted_update, with its inputs and D, A
+            # and b read out.
+            w = jnp.where(problem.valid, weights, 0.0)
+            vf = problem.valid.astype(problem.jac_rows.dtype)
+            w_rows = jgn.rows_from_corr(problem, w)[:, None]
+            v_rows = jgn.rows_from_corr(problem, vf)[:, None]
+            j = problem.jac_rows
+            D = (j * v_rows).T @ j
+            A = (j * w_rows).T @ j
+            b = j.T @ (w_rows[:, 0] * problem.res_rows)
+            M = jgn.make_m(q)
+            H = M.T @ A @ M
+            dx = -jsmallalg.cholesky_solve(H, M.T @ b)
+            degenerate = jsmallalg.min_eigval_below(D, degeneracy_threshold)
+            bad = degenerate | ~jnp.all(jnp.isfinite(dx))
+            jax.debug.callback(lambda *v: seen.append(
+                [np.asarray(a) for a in v]), j, problem.res_rows,
+                problem.valid, weights, D, A, b)
+            shapes.append(problem.shape)
+            return jnp.where(bad, jnp.zeros_like(dx), dx), H
+
+        shapes = []
+        jgn.weighted_update = update_cb
+        try:
+            jax.clear_caches()
+            got = run()
+            jax.effects_barrier()
+        finally:
+            jgn.weighted_update = update
+            jax.clear_caches()
+        if not all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in (
+                (got.status, want.status), (got.iterations, want.iterations),
+                (got.pose.q, want.pose.q), (got.pose.t, want.pose.t),
+                (got.error, want.error), (got.scale, want.scale))):
+            raise RuntimeError(f"cut {scene}: the traced program with "
+                               "callbacks does not give its result")
+        names = ("jac_rows", "res_rows", "valid", "weights", "D", "A", "b")
+        for name, a in zip(names, seen[0]):
+            arrays[f"cut.{scene}.{name}"] = a
+        manifest[scene] = {"rows": int(seen[0][0].shape[0]),
+                           "shape": [list(map(int, s)) for s in shapes[0]]}
+        port = rc.cut_normal_equations(
+            *(arrays[f"cut.{scene}.{k}"] for k in names[:4]),
+            tuple(map(tuple, manifest[scene]["shape"])))
+        for key, g in zip("DAb", port):
+            if not np.array_equal(g.numpy().view(np.int32),
+                                  arrays[f"cut.{scene}.{key}"].view(
+                                      np.int32)):
+                differ.append(f"{scene}.{key}")
+    if differ:
+        raise RuntimeError("the port's normal equations are not the cut "
+                           f"programs': {differ}")
+    return arrays, manifest
+
+
 def normal_equations_record() -> tuple[dict, dict]:
     """What XLA:CPU computes for the Gauss-Newton normal equations on this
-    machine (ROADMAP §C21): D = jv^T j, A = jw^T j and b = j^T wr of
-    ``rc.ne_problem(m)`` for each of ``rc.NE_ROWS`` and the full
-    ``a.T @ b`` of each probe pair (the reference's expressions, jitted),
-    and the reference's jitted Huber weights of ``rc.huber_inputs()``.
+    machine (ROADMAP §C21, §C22): D = (j v)^T j, A = (j w)^T j and
+    b = j^T (w r) of ``rc.ne_inputs(m)`` for each of ``rc.NE_ROWS`` and
+    ``rc.NE_SMALL_ROWS`` (the reference's expressions, jitted; the port
+    gets ``rc.ne_problem(m)``, the same products rounded to float32), the
+    full ``a.T @ b`` of each probe pair at ``rc.NE_ROWS``, and the
+    reference's jitted Huber weights of ``rc.huber_inputs()``.
     The port's plain versions must give the same bits, or this raises:
     then the contraction tree of the running machine (its thread count, its
     caches) is not the one ``core/_xla_dot.py`` encodes. Returns the
@@ -381,13 +510,23 @@ def normal_equations_record() -> tuple[dict, dict]:
     from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
     from lidar_feature_extraction_tpu_torch.core import stats as tstats
 
-    ne = jax.jit(lambda jv, jw, j, wr: (jv.T @ j, jw.T @ j, j.T @ wr))
+    # The reference's expressions (gauss_newton.py:158-160), w * r inside.
+    ne = jax.jit(lambda j, v, w, r: ((j * v[:, None]).T @ j,
+                                     (j * w[:, None]).T @ j, j.T @ (w * r)))
     probe = jax.jit(lambda a, b: a.T @ b)
     arrays, differ = {}, []
-    for m in rc.NE_ROWS:
-        args = rc.ne_problem(m)
-        want = [np.asarray(x) for x in ne(*map(jnp.asarray, args))]
-        got = xd.normal_equations_plain(*map(torch.as_tensor, args))
+    for m in (*rc.NE_ROWS, *rc.NE_SMALL_ROWS):
+        want = [np.asarray(x) for x in ne(*map(jnp.asarray,
+                                               rc.ne_inputs(m)))]
+        got = xd.normal_equations_plain(*map(torch.as_tensor,
+                                             rc.ne_problem(m)))
+        for key, w, g in zip("DAb", want, got):
+            arrays[f"normal_equations.{m}.{key}"] = w
+            if not np.array_equal(g.numpy().view(np.int32),
+                                  w.view(np.int32)):
+                differ.append(f"{m}.{key}")
+        if m not in rc.NE_ROWS:
+            continue
         sums = np.stack([np.asarray(probe(*map(jnp.asarray,
                                                rc.probe_operands(m, p, q))))
                          for p, q in rc.ne_probe_pairs(m)])
@@ -395,12 +534,9 @@ def normal_equations_record() -> tuple[dict, dict]:
             torch.as_tensor, (a, a, b, b[:, 0])))[0].numpy()
             for a, b in (rc.probe_operands(m, p, q)
                          for p, q in rc.ne_probe_pairs(m))])
-        for key, w, g in (("D", want[0], got[0]), ("A", want[1], got[1]),
-                          ("b", want[2], got[2]), ("probe", sums, port)):
-            arrays[f"normal_equations.{m}.{key}"] = w
-            if not np.array_equal(np.asarray(g).view(np.int32),
-                                  w.view(np.int32)):
-                differ.append(f"{m}.{key}")
+        arrays[f"normal_equations.{m}.probe"] = sums
+        if not np.array_equal(port.view(np.int32), sums.view(np.int32)):
+            differ.append(f"{m}.probe")
     e = rc.huber_inputs()
     arrays["huber.weights"] = np.asarray(jax.jit(jstats.huber_derivative)(
         jnp.asarray(e)))
@@ -415,7 +551,11 @@ def normal_equations_record() -> tuple[dict, dict]:
             "threaded_kc": xd.THREADED_KC, "dnnl_k_block": xd.DNNL_K_BLOCK,
             "shard_above": xd.SHARD_ABOVE, "eight_above": xd.EIGHT_ABOVE,
             "group": xd.GROUP, "packet_entries": xd.PACKET_ENTRIES,
-            "rows": list(rc.NE_ROWS)}
+            "rows": list(rc.NE_ROWS), "small_rows": list(rc.NE_SMALL_ROWS),
+            "gemv_tiled_from": xd.GEMV_TILED_FROM,
+            "gemv_serial_max": xd.GEMV_SERIAL_MAX,
+            "gemv_interleave2_max": xd.GEMV_INTERLEAVE2_MAX,
+            "gemv_full_unroll": xd.GEMV_FULL_UNROLL}
     return arrays, tree
 
 
@@ -426,6 +566,8 @@ def build_drive_record() -> tuple[dict, dict]:
 
     inputs = reference_drive_inputs()
     arrays, tree = normal_equations_record()
+    cut_arrays, cut_updates = cut_update_record()
+    arrays.update(cut_arrays)
     drives = {}
     for name in rc.DRIVES:
         fields, digests = reference_drive(name, inputs)
@@ -444,7 +586,7 @@ def build_drive_record() -> tuple[dict, dict]:
                      "torch": torch.__version__,
                      "python": sys.version.split()[0]},
         "jax_enable_x64": True, "cpu_count": os.cpu_count(),
-        "xla_cpu_contraction": tree,
+        "xla_cpu_contraction": tree, "cut_updates": cut_updates,
         "inputs_sha256": rc.drive_inputs_sha256(*inputs),
         "inputs": "eval_ate.py's drive from the JAX package's worldsim: "
                   "numpy seed 0, 50 poles over 35 m, 30000 ground points, "
