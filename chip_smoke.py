@@ -14,8 +14,11 @@ Phases, each of which must pass (any failure exits non-zero):
    torch/csrc/extraction_k1.cu``, ``fma_f32`` from ``csrc/fma_f32.cu``
    with its PyTorch operator ``csrc/fma_f32_op.cpp`` and
    ``normal_equations`` from ``csrc/normal_equations.cu`` with its
-   operators ``csrc/normal_equations_op.cpp``, all three started
-   together; then ``fma_f32`` (the one-launch float32 fused
+   operators ``csrc/normal_equations_op.cpp``, and the Gauss-Newton
+   step's two fused kernels ``gn_update`` (``csrc/gn_update.cu``) and
+   ``robust_weights`` (``csrc/robust_weights.cu``) into one library with
+   their operators (``csrc/gn_kernels_op.cpp``), all four libraries
+   started together; then ``fma_f32`` (the one-launch float32 fused
    multiply-add of ``core/_xla_f32.py::fma``) against its plain version
    on the card, bit for bit (NaN against NaN): 10^6 random triples of
    every magnitude, signed zeros, subnormals, infinities, NaN, exact
@@ -31,6 +34,15 @@ Phases, each of which must pass (any failure exits non-zero):
    lane equal to its lone launch; and the kernel against the drive
    record's reference bits (the JAX package's jitted expressions) at its
    15 small and 5 large row counts and the two cut-width first updates;
+   and ``gn_update`` (the update after the normal equations: solve,
+   degeneracy guard, pose update) and ``robust_weights`` (valid count,
+   error total, MAD scale, Huber weights, block medians) against their
+   plain versions ``_xla_dot.gn_update_plain`` and
+   ``stats.robust_weights_plain``, bit for bit (NaN against NaN), on
+   ``gn_kernels_check.py``'s seeded cases at 2,047 / 10,240 / 14,336 rows
+   or correspondences (and 1, 33, 81,920 correspondences) x B = 1 / 8 /
+   32, the edge cases in a batch's first eight lanes, each lane equal to
+   its lone launch;
 2. scenes: the reference ``bench.py`` scene (seed 0, 64 x 2304 range
    image, a map of the scan's features at 7 noisy keyframe poses) and a
    street canyon ray-cast from 7 keyframes of one world, both at
@@ -44,12 +56,15 @@ Phases, each of which must pass (any failure exits non-zero):
    (a status other than EMPTY_INPUT, at least one iteration). On the
    street scene the best-case prior must end within 0.1 m of the truth
    (identity), and no noisy prior may end farther from it than it began.
-   The first scan of each run is replayed through the plain extraction
-   path and must give the same registration result. The status is not
-   held to CONVERGED / MAX_ITERATIONS: like the reference, registration
-   usually stops at its error- or scale-increase abort once near the
-   optimum, and on the bench scene (a map of copies that disagree by up
-   to 2 m) that optimum is not the identity;
+   ``normal_equations``, ``robust_weights`` and ``gn_update`` are counted
+   over the same calls (as over the drives, the batch phase and the host
+   phase): one launch of each per GN iteration, so the three counts must
+   be equal. The first scan of each run is replayed through the plain
+   extraction path and must give the same registration result. The
+   status is not held to CONVERGED / MAX_ITERATIONS: like the reference,
+   registration usually stops at its error- or scale-increase abort once
+   near the optimum, and on the bench scene (a map of copies that
+   disagree by up to 2 m) that optimum is not the identity;
 4. drive: the closed loop of ``eval_ate.py`` on the card. The port's
    worldsim makes the seed-0 world (50 poles, 35 m), its maps (30,000
    ground points) and 20 ray-cast scans of 64 rings x 2048 azimuths with
@@ -249,8 +264,11 @@ Phases, each of which must pass (any failure exits non-zero):
    (``profile_fits.fit_calls``: the launches of one search round's fits,
    of one GN iteration on them, of one that refits, and of the whole
    registration). Last, ``fma_f32`` timed at 2^20 elements and at a row
-   block's [8192, 3] (profiler device time, host time, the plain
-   version's and ``torch.addcmul``'s CUDA-event time, the bytes bound);
+   block's [8192, 3] (profiler device time with the operands read from
+   memory, cycling through more operand sets than the L2 holds, and with
+   one set in L2; host time, the plain version's CUDA-event time,
+   ``torch.addcmul``'s profiler device times by the same two methods and
+   its CUDA-event time, the bytes bound);
    ``normal_equations`` at the drives' row counts (10,240 and 14,336)
    alone and as a batch of 32, and at 2,047 rows, on row-major operands
    as the main path's (profiler device time, also with j column-major,
@@ -258,7 +276,13 @@ Phases, each of which must pass (any failure exits non-zero):
    ``torch.matmul`` of the stacked operands', the bytes bound and the
    order's chain floor, in the timing line only: its longest chain's
    dependent FMAs at an assumed 4 cycles each and the SM clock's
-   maximum, computed, not measured); and the launch floor, the device
+   maximum, computed, not measured); ``gn_update`` at B = 1 and 32 and
+   ``robust_weights`` at 10,240 correspondences (alone, with the block
+   medians, and as a batch of 32): profiler device time, host time, the
+   plain version's CUDA-event time, the bytes bound and, in the timing
+   line only, the chain floor (the longest chain of dependent float
+   operations at the same assumed 4 cycles, computed, not measured); and
+   the launch floor, the device
    time per launch of PyTorch's near-empty spin kernel
    (``torch.cuda._sleep(0)``; the profiler, as for the kernels).
 
@@ -292,6 +316,12 @@ FMA_REPLACES = ("none (the plain version, lidar_feature_extraction_tpu_"
                 "torch/core/_xla_f32.py::_fma_plain)")
 FMA_RANDOM = 1_000_000
 FMA_LAUNCHES = 200
+# The device kernel of torch.addcmul on CUDA float32 (part of its name, as
+# the profiler reports it).
+ADDCMUL_KERNEL = "addcmul_cuda_kernel"
+# fma_f32's timing cycles through this many bytes of operands, twice the
+# H100's 50 MB L2, so that each launch reads its operands from memory.
+ROTATE_BYTES = 100 << 20
 NE_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/normal_equations.cu"
 # normal_equations ports no TPU kernel either: the reference leaves the
 # normal equations to XLA (lidar_feature_extraction_tpu/ops/
@@ -308,6 +338,24 @@ NE_ROWS = (1, 7, 49, 50, 64, 65, 100, 352, 353, 385, 609, 1000, 2047, 4095,
            4096, 4099, 7990, 7991, 8197, 8198, 10240, 10243, 14336, 81920)
 NE_TREE_ROWS = 16384
 NE_LAUNCHES = 200
+GU_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/gn_update.cu"
+RW_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/robust_weights.cu"
+# The Gauss-Newton step's two fused kernels port no TPU kernel either: each
+# computes in one launch the float32 forms of the reference's jitted step
+# that the plain version computes in hundreds of launches.
+GU_REPLACES = ("none (XLA:CPU's fusions of lidar_feature_extraction_tpu/"
+               "ops/gauss_newton.py:162-172 and :228-236; the plain version "
+               "lidar_feature_extraction_tpu_torch/core/_xla_dot.py::"
+               "gn_update_plain)")
+RW_REPLACES = ("none (XLA:CPU's fusions of lidar_feature_extraction_tpu/"
+               "ops/gauss_newton.py:207-227 and :295-300; the plain version "
+               "lidar_feature_extraction_tpu_torch/core/stats.py::"
+               "robust_weights_plain)")
+# The kernels whose launches a Gauss-Newton iteration makes once each.
+GN_KERNELS = ("normal_equations", "robust_weights", "gn_update")
+# The fields of gn_kernels_timing's cases that the run measured.
+GN_MEASURED = ("device_us", "device_launches_seen", "host_us", "plain_ms")
+GN_LAUNCHES = 200
 # The layouts of the check's operands: j column-major (read one float at a
 # time), all row-major (16-byte copies), and all starting one float into
 # their buffers (16-byte copies from a shifted start).
@@ -523,8 +571,8 @@ def profile_call(fn) -> dict:
 
 def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
     """The closed loop over the drive on ``device``
-    (``reference_cases.port_drive``, timed per scan), K1's and fma_f32's
-    counts read over exactly this run; then the last scan's
+    (``reference_cases.port_drive``, timed per scan), K1's, fma_f32's
+    and ``GN_KERNELS``' counts read over exactly this run; then the last scan's
     localize_scan alone, again from the previous scan's fused pose.
     Returns the run's metrics, (maps, image, prior, cfg) of that last
     registration, and every scan's measured and fused pose ([scans, 14]
@@ -539,18 +587,15 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
     from lidar_feature_extraction_tpu_torch.utils.evaluation import (
         ate_rmse, relative_translation_errors)
 
-    from lidar_feature_extraction_tpu_torch.ops import (
-        normal_equations_cuda as ne)
-
     ms = []
     torch.cuda.synchronize()
     k1.label_and_columns_cuda.launches = 0
     fma.fma_f32_cuda.launches = 0
-    ne.normal_equations_cuda.launches = 0
+    gn_counts(reset=True)
     fields = rc.port_drive(maps, cfg, scans, twists, device, ms=ms)
     launches = k1.label_and_columns_cuda.launches
     fma_launches = fma.fma_f32_cuda.launches
-    ne_launches = ne.normal_equations_cuda.launches
+    gn_launches = gn_counts()
 
     est = fields["measured_t"]
     poses = np.concatenate([fields[k] for k in (
@@ -567,7 +612,7 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
     last_ms = 1e3 * (time.perf_counter() - start)
     return {
         "scans": len(scans), "k1_launches": launches,
-        "fma_launches": fma_launches, "ne_launches": ne_launches,
+        "fma_launches": fma_launches, "gn_launches": gn_launches,
         "finite": bool(np.isfinite(poses).all()),
         "ate_rmse_m": ate_rmse(est, gt, align=False),
         "ate_xy_rmse_m": ate_rmse(np.pad(est[:, :2], ((0, 0), (0, 1))),
@@ -2131,9 +2176,14 @@ def fma_timing(dev, fma, bound_us, device_us_per_launch,
                host_us_per_call) -> dict:
     """fma_f32 timed on the card at 2^20 elements of one shape and at a
     production row block's [8192, 3] with a broadcast ``a`` [8192, 1]:
-    device time per launch (profiler), host time per call, the plain
-    version's and ``torch.addcmul``'s time (CUDA events), and the bound
-    (16 bytes per element at the memory rate; 2 operations)."""
+    device time per launch (profiler) with the operands read from memory
+    (each launch takes the next of ``ROTATE_BYTES`` of operand sets, more
+    than the L2 holds) and, as ``device_us_l2``, with one set that stays in
+    L2; host time per call, the plain version's time (CUDA events),
+    ``torch.addcmul``'s device time per launch by the same two profiler
+    methods (and its CUDA-event time beside them), and the bound (16 bytes
+    per element at the memory rate; 2 operations)."""
+    import itertools
     import torch
     from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 
@@ -2142,24 +2192,48 @@ def fma_timing(dev, fma, bound_us, device_us_per_launch,
     g = torch.Generator(device=dev).manual_seed(12)
     for name, shape_a, shape in (("1m", (1 << 20,), (1 << 20,)),
                                  ("rows", (8192, 1), (8192, 3))):
-        a = torch.randn(shape_a, device=dev, generator=g)
-        b = torch.randn(shape, device=dev, generator=g)
-        c = torch.randn(shape, device=dev, generator=g)
-        n = b.numel()
-        nbytes = 4 * (a.numel() + 3 * n)
+        n = shape[0] * (shape[1] if len(shape) > 1 else 1)
+        nbytes = 4 * (shape_a[0] + 3 * n)
+        sets = -(-ROTATE_BYTES // nbytes)
+        a_all = torch.randn((sets, *shape_a), device=dev, generator=g)
+        b_all = torch.randn((sets, *shape), device=dev, generator=g)
+        c_all = torch.randn((sets, *shape), device=dev, generator=g)
+        a, b, c = a_all[0], b_all[0], c_all[0]
         bound, by = bound_us(nbytes, 2 * n)
-        dev_us, seen = device_us_per_launch(
-            lambda: fma.fma_f32_cuda(a, b, c), "fma_f32_kernel",
-            FMA_LAUNCHES)
+
+        def from_memory(fn):
+            order = itertools.cycle(range(sets))
+
+            def call():
+                i = next(order)
+                return fn(a_all[i], b_all[i], c_all[i])
+            return call
+
+        def kernel(x, y, z):
+            return fma.fma_f32_cuda(x, y, z)
+
+        def library(x, y, z):
+            return torch.addcmul(z, x, y)
+
         out[name] = {
-            "shape": list(shape), "device_us": dev_us,
-            "device_launches_seen": seen,
-            "host_us": host_us_per_call(lambda: fma.fma_f32_cuda(a, b, c)),
+            "shape": list(shape),
+            "operand_sets": sets,
+            "device_us": device_us_per_launch(
+                from_memory(kernel), "fma_f32_kernel", FMA_LAUNCHES)[0],
+            "device_us_l2": device_us_per_launch(
+                lambda: kernel(a, b, c), "fma_f32_kernel", FMA_LAUNCHES)[0],
+            "host_us": host_us_per_call(lambda: kernel(a, b, c)),
             "plain_ms": time_ms(lambda: xf._fma_plain(a, b, c)),
-            "library_ms": time_ms(lambda: torch.addcmul(c, a, b)),
-            "addcmul_equal": bool(torch.equal(torch.addcmul(c, a, b),
-                                              fma.fma_f32_cuda(a, b, c))),
+            "library_device_us": device_us_per_launch(
+                from_memory(library), ADDCMUL_KERNEL, FMA_LAUNCHES)[0],
+            "library_device_us_l2": device_us_per_launch(
+                lambda: library(a, b, c), ADDCMUL_KERNEL, FMA_LAUNCHES)[0],
+            "library_event_ms": time_ms(lambda: library(a, b, c)),
+            "addcmul_equal": bool(torch.equal(library(a, b, c),
+                                              kernel(a, b, c))),
             "bound_us": bound, "bound_by": by, "bytes": nbytes}
+        out[name]["share_of_library"] = (out[name]["library_device_us"]
+                                         / out[name]["device_us"])
     fma.fma_f32_cuda.launches = saved
     return out
 
@@ -2364,6 +2438,251 @@ def ne_chain_floor(times: dict) -> dict:
     return out
 
 
+def gn_counts(reset: bool = False) -> dict:
+    """The launch counts of ``GN_KERNELS``' wrappers (then set to 0 with
+    ``reset``)."""
+    from lidar_feature_extraction_tpu_torch.ops import (
+        gn_kernels_cuda, normal_equations_cuda)
+
+    wrappers = {
+        "normal_equations": normal_equations_cuda.normal_equations_cuda,
+        "robust_weights": gn_kernels_cuda.robust_weights_cuda,
+        "gn_update": gn_kernels_cuda.gn_update_cuda}
+    out = {k: w.launches for k, w in wrappers.items()}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return out
+
+
+def check_gn_counts(phase: str, counts: dict) -> None:
+    """Each GN iteration of a phase launches each of ``GN_KERNELS`` once:
+    equal counts, and at least one."""
+    check(counts["normal_equations"] > 0
+          and len(set(counts.values())) == 1,
+          f"{phase}: GN kernels launched {counts} times; want one launch "
+          f"of each per GN iteration")
+
+
+def gn_kernels_phase(dev) -> dict:
+    """``gn_update`` and ``robust_weights`` against their plain versions
+    (``_xla_dot.gn_update_plain``, ``stats.robust_weights_plain``) on the
+    card, bit for bit (a NaN against a NaN), on ``gn_kernels_check``'s
+    seeded cases: normal equations of problems of ``gk.ROWS`` rows and
+    errors of as many correspondences and of ``gk.EDGE_N`` (one, 33, and a
+    lane read from L2), at B = 1, 8 and 32 (81,920 at 1 and 8), the edge
+    cases in a batch's first eight lanes; robust_weights with and without
+    the block medians; every lane equal to its lone launch. The launches
+    made here are not counted for any main path."""
+    import torch
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+    from lidar_feature_extraction_tpu_torch.core import stats
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        gn_update_cuda, robust_weights_cuda)
+
+    saved = gn_counts()
+    out = {"gn_update": {}, "robust_weights": {}}
+    err = {"gn_update": 0.0, "robust_weights": 0.0}
+
+    def abs_err(kernel, got, want):
+        for g, w in zip(got, want):
+            if g is not None and g.is_floating_point():
+                d = (g.float() - w.float()).abs()
+                d = d[torch.isfinite(d)]
+                if d.numel():
+                    err[kernel] = max(err[kernel], float(d.max()))
+
+    def lanes_equal(got, lone, names):
+        return all(v == 0 for v in gk.compare(got, lone, names).values())
+
+    for m in gk.ROWS:
+        for batch in gk.BATCHES:
+            args = [torch.as_tensor(a, device=dev)
+                    for a in gk.gn_update_case(m, batch)]
+            got = gn_update_cuda(*args, gk.TAU)
+            want = xd.gn_update_plain(*args, gk.TAU)
+            abs_err("gn_update", got, want)
+            lone = all(lanes_equal(
+                [g[k] for g in got],
+                gn_update_cuda(*(a[k] for a in args), gk.TAU),
+                gk.GN_OUTPUTS) for k in range(batch))
+            out["gn_update"][f"{m}x{batch}"] = {
+                "differ": gk.compare(got, want, gk.GN_OUTPUTS),
+                "lanes_equal_lone": lone}
+    for n in (*gk.ROWS, *gk.EDGE_N):
+        for batch in gk.BATCHES if n != gk.EDGE_N[-1] else gk.BATCHES[:2]:
+            errors, valid, shape = gk.robust_weights_case(n, batch)
+            errors = torch.as_tensor(errors, device=dev)
+            valid = torch.as_tensor(valid, device=dev)
+            for medians in (False, True):
+                got = robust_weights_cuda(errors, valid, shape, gk.HUBER_K,
+                                          medians)
+                want = stats.robust_weights_plain(errors, valid, shape,
+                                                  gk.HUBER_K, medians)
+                abs_err("robust_weights", got, want)
+                lone = all(lanes_equal(
+                    [None if g is None else g[k] for g in got],
+                    robust_weights_cuda(errors[k], valid[k], shape,
+                                        gk.HUBER_K, medians),
+                    gk.RW_OUTPUTS) for k in range(batch))
+                out["robust_weights"][
+                    f"{n}x{batch}.{'loop' if medians else 'step'}"] = {
+                    "differ": gk.compare(got, want, gk.RW_OUTPUTS),
+                    "lanes_equal_lone": lone}
+    torch.cuda.synchronize()
+    for name, wrapper in (("robust_weights", robust_weights_cuda),
+                          ("gn_update", gn_update_cuda)):
+        wrapper.launches = saved[name]
+    bad = {f"{k}.{case}": v for k, cases in out.items()
+           for case, v in cases.items()
+           if any(v["differ"].values()) or not v["lanes_equal_lone"]}
+    check(not bad, f"gn kernels: differ from their plain versions: {bad}")
+    out["max_abs_err"] = err
+    out["cases"] = {k: len(v) for k, v in out.items() if k in err}
+    return out
+
+
+def _factor_depth(n: int, start: int, fused: bool) -> dict:
+    """Depths (dependent float operations from the start) of an unrolled
+    Cholesky factor's entries l[i, j] of an n x n matrix whose entries are
+    ready at ``start``: ``s - l l`` one step fused, two plain; a square
+    root or a division one step."""
+    step = 1 if fused else 2
+    d = {}
+    for i in range(n):
+        for j in range(i + 1):
+            s = start
+            for k in range(j):
+                s = max(s, d[i, k], d[j, k]) + step
+            d[i, j] = s + 1 if i == j else max(s, d[j, j]) + 1
+    return d
+
+
+# gn_update after its solve: the guard (1), exp_so3 (the sum of squares 3,
+# the root 1, the branch 1, the half angle 1; glibc's reduction and
+# polynomial in float64, 12; the sine over the angle 1, dq's vector 1),
+# the fused quaternion product (4), its norm (4 + the root 1 + the clamp
+# 1) and the division (1): counted from csrc/gn_update.cu.
+POSE_UPDATE_OPS = 33
+
+
+def gn_update_chain_ops() -> int:
+    """The longest chain of dependent float operations in gn_update (every
+    operation one step, divisions and square roots included): the lift
+    and the two products (1 + 7 + 7), then the fused 6 x 6 factor and its
+    two substitutions, or beside it the plain 7 x 7 eigenvalue test
+    (from the loads), then ``POSE_UPDATE_OPS``."""
+    start = 15
+    l = _factor_depth(6, start, True)
+    y, fwd = [], start
+    for i in range(6):
+        fwd = start
+        for k in range(i):
+            fwd = max(fwd, l[i, k], y[k]) + 1
+        y.append(max(fwd, l[i, i]) + 1)
+    x = [0] * 6
+    x[5] = max(fwd, l[5, 5] + 1) + 1
+    for i in reversed(range(5)):
+        s = y[i]
+        for k in range(i + 1, 6):
+            s = max(s, l[k, i], x[k]) + 1
+        x[i] = max(s, l[i, i]) + 1
+    eig = max(_factor_depth(7, 1, False).values()) + 1
+    return max(max(x), eig) + POSE_UPDATE_OPS
+
+
+def robust_weights_chain_ops(n: int) -> int:
+    """The longest chain of dependent float operations in robust_weights'
+    block 0 (the block medians run beside it on other blocks): the error
+    total's tree (31 adds per level, the last level's adds), then two
+    medians of 3 rounds each, a round the threshold (sub, div, fma), a
+    binary search over the 256 thresholds (8 compares), the histogram's
+    running sum (5 shuffles, 7 warp totals) and the next bounds (add,
+    fma), each median's min and max (5 shuffles, 32 warp values) and
+    midpoint (2); then the scale (1) and one weight (add, div, clamp,
+    rsqrt's 11 steps, mul: 15)."""
+    levels, left = 0, n
+    while left > 32:
+        left = -(-left // 32)
+        levels += 1
+    tree = 31 * levels + left
+    one_round = 3 + 8 + 12 + 2
+    median = 5 + 32 + 3 * one_round + 2
+    return tree + 2 * median + 1 + 15
+
+
+def gn_kernels_timing(dev, bound_us, device_us_per_launch,
+                      host_us_per_call) -> dict:
+    """``gn_update`` on the production rows' normal equations at B = 1
+    and 32, and ``robust_weights`` on 10,240 correspondences (the
+    production drive's) alone, with the block medians, and as a batch of
+    32: device time per launch (profiler), host time per call, the plain
+    version's (CUDA events), the bytes bound (each operand read once, each
+    output written once) and, computed, not measured, the chain floor:
+    the longest chain of dependent float operations at an assumed
+    ``FMA_LATENCY_CYCLES`` each and the SM clock's maximum."""
+    import torch
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+    from lidar_feature_extraction_tpu_torch.core import stats
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        gn_update_cuda, robust_weights_cuda)
+
+    saved = gn_counts()
+    mhz = sm_clock_mhz()
+    out = {"fma_latency_cycles_assumed": FMA_LATENCY_CYCLES,
+           "sm_clock_max_mhz": mhz}
+    for batch in (1, 32):
+        args = [torch.as_tensor(a, device=dev)
+                for a in gk.gn_update_case(14336, batch)]
+        # D, A, b, q, t in; q, t, H, the two norms out.
+        nbytes = 4 * batch * ((49 + 49 + 7 + 4 + 3) + (4 + 3 + 36 + 2))
+        bound, by = bound_us(nbytes, 0)
+        ops = gn_update_chain_ops()
+        dev_us, seen = device_us_per_launch(
+            lambda: gn_update_cuda(*args, gk.TAU), "gn_update_kernel",
+            GN_LAUNCHES)
+        out[f"gn_update.{batch}"] = {
+            "batch": batch, "device_us": dev_us,
+            "device_launches_seen": seen,
+            "host_us": host_us_per_call(
+                lambda: gn_update_cuda(*args, gk.TAU)),
+            "plain_ms": time_ms(lambda: xd.gn_update_plain(*args, gk.TAU),
+                                reps=5, warmup=1),
+            "bound_us": bound, "bound_by": by, "bytes": nbytes,
+            "chain_ops": ops,
+            "chain_floor_us": ops * FMA_LATENCY_CYCLES / mhz}
+    n = 10240
+    for batch, medians in ((1, False), (1, True), (32, True)):
+        errors, valid, shape = gk.robust_weights_case(n, batch)
+        errors = torch.as_tensor(errors, device=dev)
+        valid = torch.as_tensor(valid, device=dev)
+        args = (errors, valid, shape, gk.HUBER_K, medians)
+        # errors and flags in; weights, count, total, scale and the block
+        # medians out.
+        nbytes = batch * (n * (4 + 1 + 4) + 4 * (3 + medians * len(shape)))
+        bound, by = bound_us(nbytes, 0)
+        ops = robust_weights_chain_ops(n)
+        dev_us, seen = device_us_per_launch(
+            lambda: robust_weights_cuda(*args), "robust_weights_kernel",
+            GN_LAUNCHES)
+        out[f"robust_weights.{n}x{batch}.{'loop' if medians else 'step'}"] \
+            = {"n": n, "batch": batch, "block_medians": medians,
+               "device_us": dev_us, "device_launches_seen": seen,
+               "host_us": host_us_per_call(lambda: robust_weights_cuda(
+                   *args)),
+               "plain_ms": time_ms(lambda: stats.robust_weights_plain(
+                   *args), reps=5, warmup=1),
+               "bound_us": bound, "bound_by": by, "bytes": nbytes,
+               "chain_ops": ops,
+               "chain_floor_us": ops * FMA_LATENCY_CYCLES / mhz}
+    for name, wrapper in (("robust_weights", robust_weights_cuda),
+                          ("gn_update", gn_update_cuda)):
+        wrapper.launches = saved[name]
+    return out
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -2398,6 +2717,7 @@ def main() -> int:
     from lidar_feature_extraction_tpu_torch.pipeline.localization import (
         localize_scan)
     from lidar_feature_extraction_tpu_torch.ops import fma_cuda
+    from lidar_feature_extraction_tpu_torch.ops import gn_kernels_cuda
     from lidar_feature_extraction_tpu_torch.ops import (
         normal_equations_cuda as ne_cuda)
     from k1_check import bound_us, check_and_time, k1_args, k1_work
@@ -2421,16 +2741,16 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        so, fma_so, ne_so = [f.result() for f in (
-            pool.submit(k1.build), pool.submit(fma_cuda.build),
-            pool.submit(ne_cuda.build))]
-    k1.load()
-    fma_cuda.load()
-    ne_cuda.load()
+    builders = (k1, fma_cuda, ne_cuda, gn_kernels_cuda)
+    with ThreadPoolExecutor(len(builders)) as pool:
+        libs = [f.result() for f in [pool.submit(b.build) for b in builders]]
+    for b in builders:
+        b.load()
+    so, fma_so, ne_so, gn_so = libs
     emit("build", seconds=time.perf_counter() - start, library=so.name,
-         fma_library=fma_so.name, ne_library=ne_so.name)
-    for lib in (so, fma_so, ne_so):
+         fma_library=fma_so.name, ne_library=ne_so.name,
+         gn_kernels_library=gn_so.name)
+    for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip(), flush=True)
@@ -2441,6 +2761,8 @@ def main() -> int:
     emit("fma_f32", **fma_check)
     ne_check = ne_phase(dev, ne_cuda)
     emit("normal_equations", **ne_check)
+    gn_check = gn_kernels_phase(dev)
+    emit("gn_kernels", **gn_check)
 
     # 2. scenes
     cfg = kitti_hdl64()
@@ -2462,7 +2784,7 @@ def main() -> int:
     chains = {}
     k1.label_and_columns_cuda.launches = 0
     fma_cuda.fma_f32_cuda.launches = 0
-    ne_cuda.normal_equations_cuda.launches = 0
+    gn_counts(reset=True)
     for scene, (maps, img) in (("bench", (bench_maps, bench_img)),
                                ("street", (street_maps, street_img))):
         for noisy in (False, True):
@@ -2471,14 +2793,14 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = k1.label_and_columns_cuda.launches
     fma_launches = fma_cuda.fma_f32_cuda.launches
-    ne_launches = ne_cuda.normal_equations_cuda.launches
     launches_by_phase = {"localize": launches}
     fma_by_phase = {"localize": fma_launches}
-    ne_by_phase = {"localize": ne_launches}
+    gn_by_phase = {"localize": gn_counts()}
     n_scans = sum(len(c) for c in chains.values())
-    check(ne_launches >= n_scans,
-          f"localize: normal_equations launched {ne_launches} times for "
-          f"{n_scans} scans")
+    check_gn_counts("localize", gn_by_phase["localize"])
+    check(gn_by_phase["localize"]["normal_equations"] >= n_scans,
+          f"localize: GN kernels launched {gn_by_phase['localize']} times "
+          f"for {n_scans} scans")
     check(launches >= n_scans,
           f"localize: K1 launched {launches} times for {n_scans} scans")
     check(fma_launches >= n_scans,
@@ -2594,10 +2916,11 @@ def main() -> int:
               f"drive {name}: fma_f32 launched {run['fma_launches']} times "
               f"for {run['scans']} scans")
         fma_by_phase[f"drive {name}"] = run["fma_launches"]
-        check(run["ne_launches"] >= run["scans"],
-              f"drive {name}: normal_equations launched "
-              f"{run['ne_launches']} times for {run['scans']} scans")
-        ne_by_phase[f"drive {name}"] = run["ne_launches"]
+        check_gn_counts(f"drive {name}", run["gn_launches"])
+        check(run["gn_launches"]["normal_equations"] >= run["scans"],
+              f"drive {name}: GN kernels launched {run['gn_launches']} "
+              f"times for {run['scans']} scans")
+        gn_by_phase[f"drive {name}"] = run["gn_launches"]
         check(run["finite"], f"drive {name}: non-finite pose")
         check(run["ate_rmse_m"] <= limit,
               f"drive {name}: ATE {run['ate_rmse_m']} m above {limit} m")
@@ -2661,14 +2984,13 @@ def main() -> int:
             run["k1_launches"]
 
     # 7. batch: the batched localizer at B = 1, 8, 32 on both scenes.
-    ne_cuda.normal_equations_cuda.launches = 0
+    gn_counts(reset=True)
     batch_launches, batch_later = batch_phase(
         {"bench": (bench_maps, bench_img), "street": (street_maps,
                                                        street_img)},
         cfg, dev, k1)
-    ne_by_phase["batch"] = ne_cuda.normal_equations_cuda.launches
-    check(ne_by_phase["batch"] >= 1,
-          "batch: normal_equations never launched on the batched path")
+    gn_by_phase["batch"] = gn_counts()
+    check_gn_counts("batch", gn_by_phase["batch"])
     launches += batch_launches
     launches_by_phase["batch"] = batch_launches
 
@@ -2846,10 +3168,13 @@ def main() -> int:
 
     # 14. host: HostLocalizer over the localize phase's inputs and the
     # drive's FeatureMaps, against localize_scan.
+    gn_counts(reset=True)
     host, host_later = host_phase(
         chains, {"bench": bench_maps, "street": street_maps}, cfg,
         maps["faithful"], faithful, scans, dev, k1)
-    emit("host", **host)
+    gn_by_phase["host"] = gn_counts()
+    check_gn_counts("host", gn_by_phase["host"])
+    emit("host", gn_launches=gn_by_phase["host"], **host)
     geo, feat = host["geometry_maps"], host["feature_maps"]
     check(host["k1_launches"] == host["scans"],
           f"host: K1 launched {host['k1_launches']} times for "
@@ -2993,12 +3318,20 @@ def main() -> int:
                          host_us_per_call)
     emit("normal_equations_timing", nvidia_smi=smi,
          chain_floor=ne_chain_floor(ne_times), **ne_times)
+    gn_times = gn_kernels_timing(dev, bound_us, device_us_per_launch,
+                                 host_us_per_call)
+    emit("gn_kernels_timing", nvidia_smi=smi, **gn_times)
     floor = launch_floor(device_us_per_launch, host_us_per_call)
     emit("launch_floor", nvidia_smi=smi, **floor)
 
     bench = k1_runs["bench"]
     fma_t = fma_times["1m"]
     ne_t = ne_times["10240x1"]
+    gu_t = gn_times["gn_update.1"]
+    rw_t = gn_times["robust_weights.10240x1.loop"]
+
+    def by_phase(kernel):
+        return {p: c[kernel] for p, c in gn_by_phase.items()}
     print(json.dumps({"kernels": [{
         "name": "k1_label_and_columns", "route": "cuda",
         "source": K1_SOURCE, "replaces": K1_REPLACES,
@@ -3024,17 +3357,18 @@ def main() -> int:
         "max_abs_err": fma_check["max_abs_err"],
         "ms": fma_t["device_us"] / 1e3, "plain_ms": fma_t["plain_ms"],
         "bound_ms": fma_t["bound_us"] / 1e3, "bound_by": fma_t["bound_by"],
-        # torch.addcmul(c, a, b): one PyTorch call of a * b + c; it is
-        # used nowhere in the port.
-        "library_ms": fma_t["library_ms"],
+        # torch.addcmul(c, a, b): one PyTorch call of a * b + c, its
+        # device time by the kernel's profiler method; it is used nowhere
+        # in the port.
+        "library_ms": fma_t["library_device_us"] / 1e3,
         # A near-empty kernel's device time per launch, to read
         # fma_f32's against.
         "launch_floor_ms": floor["device_us"] / 1e3,
         "timed": fma_times, "check": fma_check}, {
         "name": "normal_equations", "route": "cuda", "source": NE_SOURCE,
         "replaces": NE_REPLACES,
-        "launches": sum(ne_by_phase.values()),
-        "launches_by_phase": ne_by_phase,
+        "launches": sum(by_phase("normal_equations").values()),
+        "launches_by_phase": by_phase("normal_equations"),
         "max_abs_err": ne_check["max_abs_err"],
         "ms": ne_t["device_us"] / 1e3, "plain_ms": ne_t["plain_ms"],
         "bound_ms": ne_t["bound_us"] / 1e3, "bound_by": ne_t["bound_by"],
@@ -3043,7 +3377,25 @@ def main() -> int:
         "library_ms": ne_t["library_ms"],
         "device_us": ne_t["device_us"], "host_us": ne_t["host_us"],
         "timed": ne_times, "check": {
-            k: v for k, v in ne_check.items() if k != "cases"}}]}),
+            k: v for k, v in ne_check.items() if k != "cases"}}, *({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(by_phase(name).values()),
+        "launches_by_phase": by_phase(name),
+        "max_abs_err": gn_check["max_abs_err"][name],
+        "ms": t["device_us"] / 1e3, "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
+        # No single PyTorch call computes either function.
+        "library_ms": None,
+        "device_us": t["device_us"], "host_us": t["host_us"],
+        # What this run measured; the computed chain floor stays in the
+        # gn_kernels_timing line.
+        "timed": {k: {f: x for f, x in v.items() if f in GN_MEASURED}
+                  for k, v in gn_times.items() if k.startswith(name + ".")},
+        "cases_checked": gn_check["cases"][name]}
+        for name, source, replaces, t in (
+            ("gn_update", GU_SOURCE, GU_REPLACES, gu_t),
+            ("robust_weights", RW_SOURCE, RW_REPLACES, rw_t)))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,132 @@
+"""Seeded cases and bit-for-bit comparisons for the Gauss-Newton step's two
+fused kernels, ``gn_update`` (``csrc/gn_update.cu``) and
+``robust_weights`` (``csrc/robust_weights.cu``), shared by
+``chip_smoke.py``, ``tests/test_torch_cuda.py`` (kernel against plain
+version on the card) and ``tests/test_torch_gn_kernels.py`` (plain versions' lanes against lone
+calls, and the edge lanes, on the CPU). numpy and torch only.
+
+Every case is made with numpy from a seed, so the CPU and the card see the
+same inputs. A batch of B >= 8 lanes starts with the edge cases:
+
+- ``gn_update``: a regular problem, an empty one (D, A, b zero: degenerate),
+  a degenerate D (a Jacobian column zero), a solve that is not finite
+  (A zero), the small-angle branch (b scaled by 1e-12), a large rotation
+  (b scaled up, so that glibc's reduction takes n != 0), an A that is not
+  positive definite (a NaN pivot), and a regular one at another pose;
+- ``robust_weights``: all valid, no valid correspondence (NaN medians and
+  scale), one residual block all invalid, ties (a run of equal errors),
+  zeros, errors over twelve orders of magnitude, a single valid one, and
+  a regular lane.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# The rows of the problems behind gn_update's D, A, b, and the
+# correspondences of robust_weights' errors: under 4,096, the faithful
+# drive's (10,240) and the production rows (14,336); the batch sizes.
+ROWS = (2047, 10240, 14336)
+BATCHES = (1, 8, 32)
+# robust_weights' edge sizes: one error, one over a window of 32, and a
+# lane too long to stage in shared memory (read from L2).
+EDGE_N = (1, 33, 81920)
+TAU = 0.1
+HUBER_K = 1.345
+GN_EDGE_LANES = 8
+RW_EDGE_LANES = 8
+
+
+def _unit_quaternions(rng, batch: int) -> np.ndarray:
+    q = rng.normal(size=(batch, 4))
+    q[:, 0] = np.abs(q[:, 0]) + 4.0       # near the identity, as a GN pose
+    return np.float32(q / np.linalg.norm(q, axis=1, keepdims=True))
+
+
+def gn_update_case(m: int, batch: int, seed: int = 0) -> tuple:
+    """(D [B, 7, 7], A [B, 7, 7], b [B, 7], q [B, 4], t [B, 3]) float32:
+    the normal equations of ``batch`` seeded problems of ``m`` rows (each
+    float32 sum rounded once from float64: any float32 values are inputs
+    the update must take), the first ``GN_EDGE_LANES`` lanes the edge
+    cases of the module's note when ``batch`` has room for them."""
+    rng = np.random.default_rng(1000 * m + batch + seed)
+    j = np.float32(rng.normal(size=(batch, m, 7)) * 0.3)
+    w = np.float32(rng.exponential(size=(batch, m, 1))
+                   * (rng.random((batch, m, 1)) < 0.9))
+    r = np.float32(rng.normal(size=(batch, m)) * 0.05)
+    if batch >= GN_EDGE_LANES:
+        j[2, :, 4] = 0.0                      # degenerate D
+    j64, w64 = j.astype(np.float64), w.astype(np.float64)
+    d = np.float32(np.einsum("bmi,bmj->bij", j64, j64))
+    a = np.float32(np.einsum("bmi,bmj->bij", j64 * w64, j64))
+    b = np.float32(np.einsum("bmi,bm->bi", j64, w64[..., 0] * r))
+    q = _unit_quaternions(rng, batch)
+    t = np.float32(rng.normal(size=(batch, 3)))
+    if batch >= GN_EDGE_LANES:
+        d[1] = a[1] = b[1] = 0.0              # empty
+        a[3] = 0.0                            # not finite
+        b[4] *= np.float32(1e-12)             # small angle
+        b[5] *= np.float32(3e3)               # large rotation
+        a[6] = -a[6]                          # not positive definite
+    return d, a, b, q, t
+
+
+def robust_weights_shape(n: int) -> tuple:
+    """A Problem's block shape for ``n`` correspondences: edges (three
+    rows each) one fifth, as ``kitti_hdl64()``'s 2,048 of 10,240, and
+    surfaces; one block under five."""
+    n_edge = n // 5
+    return ((n_edge, 3), (n - n_edge, 1)) if n_edge else ((n, 1),)
+
+
+def robust_weights_case(n: int, batch: int, seed: int = 0) -> tuple:
+    """(errors [B, N] float32, valid [B, N] bool, shape): squared residual
+    norms (exponential, scaled per lane), 90% valid, the first
+    ``RW_EDGE_LANES`` lanes the edge cases of the module's note when
+    ``batch`` has room for them."""
+    rng = np.random.default_rng(7000 * n + batch + seed)
+    shape = robust_weights_shape(n)
+    errors = np.float32(rng.exponential(size=(batch, n))
+                        * 10.0 ** rng.uniform(-4, 0, (batch, 1)))
+    valid = rng.random((batch, n)) < 0.9
+    if batch >= RW_EDGE_LANES:
+        valid[0] = True                                   # all valid
+        valid[1] = False                                  # empty
+        valid[2, :shape[0][0]] = False                    # a block empty
+        errors[3, : (n + 1) // 2] = errors[3, 0]          # ties
+        errors[4, ::3] = 0.0                              # zeros
+        errors[5] = np.float32(10.0 ** rng.uniform(-8, 4, n))
+        valid[6] = False                                  # one valid
+        valid[6, n // 2] = True
+    return errors, valid, shape
+
+
+def differing(got, want) -> int:
+    """Elements of two float32 or int32 tensors whose bits differ, a NaN
+    against a NaN counting as equal (NaN payloads differ between
+    devices)."""
+    import torch
+
+    got, want = got.contiguous(), want.contiguous()
+    if got.dtype == torch.float32:
+        same = (got.view(torch.int32) == want.view(torch.int32)) \
+            | (torch.isnan(got) & torch.isnan(want))
+    else:
+        same = got == want
+    return int((~same).sum())
+
+
+def compare(got: tuple, want: tuple, names: tuple) -> dict:
+    """``{name: elements that differ}`` over the outputs (None matches
+    None)."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        if g is None or w is None:
+            out[name] = int((g is None) != (w is None))
+        else:
+            out[name] = differing(g.cpu(), w.cpu())
+    return out
+
+
+GN_OUTPUTS = ("q", "t", "H", "dq_norm", "dt_norm")
+RW_OUTPUTS = ("n_valid", "error", "scale", "weights", "block_meds")

@@ -40,8 +40,11 @@ every row count from 1 to 4,199 and on the first update of the jitted
 
 In float32 every function here computes those forms; ``normal_equations``
 sends CUDA tensors to the kernel ``csrc/normal_equations.cu`` (one launch
-for a problem or a batch) and CPU tensors to ``normal_equations_plain``.
-Other dtypes keep one rounding per operation in torch's order.
+for a problem or a batch) and CPU tensors to ``normal_equations_plain``,
+and ``gn_update`` (everything after the normal equations: the solve, the
+degeneracy guard and the pose update) sends them to ``csrc/gn_update.cu``
+and to ``gn_update_plain``. Other dtypes keep one rounding per operation
+in torch's order.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 
 from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+from lidar_feature_extraction_tpu_torch.ops import smallalg
 
 # The intra-op threads XLA:CPU's Eigen pool had on the machine that wrote
 # the drive record (its manifest's cpu_count): the contraction tree below
@@ -488,3 +492,42 @@ def pose_update(q: torch.Tensor, dx: torch.Tensor):
     ``quat_multiply``."""
     dq = quat.exp_so3(dx[..., :3])
     return quat.quat_normalize(quat_multiply(q, dq)), dq
+
+
+def gn_update_plain(D: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
+                    q: torch.Tensor, t: torch.Tensor, tau: float):
+    """The float32 Gauss-Newton update after the normal equations D, A
+    [..., 7, 7], b [..., 7], as the reference's jitted step computes it:
+    at the lift M = ``make_m(q)``, ``H = M^T A M`` and ``g = M^T b`` as
+    in-order FMA chains (``_xla_f32.matmul``), ``dx = -H^{-1} g`` by
+    ``cholesky_solve``, a zero step where D's smallest eigenvalue is below
+    ``tau`` (plain arithmetic, ``smallalg.min_eigval_below``) or the solve
+    is not finite, then ``pose_update`` and ``t + dt``. Returns
+    ``(q_new [..., 4], t_new [..., 3], H [..., 6, 6], |dq.vec|, |dt|)``,
+    the norms as ``xf.sqrt`` of the in-order sums of squares. Leading
+    dimensions are a batch. The plain version of ``csrc/gn_update.cu``."""
+    # ops/gauss_newton.py imports this module: import its lift lazily.
+    from lidar_feature_extraction_tpu_torch.ops.gauss_newton import make_m
+
+    M = make_m(q)
+    mt = M.transpose(-1, -2)
+    H = xf.matmul(xf.matmul(mt, A), M)
+    dx = -cholesky_solve(H, xf.matmul(mt, b[..., None])[..., 0])
+    bad = smallalg.min_eigval_below(D, tau) | ~torch.all(torch.isfinite(dx),
+                                                         dim=-1)
+    dx = torch.where(bad[..., None], torch.zeros_like(dx), dx)
+    q_new, dq = pose_update(q, dx)
+    dt = dx[..., 3:]
+    return q_new, t + dt, H, quat._norm(dq[..., 1:]), quat._norm(dt)
+
+
+def gn_update(D: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
+              q: torch.Tensor, t: torch.Tensor, tau: float):
+    """``gn_update_plain`` on CPU tensors; on CUDA tensors the kernel
+    ``csrc/gn_update.cu`` (``ops/gn_kernels_cuda``), which computes the same
+    bits in one launch for a problem or a batch."""
+    if D.is_cuda:
+        from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+            gn_update_cuda)
+        return gn_update_cuda(D, A, b, q, t, tau)
+    return gn_update_plain(D, A, b, q, t, tau)

@@ -13,12 +13,19 @@ Port of ``lidar_feature_extraction_tpu/core/stats.py``. Two medians:
 Everything stays on the input's device: no value is read back to the
 host. Every median reduces over the last axis, so leading dimensions are
 a batch (one median per lane of a batched Gauss-Newton step).
+
+``robust_weights`` gathers what a float32 Gauss-Newton iteration computes
+from its errors before the update (the valid count, the error total, the
+MAD scale, the Huber weights and, for the fused loop, the per-block
+medians): on CUDA tensors one launch of ``csrc/robust_weights.cu``, on
+the CPU its plain version ``robust_weights_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
 from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 
 # 1 / norm.ppf(3/4): consistent-estimator factor for MAD -> stddev.
@@ -111,3 +118,51 @@ def huber_derivative(e: torch.Tensor, k: float = 1.345) -> torch.Tensor:
     above = (k * xf.rsqrt(safe) if e.dtype == torch.float32
              else k / torch.sqrt(safe))
     return torch.where(e < k * k, torch.ones_like(e), above)
+
+
+def block_medians(values: torch.Tensor, mask: torch.Tensor,
+                  sizes) -> torch.Tensor:
+    """``_wide_median`` of each block of the last axis (``sizes``: the
+    blocks' lengths, in order), stacked: [..., N] -> [..., len(sizes)]."""
+    meds, off = [], 0
+    for n in sizes:
+        meds.append(_wide_median(values[..., off:off + n],
+                                 mask[..., off:off + n]))
+        off += n
+    return torch.stack(meds, dim=-1)
+
+
+def robust_weights_plain(errors: torch.Tensor, valid: torch.Tensor,
+                         shape: tuple, huber_k: float = 1.345,
+                         with_block_medians: bool = False):
+    """What a float32 Gauss-Newton iteration computes from its errors
+    [..., N] and validity before the update, in the reference's jitted
+    forms: ``(n_valid, error, scale, weights, block_meds)``: the valid
+    count (int32), the total of the valid errors (``_xla_dot.reduce_sum``),
+    the MAD scale (``masked_scale_bisect``), the Huber weights of the valid
+    errors over ``scale + 1e-16`` (``huber_derivative``), and with
+    ``with_block_medians`` the lower-middle median of each residual block
+    of ``shape`` (``((N_b, D_b), ...)``, a Problem's), else None. Leading
+    dimensions are a batch. The plain version of
+    ``csrc/robust_weights.cu``."""
+    n_valid = torch.sum(valid, dim=-1, dtype=torch.int32)
+    masked = torch.where(valid, errors, 0.0)
+    scale = masked_scale_bisect(errors, valid)
+    weights = huber_derivative(masked / (scale[..., None] + 1e-16), huber_k)
+    meds = (block_medians(errors, valid, [n for n, _ in shape])
+            if with_block_medians else None)
+    return n_valid, xd.reduce_sum(masked), scale, weights, meds
+
+
+def robust_weights(errors: torch.Tensor, valid: torch.Tensor, shape: tuple,
+                   huber_k: float = 1.345, with_block_medians: bool = False):
+    """``robust_weights_plain`` on CPU tensors; on CUDA tensors the kernel
+    ``csrc/robust_weights.cu`` (``ops/gn_kernels_cuda``), which
+    computes the same bits in one launch for a problem or a batch."""
+    if errors.is_cuda:
+        from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+            robust_weights_cuda)
+        return robust_weights_cuda(errors, valid, shape, huber_k,
+                                   with_block_medians)
+    return robust_weights_plain(errors, valid, shape, huber_k,
+                                with_block_medians)

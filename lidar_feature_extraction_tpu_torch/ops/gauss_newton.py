@@ -162,27 +162,19 @@ def weighted_update(q: torch.Tensor, weights: torch.Tensor,
                     problem: Problem, degeneracy_threshold: float):
     """One GN solve: dx = -(M^T A M)^{-1} M^T b, or zero when the
     unweighted Hessian is degenerate or the solve is not finite.
-    Returns ``(dx [..., 6], H [..., 6, 6])``.
+    Returns ``(dx [..., 6], H [..., 6, 6])``. A batch's normal equations
+    are summed lane by lane (``_lanewise``), one rounding per operation.
 
-    In float32 every step is the reference's jitted arithmetic
-    (``core/_xla_dot.py``, ROADMAP §C21): D, A and b in XLA:CPU's
-    summation order (on CUDA one launch of ``csrc/normal_equations.cu``
-    for a problem or a batch, each lane summed in the lone problem's
-    tree), ``M^T A M`` and ``M^T b`` as in-order FMA chains, and the
-    Cholesky solve in its fused forms. Other dtypes sum a batch's normal
-    equations lane by lane (``_lanewise``)."""
+    Not for float32: there the reference's jitted forms are
+    ``_xla_dot.normal_equations`` and ``_xla_dot.gn_update``, which
+    ``_gn_step`` calls."""
     jv, jw, j, wr = update_operands(weights, problem)
-    M = make_m(q)
     if j.dtype == torch.float32:
-        D, A, b = xd.normal_equations(jv, jw, j, wr)
-        mt = M.transpose(-1, -2)
-        H = xf.matmul(xf.matmul(mt, A), M)
-        dx = -xd.cholesky_solve(H, xf.matmul(mt, b[..., None])[..., 0])
-    else:
-        D, H, g = _lanewise(j.dim() == 3, _normal_equations, jv, jw, j, wr,
-                            M)
-        dx = -smallalg.cholesky_solve(H, g)
-
+        raise ValueError("weighted_update: float32 goes through "
+                         "_xla_dot.normal_equations and _xla_dot.gn_update")
+    D, H, g = _lanewise(j.dim() == 3, _normal_equations, jv, jw, j, wr,
+                        make_m(q))
+    dx = -smallalg.cholesky_solve(H, g)
     degenerate = smallalg.min_eigval_below(D, degeneracy_threshold)
     bad = degenerate | ~torch.all(torch.isfinite(dx), dim=-1)
     return torch.where(bad[..., None], torch.zeros_like(dx), dx), H
@@ -205,29 +197,48 @@ def gn_iteration(problem: Problem, pose: Pose, huber_k: float = 1.345,
     """One Gauss-Newton iteration at ``pose`` on the device: the error,
     the MAD scale, the Huber-weighted solve and the updated pose, with no
     status logic (``_gn_body`` adds the fused loop's,
-    ``run_gauss_newton_host`` runs the reference's on the host). In
-    float32 the error total, the Huber weights and the pose update are
-    the reference's jitted forms too (``core/_xla_dot.py``)."""
+    ``run_gauss_newton_host`` runs the reference's on the host)."""
+    return _gn_step(problem, pose, huber_k, degeneracy_threshold, False)[0]
+
+
+def _gn_step(problem: Problem, pose: Pose, huber_k: float,
+             degeneracy_threshold: float, with_block_medians: bool):
+    """``gn_iteration``'s step and, with ``with_block_medians``, the
+    per-block medians of the errors (else None).
+
+    In float32 the step is the reference's jitted forms in three calls,
+    each one launch on CUDA tensors: ``stats.robust_weights`` (count,
+    error total, scale, Huber weights, block medians;
+    ``csrc/robust_weights.cu``), ``_xla_dot.normal_equations``
+    (``csrc/normal_equations.cu``) and ``_xla_dot.gn_update`` (solve,
+    degeneracy guard, pose update; ``csrc/gn_update.cu``). Other dtypes
+    round each operation in torch's order."""
+    if problem.errors.dtype == torch.float32:
+        n_valid, error, scale, weights, meds = stats.robust_weights(
+            problem.errors, problem.valid, problem.shape, huber_k,
+            with_block_medians)
+        D, A, b = xd.normal_equations(*update_operands(weights, problem))
+        q_new, t_new, hess, dq_norm, dt_norm = xd.gn_update(
+            D, A, b, pose.q, pose.t, degeneracy_threshold)
+        return GNStep(pose=Pose(q_new, t_new), error=error, scale=scale,
+                      n_valid=n_valid, dq_norm=dq_norm, dt_norm=dt_norm,
+                      hessian=hess), meds
     n_valid = torch.sum(problem.valid, dim=-1, dtype=torch.int32)
     errors = torch.where(problem.valid, problem.errors, 0.0)
-    if errors.dtype == torch.float32:
-        error = xd.reduce_sum(errors)
-    else:
-        error, = _lanewise(errors.dim() == 2, lambda e: (torch.sum(e),),
-                           errors)
+    error, = _lanewise(errors.dim() == 2, lambda e: (torch.sum(e),), errors)
     scale = stats.masked_scale_bisect(problem.errors, problem.valid)
-    normalized = errors / (scale[..., None] + 1e-16)
-    weights = stats.huber_derivative(normalized, huber_k)
+    weights = stats.huber_derivative(errors / (scale[..., None] + 1e-16),
+                                     huber_k)
     dx, hess = weighted_update(pose.q, weights, problem, degeneracy_threshold)
     dt = dx[..., 3:]
-    if dx.dtype == torch.float32:
-        q_new, dq = xd.pose_update(pose.q, dx)
-    else:
-        dq = quat.exp_so3(dx[..., :3])
-        q_new = quat.quat_normalize(quat.quat_multiply(pose.q, dq))
+    dq = quat.exp_so3(dx[..., :3])
+    q_new = quat.quat_normalize(quat.quat_multiply(pose.q, dq))
+    meds = (stats.block_medians(problem.errors, problem.valid,
+                                [n for n, _ in problem.shape])
+            if with_block_medians else None)
     return GNStep(pose=Pose(q_new, pose.t + dt), error=error, scale=scale,
                   n_valid=n_valid, dq_norm=quat._norm(dq[..., 1:]),
-                  dt_norm=quat._norm(dt), hessian=hess)
+                  dt_norm=quat._norm(dt), hessian=hess), meds
 
 
 class _GNState(NamedTuple):
@@ -247,14 +258,8 @@ def _gn_body(problem_fn, state: _GNState, convergence_tol, huber_k,
     q, t, prev_error, prev_scale = state.q, state.t, state.prev_error, \
         state.prev_scale
     problem = problem_fn(Pose(q, t))
-    step = gn_iteration(problem, Pose(q, t), huber_k, degeneracy_threshold)
-
-    meds, off = [], 0
-    for n_b, _ in problem.shape:
-        meds.append(stats._wide_median(problem.errors[..., off:off + n_b],
-                                       problem.valid[..., off:off + n_b]))
-        off += n_b
-    block_meds = torch.stack(meds, dim=-1)
+    step, block_meds = _gn_step(problem, Pose(q, t), huber_k,
+                                degeneracy_threshold, True)
 
     empty = step.n_valid == 0
     err_up = (step.error > prev_error) & abort_on_increase

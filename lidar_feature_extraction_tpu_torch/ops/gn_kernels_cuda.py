@@ -1,0 +1,94 @@
+"""The fused float32 Gauss-Newton kernels on CUDA: ``robust_weights`` and
+``gn_update``, one launch each per iteration.
+
+``ops/gauss_newton.py``'s float32 step needs, from its errors, the valid
+count, the error total, the MAD scale and the Huber weights (and, in the
+fused loop, the per-block error medians), and from the normal equations
+D, A, b the solve, the degeneracy guard and the pose update, with the
+bits the JAX package's jitted code gives (ROADMAP §C20, §C21). On CPU
+tensors the plain versions ``stats.robust_weights_plain`` and
+``_xla_dot.gn_update_plain`` run (the port's float32 forms, ~360 and
+~570 small launches per iteration on a card); on CUDA tensors these
+kernels, ``csrc/robust_weights.cu`` and ``csrc/gn_update.cu``
+(``sm_90a``), each for one problem or a batch in one launch, each lane
+as alone. They port no TPU kernel: the reference leaves this arithmetic
+to XLA.
+
+The kernels are bound to PyTorch as the operators
+``lidar_port::robust_weights`` and ``lidar_port::gn_update``
+(``csrc/gn_kernels_op.cpp``, CUDA only). ``build`` compiles the three
+files into one library with ``nvcc`` against the installed torch (at
+first use, into ``build/kernels/``); ``load`` loads it. A failed build
+or launch raises. Nothing is compiled or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import functools
+from pathlib import Path
+
+import torch
+
+from lidar_feature_extraction_tpu_torch.ops import fma_cuda
+from lidar_feature_extraction_tpu_torch.ops.extraction_cuda import (
+    build_library)
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (CSRC / "robust_weights.cu", CSRC / "gn_update.cu",
+           CSRC / "gn_kernels_op.cpp")
+
+
+def build() -> Path:
+    """Compile the kernels and their operators unless they are built;
+    returns the library (``fma_cuda``'s flags: ``sm_90a``, no
+    contraction, linked against the installed torch)."""
+    return build_library(SOURCES, fma_cuda._flags(), "gn_kernels",
+                         key=torch.__version__)
+
+
+@functools.lru_cache(maxsize=None)
+def load():
+    """Build (if needed) and load the library once per process; returns
+    the operators' namespace."""
+    torch.ops.load_library(str(build()))
+    return torch.ops.lidar_port
+
+
+def robust_weights_cuda(errors: torch.Tensor, valid: torch.Tensor,
+                        shape: tuple, huber_k: float = 1.345,
+                        with_block_medians: bool = False):
+    """``(n_valid, error, scale, weights, block_meds)`` of CUDA float32
+    ``errors`` [N] or [B, N] under bool ``valid`` of the same shape, the
+    residual blocks ``shape`` (``((N_b, D_b), ...)``) giving the block
+    medians when ``with_block_medians`` (else None), on the current
+    stream, without synchronising. Each launch adds one to
+    ``robust_weights_cuda.launches``."""
+    if not errors.is_cuda:
+        raise ValueError(f"robust_weights: needs CUDA tensors, got "
+                         f"{errors.device}")
+    n_valid, error, scale, weights, meds = load().robust_weights(
+        errors, valid, [n for n, _ in shape], float(huber_k),
+        with_block_medians)
+    if errors.numel():
+        robust_weights_cuda.launches += 1
+    return (n_valid, error, scale, weights,
+            meds if with_block_medians else None)
+
+
+def gn_update_cuda(D: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
+                   q: torch.Tensor, t: torch.Tensor, tau: float):
+    """``(q_new, t_new, H, dq_norm, dt_norm)`` of CUDA float32 normal
+    equations D, A [..., 7, 7], b [..., 7] at the pose q [..., 4], t
+    [..., 3] (no batch or one of B lanes; any strides), on the current
+    stream, without synchronising. Each launch adds one to
+    ``gn_update_cuda.launches``."""
+    if not D.is_cuda:
+        raise ValueError(f"gn_update: needs CUDA tensors, got {D.device}")
+    out = load().gn_update(D, A, b, q, t, float(tau))
+    if D.numel():
+        gn_update_cuda.launches += 1
+    return out
+
+
+robust_weights_cuda.launches = 0
+gn_update_cuda.launches = 0

@@ -178,7 +178,8 @@ def test_entry_point_defaults_to_the_card(no_cuda, name):
 _ROOT = Path(__file__).resolve().parents[1]
 _PORT_FILES = sorted(
     [p for p in (_ROOT / "lidar_feature_extraction_tpu_torch").rglob("*.py")]
-    + [_ROOT / name for name in ("chip_smoke.py", "k1_check.py",
+    + [_ROOT / name for name in ("chip_smoke.py", "gn_kernels_check.py",
+                                 "k1_check.py",
                                  "profile_drive.py", "profile_fits.py",
                                  "profile_k1.py",
                                  "profile_normal_equations.py",

@@ -1,5 +1,6 @@
-"""Kernel K1 and the normal equations' kernel on the card against their
-plain PyTorch versions, and the paths
+"""Kernel K1 and the Gauss-Newton step's kernels (normal_equations,
+robust_weights, gn_update; bit for bit, NaN against NaN) on the card
+against their plain PyTorch versions, and the paths
 that run it (full extraction, one closed-loop scan, the odometry step,
 IMU preintegration, the pose-graph and IMU-graph solvers, a short
 mapping run with a loop closure, K1 at vlp16's widths against the CPU
@@ -1085,3 +1086,128 @@ def test_normal_equations_kernel_equals_the_record(cuda):
             assert np.array_equal(
                 g_.cpu().numpy().view(np.int32),
                 arrays[f"cut.{scene}.{key}"].view(np.int32)), (scene, key)
+
+
+def _gn_kernel_args(m, batch, device):
+    import gn_kernels_check as gk
+
+    return [torch.as_tensor(a, device=device)
+            for a in gk.gn_update_case(m, batch)]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("m", [2047, 10240, 14336])
+def test_gn_update_kernel_matches_plain_version(cuda, m, batch):
+    """csrc/gn_update.cu against ``_xla_dot.gn_update_plain`` on the card,
+    bit for bit (a NaN against a NaN), on gn_kernels_check's seeded normal
+    equations (the edge cases in a batch's first eight lanes), each lane
+    equal to its lone launch."""
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        gn_update_cuda)
+
+    args = _gn_kernel_args(m, batch, cuda)
+    got = gn_update_cuda(*args, gk.TAU)
+    zero = dict.fromkeys(gk.GN_OUTPUTS, 0)
+    assert gk.compare(got, xd.gn_update_plain(*args, gk.TAU),
+                      gk.GN_OUTPUTS) == zero
+    for lane in range(batch):
+        lone = gn_update_cuda(*(a[lane] for a in args), gk.TAU)
+        assert gk.compare([g[lane] for g in got], lone,
+                          gk.GN_OUTPUTS) == zero, lane
+
+
+def test_gn_update_kernel_reads_strided_operands(cuda):
+    """D, A and b as the normal_equations operator returns them (views of
+    one [B, 105] buffer) and q, t as column views: read through their
+    strides, the same bits as contiguous copies."""
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        gn_update_cuda)
+
+    D, A, b, q, t = _gn_kernel_args(10240, 8, cuda)
+    buf = torch.cat([D.flatten(1), A.flatten(1), b], dim=1)
+    pose = torch.cat([q, t], dim=1).t().contiguous().t()
+    views = (buf[:, :49].view(8, 7, 7), buf[:, 49:98].view(8, 7, 7),
+             buf[:, 98:], pose[:, :4], pose[:, 4:])
+    assert not any(v.is_contiguous() for v in views)
+    want = gn_update_cuda(D, A, b, q, t, gk.TAU)
+    assert gk.compare(gn_update_cuda(*views, gk.TAU), want,
+                      gk.GN_OUTPUTS) == dict.fromkeys(gk.GN_OUTPUTS, 0)
+
+
+@pytest.mark.parametrize("medians", [False, True], ids=["step", "loop"])
+@pytest.mark.parametrize("n,batch", [(n, b) for n in (1, 33, 2047, 10240,
+                                                      14336)
+                                     for b in (1, 8, 32)]
+                         + [(81920, 1), (81920, 8)])
+def test_robust_weights_kernel_matches_plain_version(cuda, n, batch,
+                                                     medians):
+    """csrc/robust_weights.cu against ``stats.robust_weights_plain`` on the
+    card, bit for bit (a NaN against a NaN), on gn_kernels_check's seeded
+    errors (the edge cases in a batch's first eight lanes; at 81,920 a
+    lane is read from L2, not staged), each lane equal to its lone
+    launch."""
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import stats
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        robust_weights_cuda)
+
+    errors, valid, shape = gk.robust_weights_case(n, batch)
+    errors = torch.as_tensor(errors, device=cuda)
+    valid = torch.as_tensor(valid, device=cuda)
+    got = robust_weights_cuda(errors, valid, shape, gk.HUBER_K, medians)
+    want = stats.robust_weights_plain(errors, valid, shape, gk.HUBER_K,
+                                      medians)
+    zero = dict.fromkeys(gk.RW_OUTPUTS, 0)
+    assert gk.compare(got, want, gk.RW_OUTPUTS) == zero
+    for lane in range(batch):
+        lone = robust_weights_cuda(errors[lane], valid[lane], shape,
+                                   gk.HUBER_K, medians)
+        assert gk.compare([None if g is None else g[lane] for g in got],
+                          lone, gk.RW_OUTPUTS) == zero, lane
+
+
+def test_gn_iteration_on_the_card_launches_each_kernel_once(cuda):
+    """A float32 GN iteration on CUDA tensors is one launch each of
+    robust_weights, normal_equations and gn_update (the fused loop's too,
+    with the block medians), with the CPU's bits; a float64 CUDA tensor is
+    refused by both new kernels."""
+    from lidar_feature_extraction_tpu_torch.core.pose import Pose as P
+    from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        gn_update_cuda, robust_weights_cuda)
+    from lidar_feature_extraction_tpu_torch.ops.normal_equations_cuda import (
+        normal_equations_cuda)
+
+    rng = np.random.default_rng(5)
+    n = 300
+    cpu = gn.Problem(
+        jac_rows=torch.as_tensor(np.float32(rng.normal(size=(n, 7)))),
+        res_rows=torch.as_tensor(np.float32(rng.normal(size=n) * 0.1)),
+        errors=torch.as_tensor(np.float32(rng.exponential(size=n))),
+        valid=torch.as_tensor(rng.random(n) < 0.9), shape=((100, 1),
+                                                          (200, 1)))
+    card = gn.Problem(*(x.to(cuda) for x in cpu[:4]), shape=cpu.shape)
+    pose = P(torch.tensor([1.0, 0.0, 0.0, 0.0]), torch.zeros(3))
+    counters = (robust_weights_cuda, normal_equations_cuda, gn_update_cuda)
+    before = [c.launches for c in counters]
+    got = gn.run_gauss_newton(lambda p: card, P(pose.q.to(cuda),
+                                                 pose.t.to(cuda)), 3)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == [int(got.iterations)] * 3
+    want = gn.run_gauss_newton(lambda p: cpu, pose, 3)
+    for g, w in ((got.pose.q, want.pose.q), (got.pose.t, want.pose.t),
+                 (got.error, want.error), (got.scale, want.scale),
+                 (got.hessian, want.hessian),
+                 (got.block_errors, want.block_errors)):
+        assert torch.equal(g.cpu().contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32))
+    assert int(got.status) == int(want.status)
+    with pytest.raises(RuntimeError, match="float32"):
+        robust_weights_cuda(card.errors.double(), card.valid, card.shape)
+    with pytest.raises(RuntimeError, match="float32"):
+        gn_update_cuda(*(torch.zeros(s, dtype=torch.float64, device=cuda)
+                         for s in ((7, 7), (7, 7), (7,), (4,), (3,))), 0.1)

@@ -1,0 +1,146 @@
+"""The plain versions of the Gauss-Newton step's two fused kernels on the
+CPU, bit for bit (a NaN against a NaN: an empty lane's medians).
+
+``core/_xla_dot.py::gn_update_plain`` (``csrc/gn_update.cu``'s plain
+version) and ``core/stats.py::robust_weights_plain``
+(``csrc/robust_weights.cu``'s): on ``gn_kernels_check.py``'s seeded cases
+at B = 1, 8 and 32 (the edge cases in the first eight lanes of a batch)
+every lane of a batch equals its lone call, and the edge lanes do what
+the module's note says. A float32 iteration calls each once. The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``); here their
+wrappers must refuse CPU tensors rather than compute anything.
+The float32 step's parity with the JAX package is held by the existing
+tests (``test_torch_localization.py``, ``test_torch_drive.py``,
+``test_torch_host_localizer.py``, ``test_torch_xla_dot.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import gn_kernels_check as gk
+from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+from lidar_feature_extraction_tpu_torch.core import stats
+from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
+from lidar_feature_extraction_tpu_torch.ops import smallalg
+
+
+def _gn_args(m, batch):
+    return tuple(torch.as_tensor(a) for a in gk.gn_update_case(m, batch))
+
+
+def _rw_args(n, batch):
+    errors, valid, shape = gk.robust_weights_case(n, batch)
+    return torch.as_tensor(errors), torch.as_tensor(valid), shape
+
+
+def _assert_equal(got, want, names):
+    assert gk.compare(got, want, names) == dict.fromkeys(names, 0)
+
+
+@pytest.mark.parametrize("m,batch", [(2047, 1), (10240, 8), (14336, 32)])
+def test_gn_update_plain_lanes_are_lone_calls(m, batch):
+    args = _gn_args(m, batch)
+    got = xd.gn_update_plain(*args, gk.TAU)
+    for lane in range(batch):
+        lone = xd.gn_update_plain(*(a[lane] for a in args), gk.TAU)
+        _assert_equal([g[lane] for g in got], lone, gk.GN_OUTPUTS)
+
+
+def test_gn_update_edge_lanes():
+    """The edge lanes do what the module's note says: the empty,
+    degenerate, non-finite and non-positive-definite lanes keep their
+    pose (a zero step, the quaternion renormalized), the small-angle lane
+    takes exp_so3's branch, the large rotation turns by more than 1 rad."""
+    D, A, b, q, t = _gn_args(10240, gk.GN_EDGE_LANES)
+    q_new, t_new, H, dq_norm, dt_norm = xd.gn_update_plain(D, A, b, q, t,
+                                                           gk.TAU)
+    for lane in (1, 2, 3, 6):
+        assert torch.equal(t_new[lane], t[lane]), lane
+        assert dq_norm[lane] == 0 and dt_norm[lane] == 0, lane
+    assert bool(smallalg.min_eigval_below(D[2], gk.TAU))
+    dx = -xd.cholesky_solve(H[3], torch.zeros(6))
+    assert not bool(torch.isfinite(dx).all())
+    assert 0 < float(dq_norm[4]) < 1e-8 / 2
+    assert float(dq_norm[5]) > np.sin(0.5)
+    for lane in (0, 7):
+        assert 0 < float(dq_norm[lane]) < 0.5 and float(dt_norm[lane]) > 0
+
+
+@pytest.mark.parametrize("n,batch", [(1, 1), (33, 8), (2047, 32),
+                                     (10240, 8)])
+@pytest.mark.parametrize("medians", [False, True], ids=["step", "loop"])
+def test_robust_weights_plain_lanes_are_lone_calls(n, batch, medians):
+    errors, valid, shape = _rw_args(n, batch)
+    got = stats.robust_weights_plain(errors, valid, shape, gk.HUBER_K,
+                                     medians)
+    for lane in range(batch):
+        lone = stats.robust_weights_plain(errors[lane], valid[lane], shape,
+                                          gk.HUBER_K, medians)
+        _assert_equal([None if g is None else g[lane] for g in got], lone,
+                      gk.RW_OUTPUTS)
+
+
+def test_robust_weights_edge_lanes():
+    """An empty lane gives n_valid 0 and NaN medians and scale (so the
+    loop sets EMPTY_INPUT); a lane with one empty block a NaN median for
+    it alone; one valid error is its own median and has a zero MAD."""
+    errors, valid, shape = _rw_args(10240, gk.RW_EDGE_LANES)
+    n_valid, error, scale, weights, meds = stats.robust_weights_plain(
+        errors, valid, shape, gk.HUBER_K, True)
+    assert int(n_valid[1]) == 0 and float(error[1]) == 0
+    assert bool(torch.isnan(scale[1])) and bool(torch.isnan(meds[1]).all())
+    assert bool(torch.isnan(meds[2, 0])) and not bool(torch.isnan(meds[2, 1]))
+    assert int(n_valid[6]) == 1 and float(scale[6]) == 0
+    assert torch.isfinite(scale[[0, 2, 3, 4, 5, 7]]).all()
+    assert n_valid[0] == errors.shape[1]
+
+
+def test_gn_iteration_calls_each_fused_step_once(monkeypatch):
+    """A float32 iteration makes one call of each (one launch each on the
+    card), and the fused loop asks robust_weights for the block medians;
+    float64 calls neither."""
+    calls = {"robust_weights": [], "gn_update": 0}
+    rw, gu = stats.robust_weights, xd.gn_update
+
+    def counting_rw(*args):
+        calls["robust_weights"].append(args[-1])
+        return rw(*args)
+
+    def counting_gu(*args):
+        calls["gn_update"] += 1
+        return gu(*args)
+
+    monkeypatch.setattr(stats, "robust_weights", counting_rw)
+    monkeypatch.setattr(xd, "gn_update", counting_gu)
+    rng = np.random.default_rng(5)
+    n = 40
+    problem = gn.Problem(
+        jac_rows=torch.as_tensor(np.float32(rng.normal(size=(n, 7)))),
+        res_rows=torch.as_tensor(np.float32(rng.normal(size=n) * 0.1)),
+        errors=torch.as_tensor(np.float32(rng.exponential(size=n))),
+        valid=torch.ones(n, dtype=torch.bool), shape=((10, 1), (30, 1)))
+    pose = gn.Pose(torch.tensor([1.0, 0.0, 0.0, 0.0]), torch.zeros(3))
+    gn.gn_iteration(problem, pose)
+    gn.run_gauss_newton(lambda p: problem, pose, max_iterations=1)
+    assert calls == {"robust_weights": [False, True], "gn_update": 2}
+    as64 = problem._replace(jac_rows=problem.jac_rows.double(),
+                            res_rows=problem.res_rows.double(),
+                            errors=problem.errors.double())
+    gn.gn_iteration(as64, gn.Pose(pose.q.double(), pose.t.double()))
+    assert calls["gn_update"] == 2 and len(calls["robust_weights"]) == 2
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers launch or raise: on CPU tensors they raise before
+    building anything (the dispatchers send those to the plain
+    versions)."""
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        gn_update_cuda, robust_weights_cuda)
+
+    errors, valid, shape = _rw_args(33, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        robust_weights_cuda(errors, valid, shape)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn_update_cuda(*_gn_args(2047, 1), gk.TAU)
+    assert robust_weights_cuda.launches == 0 and gn_update_cuda.launches == 0
