@@ -2469,11 +2469,13 @@ def gn_kernels_phase(dev) -> dict:
     (``_xla_dot.gn_update_plain``, ``stats.robust_weights_plain``) on the
     card, bit for bit (a NaN against a NaN), on ``gn_kernels_check``'s
     seeded cases: normal equations of problems of ``gk.ROWS`` rows and
-    errors of as many correspondences and of ``gk.EDGE_N`` (one, 33, and a
-    lane read from L2), at B = 1, 8 and 32 (81,920 at 1 and 8), the edge
-    cases in a batch's first eight lanes; robust_weights with and without
-    the block medians; every lane equal to its lone launch. The launches
-    made here are not counted for any main path."""
+    errors of as many correspondences and of ``gk.EDGE_N`` (one, 33 and
+    81,920), at B = 1, 8 and 32, the edge cases in a batch's first eight
+    lanes (lane 7 of the errors on the first round's thresholds), and
+    ``gk.RW_CLUSTER_CASES`` (one error past what each cluster size holds
+    in shared memory); robust_weights with and without the block medians;
+    every lane equal to its lone launch. The launches made here are not
+    counted for any main path."""
     import torch
     import gn_kernels_check as gk
     from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
@@ -2510,26 +2512,27 @@ def gn_kernels_phase(dev) -> dict:
             out["gn_update"][f"{m}x{batch}"] = {
                 "differ": gk.compare(got, want, gk.GN_OUTPUTS),
                 "lanes_equal_lone": lone}
-    for n in (*gk.ROWS, *gk.EDGE_N):
-        for batch in gk.BATCHES if n != gk.EDGE_N[-1] else gk.BATCHES[:2]:
-            errors, valid, shape = gk.robust_weights_case(n, batch)
-            errors = torch.as_tensor(errors, device=dev)
-            valid = torch.as_tensor(valid, device=dev)
-            for medians in (False, True):
-                got = robust_weights_cuda(errors, valid, shape, gk.HUBER_K,
-                                          medians)
-                want = stats.robust_weights_plain(errors, valid, shape,
-                                                  gk.HUBER_K, medians)
-                abs_err("robust_weights", got, want)
-                lone = all(lanes_equal(
-                    [None if g is None else g[k] for g in got],
-                    robust_weights_cuda(errors[k], valid[k], shape,
-                                        gk.HUBER_K, medians),
-                    gk.RW_OUTPUTS) for k in range(batch))
-                out["robust_weights"][
-                    f"{n}x{batch}.{'loop' if medians else 'step'}"] = {
-                    "differ": gk.compare(got, want, gk.RW_OUTPUTS),
-                    "lanes_equal_lone": lone}
+    rw_cases = [(n, batch) for n in (*gk.ROWS, *gk.EDGE_N)
+                for batch in gk.BATCHES] + list(gk.RW_CLUSTER_CASES)
+    for n, batch in rw_cases:
+        errors, valid, shape = gk.robust_weights_case(n, batch)
+        errors = torch.as_tensor(errors, device=dev)
+        valid = torch.as_tensor(valid, device=dev)
+        for medians in (False, True):
+            got = robust_weights_cuda(errors, valid, shape, gk.HUBER_K,
+                                      medians)
+            want = stats.robust_weights_plain(errors, valid, shape,
+                                              gk.HUBER_K, medians)
+            abs_err("robust_weights", got, want)
+            lone = all(lanes_equal(
+                [None if g is None else g[k] for g in got],
+                robust_weights_cuda(errors[k], valid[k], shape, gk.HUBER_K,
+                                    medians),
+                gk.RW_OUTPUTS) for k in range(batch))
+            out["robust_weights"][
+                f"{n}x{batch}.{'loop' if medians else 'step'}"] = {
+                "differ": gk.compare(got, want, gk.RW_OUTPUTS),
+                "lanes_equal_lone": lone}
     torch.cuda.synchronize()
     for name, wrapper in (("robust_weights", robust_weights_cuda),
                           ("gn_update", gn_update_cuda)):
@@ -2592,40 +2595,69 @@ def gn_update_chain_ops() -> int:
     return max(max(x), eig) + POSE_UPDATE_OPS
 
 
-def robust_weights_chain_ops(n: int) -> int:
-    """The longest chain of dependent float operations in robust_weights'
-    block 0 (the block medians run beside it on other blocks): the error
-    total's tree (31 adds per level, the last level's adds), then two
-    medians of 3 rounds each, a round the threshold (sub, div, fma), a
-    binary search over the 256 thresholds (8 compares), the histogram's
-    running sum (5 shuffles, 7 warp totals) and the next bounds (add,
-    fma), each median's min and max (5 shuffles, 32 warp values) and
-    midpoint (2); then the scale (1) and one weight (add, div, clamp,
-    rsqrt's 11 steps, mul: 15)."""
+def robust_weights_chain_ops(n: int, cluster: int) -> int:
+    """The longest chain of dependent operations in robust_weights over one
+    lane (or task) of ``n`` correspondences spread over ``cluster`` CTAs
+    of 512 threads, on the path the seeded lanes take (rounds 2 and 3 from
+    the candidates; each operation one step, a division, a shuffle, a
+    shared or remote load; a barrier's hand-over not counted): the values'
+    load (1); then two medians, each
+    - its count and range: a thread's values one step each,
+      ceil(n / (512 cluster)); 5 shuffles; the ranks' parts, one step
+      each; 5 shuffles; the fold of the elements that are not valid (2);
+    - round 1: the step w and its reciprocal (3), t_0 and t_255 (1), a
+      value's bucket (sub, mul, ceil, sub, the walk's two fmas and
+      compares: 8), the warp's bucket-0 count (1), the ranks' counts (one
+      step each), a lane's running sum over 8 buckets (7), 5 shuffles,
+      the compares and their count (2), the clamp (1), round 2's t_255
+      and the candidates' bound (sub, div, fma, a shuffle, sub, compare:
+      6), the next bounds (2);
+    - the candidates: the compares (2) and the list's atomic (1); their
+      counts' running sum over the ranks (5 shuffles and 1), the count
+      at or below L (1);
+    - rounds 2 and 3 alone: the step, t_0, t_255 and the check (4), a
+      candidate's bucket (8), the atomic (1), the running sum (7), 5
+      shuffles, the compares and count (2), the clamp (1), the next
+      bounds (2);
+    - its midpoint (2); the MAD's values |e - med| 2 steps more where they
+      are read;
+    then the scale (1) and one weight (add, div, clamp, the table's
+    rsqrt: 2 bit steps, the load, the assembly and two Newton steps of 3,
+    mul: 14). The error total runs beside them on other warps:
+    reduce_sum's windows of 32 in order, 31 adds per level, and the last
+    level's adds; the longer of the two chains."""
+    per_thread = -(-n // (512 * cluster))
+    count_range = per_thread + 5 + cluster + 5 + 2
+    round_1 = 3 + 1 + 8 + 1 + cluster + 7 + 5 + 2 + 1 + 6 + 2
+    candidates = 2 + 1 + 6 + 1
+    local_round = 4 + 8 + 1 + 7 + 5 + 2 + 1 + 2
+    median = count_range + round_1 + candidates + 2 * local_round + 2
+    mad_values = 2 * 5  # where the MAD reads its values
+    medians = 1 + 2 * median + mad_values + 1 + 14
     levels, left = 0, n
     while left > 32:
         left = -(-left // 32)
         levels += 1
-    tree = 31 * levels + left
-    one_round = 3 + 8 + 12 + 2
-    median = 5 + 32 + 3 * one_round + 2
-    return tree + 2 * median + 1 + 15
+    return max(medians, 31 * levels + left)
 
 
 def gn_kernels_timing(dev, bound_us, device_us_per_launch,
                       host_us_per_call) -> dict:
     """``gn_update`` on the production rows' normal equations at B = 1
     and 32, and ``robust_weights`` on 10,240 correspondences (the
-    production drive's) alone, with the block medians, and as a batch of
-    32: device time per launch (profiler), host time per call, the plain
+    faithful drive's) alone, with the block medians, and as a batch of
+    32, and on 14,336 (the production rows') with the block medians:
+    device time per launch (profiler), host time per call, the plain
     version's (CUDA events), the bytes bound (each operand read once, each
-    output written once) and, computed, not measured, the chain floor:
-    the longest chain of dependent float operations at an assumed
-    ``FMA_LATENCY_CYCLES`` each and the SM clock's maximum."""
+    output written once), robust_weights' cluster size and, computed, not
+    measured, the chain floor: the longest chain of dependent float
+    operations at an assumed ``FMA_LATENCY_CYCLES`` each and the SM
+    clock's maximum."""
     import torch
     import gn_kernels_check as gk
     from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
     from lidar_feature_extraction_tpu_torch.core import stats
+    from lidar_feature_extraction_tpu_torch.ops import gn_kernels_cuda
     from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
         gn_update_cuda, robust_weights_cuda)
 
@@ -2653,8 +2685,8 @@ def gn_kernels_timing(dev, bound_us, device_us_per_launch,
             "bound_us": bound, "bound_by": by, "bytes": nbytes,
             "chain_ops": ops,
             "chain_floor_us": ops * FMA_LATENCY_CYCLES / mhz}
-    n = 10240
-    for batch, medians in ((1, False), (1, True), (32, True)):
+    for n, batch, medians in ((10240, 1, False), (10240, 1, True),
+                              (10240, 32, True), (14336, 1, True)):
         errors, valid, shape = gk.robust_weights_case(n, batch)
         errors = torch.as_tensor(errors, device=dev)
         valid = torch.as_tensor(valid, device=dev)
@@ -2663,12 +2695,15 @@ def gn_kernels_timing(dev, bound_us, device_us_per_launch,
         # medians out.
         nbytes = batch * (n * (4 + 1 + 4) + 4 * (3 + medians * len(shape)))
         bound, by = bound_us(nbytes, 0)
-        ops = robust_weights_chain_ops(n)
+        cluster = gn_kernels_cuda.cluster_size(batch,
+                                               1 + medians * len(shape))
+        ops = robust_weights_chain_ops(n, cluster)
         dev_us, seen = device_us_per_launch(
             lambda: robust_weights_cuda(*args), "robust_weights_kernel",
             GN_LAUNCHES)
         out[f"robust_weights.{n}x{batch}.{'loop' if medians else 'step'}"] \
             = {"n": n, "batch": batch, "block_medians": medians,
+               "cluster": cluster,
                "device_us": dev_us, "device_launches_seen": seen,
                "host_us": host_us_per_call(lambda: robust_weights_cuda(
                    *args)),

@@ -16,7 +16,14 @@ same inputs. A batch of B >= 8 lanes starts with the edge cases:
 - ``robust_weights``: all valid, no valid correspondence (NaN medians and
   scale), one residual block all invalid, ties (a run of equal errors),
   zeros, errors over twelve orders of magnitude, a single valid one, and
-  a regular lane.
+  errors on the first round's 256 thresholds and one ulp either side.
+
+``robust_weights``' kernel spreads a lane over a cluster of CTAs whose
+size follows B and the tasks; ``RW_CLUSTER_CASES`` puts one more error in
+a lane than each cluster size holds in shared memory. Beside the cases, the
+kernel's parts in numpy and torch, for the CPU tests: its bucket search
+(``bucket_guess_correct``, against the definition ``bucket_first``) and
+its rsqrt from a table (``rsqrt_from_table``).
 """
 
 from __future__ import annotations
@@ -29,8 +36,14 @@ import numpy as np
 ROWS = (2047, 10240, 14336)
 BATCHES = (1, 8, 32)
 # robust_weights' edge sizes: one error, one over a window of 32, and a
-# lane too long to stage in shared memory (read from L2).
+# lane that a cluster of 4 or 2 CTAs does not hold in shared memory (the
+# rest read from memory on each pass).
 EDGE_N = (1, 33, 81920)
+# robust_weights' sizes one past what a cluster of C CTAs holds in shared
+# memory (C x 512 threads x 32 values), at a B whose launch takes that C
+# with the block medians (C = 8, 4, 2, 2 at 1, 8, 16, 32 lanes of three
+# tasks).
+RW_CLUSTER_CASES = ((131073, 1), (65537, 8), (32769, 16), (32769, 32))
 TAU = 0.1
 HUBER_K = 1.345
 GN_EDGE_LANES = 8
@@ -98,7 +111,110 @@ def robust_weights_case(n: int, batch: int, seed: int = 0) -> tuple:
         errors[5] = np.float32(10.0 ** rng.uniform(-8, 4, n))
         valid[6] = False                                  # one valid
         valid[6, n // 2] = True
+        errors[7], valid[7] = _on_thresholds(rng, n), True
     return errors, valid, shape
+
+
+def _on_thresholds(rng, n: int) -> np.ndarray:
+    """A lane of ``n`` errors in [0.25, 3.3] that holds both ends, then
+    the first round's 256 thresholds fma(w, k + 1, lo) and their float32
+    neighbours (within the ends), as many as fit, in a shuffled order."""
+    lo, hi = np.float32(0.25), np.float32(3.3)
+    t = _fma32(np.float32((hi - lo) / np.float32(256)),
+               np.arange(1, 257, dtype=np.float32), lo)
+    on = np.clip(np.concatenate([t, np.nextafter(t, np.float32(-np.inf)),
+                                 np.nextafter(t, np.float32(np.inf))]),
+                 lo, hi)
+    lane = np.float32(rng.uniform(lo, hi, n))
+    m = max(0, min(n - 2, on.size))
+    lane[2:2 + m] = on[:m]
+    lane[: min(n, 2)] = (lo, hi)[: min(n, 2)]
+    return lane[rng.permutation(n)]
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once (``_xla_f32``'s plain fma), on
+    numpy values broadcast together."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
+    a, b, c = np.broadcast_arrays(*(np.asarray(x, np.float32)
+                                    for x in (a, b, c)))
+    return xf._fma_plain(torch.as_tensor(a.copy()), torch.as_tensor(b.copy()),
+                         torch.as_tensor(c.copy())).numpy()
+
+
+def bucket_first(v, lo, hi) -> np.ndarray:
+    """The definition of a value's bucket in a round of the wide median
+    over [lo, hi] (float32): the first k in [0, 256) with v <= t_k =
+    fma(w, k + 1, lo), w = (hi - lo) / 256, or 256."""
+    v = np.asarray(v, np.float32)
+    lo, hi = np.float32(lo), np.float32(hi)
+    with np.errstate(all="ignore"):
+        w = np.float32((hi - lo) / np.float32(256))
+    t = _fma32(w, np.arange(1, 257, dtype=np.float32), lo)
+    below = v[:, None] <= t[None, :]
+    return np.where(below.any(axis=1), below.argmax(axis=1), 256)
+
+
+def bucket_guess_correct(v, lo, hi) -> np.ndarray:
+    """``csrc/robust_weights.cu``'s ``bucket`` of each float32 value:
+    0 where v <= t_0; 256 where not v <= t_255 (a NaN value, NaN
+    thresholds, or above them all); else the guess g = ceil((v - lo) *
+    (1 / w)) - 1 (divided by w where w is subnormal; clamped to [1, 255],
+    a NaN guess to 1), walked down while v <= t_{g-1} and up while not
+    v <= t_g."""
+    v = np.asarray(v, np.float32)
+    lo, hi = np.float32(lo), np.float32(hi)
+    one = np.float32(1)
+    with np.errstate(all="ignore"):
+        w = np.float32((hi - lo) / np.float32(256))
+
+        def t(g):
+            return _fma32(w, np.asarray(g, np.float32) + one, lo)
+
+        out = np.full(v.shape, -1)
+        out[v <= t(0)] = 0
+        out[(out < 0) & ~(v <= t(255))] = 256
+        rest = np.flatnonzero(out < 0)
+        x = np.float32(v[rest] - lo)
+        q = np.ceil(x / w if w < np.finfo(np.float32).tiny
+                    else x * np.float32(one / w)) - one
+        g = np.where(q >= 255, 255, np.where(q >= 1, q, 1)).astype(np.int64)
+        x = v[rest]
+        while True:
+            down = (g > 1) & (x <= t(g - 1))
+            if not down.any():
+                break
+            g[down] -= 1
+        while True:
+            up = (g < 255) & ~(x <= t(g))
+            if not up.any():
+                break
+            g[up] += 1
+        out[rest] = g
+    return out
+
+
+def rsqrt_from_table(v, table: np.ndarray):
+    """float32 ``1 / sqrt(v)`` as ``csrc/robust_weights.cu`` computes it:
+    the estimate's 12-bit mantissa from ``table`` (``gn_kernels_cuda.
+    rsqrt_table``) at (exponent parity << 10 | top ten mantissa bits), its
+    exponent 126 - (e - 127 or 128) / 2, then two fused Newton steps; a
+    torch tensor in and out."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
+    bits = v.view(torch.int32)
+    exponent = (bits >> 23) & 0xFF
+    odd = exponent & 1
+    m12 = torch.as_tensor(table.astype(np.int32))[
+        (odd << 10) | ((bits >> 13) & 0x3FF)]
+    scale = 126 - (exponent - torch.where(odd == 1, 127, 128)) // 2
+    y = ((scale << 23) | (m12 << 11)).to(torch.int32).view(torch.float32)
+    for _ in range(2):
+        y = xf.fma(y * -0.5, xf.fma(v * y, y, torch.full_like(y, -1.0)), y)
+    return y
 
 
 def differing(got, want) -> int:

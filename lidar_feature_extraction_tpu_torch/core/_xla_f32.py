@@ -198,15 +198,25 @@ def rsqrt(v: torch.Tensor) -> torch.Tensor:
     bits = v.view(torch.int32)
     exponent = (bits >> 23) & 0xFF
     odd = (exponent & 1) == 1
-    mid = (1.0 + (((bits >> 13) & 0x3FF).double() + 0.5) / 1024.0) \
-        * torch.where(odd, 1.0, 2.0)
-    m12 = torch.round(8192.0 / torch.sqrt(mid) - 4096.0).to(torch.int32)
+    m12 = _rsqrt_m12(v)
     scale = (126 - (exponent - torch.where(odd, 127, 128)) // 2).to(
         torch.int32)
     y = ((scale << 23) | (m12 << 11)).view(torch.float32)
     for _ in range(2):
         y = fma(y * -0.5, fma(v * y, y, torch.full_like(y, -1.0)), y)
     return y
+
+
+def _rsqrt_m12(v: torch.Tensor) -> torch.Tensor:
+    """The 12-bit mantissa of ``rsqrt``'s estimate of float32 ``v``
+    (int32): ``round(8192 / sqrt(mid) - 4096)`` in float64 at the midpoint
+    ``mid`` of the input's class (the exponent's parity and the top ten
+    mantissa bits) scaled to [1, 4)."""
+    bits = v.view(torch.int32)
+    odd = ((bits >> 23) & 1) == 1
+    mid = (1.0 + (((bits >> 13) & 0x3FF).double() + 0.5) / 1024.0) \
+        * torch.where(odd, 1.0, 2.0)
+    return torch.round(8192.0 / torch.sqrt(mid) - 4096.0).to(torch.int32)
 
 
 def asin(v: torch.Tensor) -> torch.Tensor:

@@ -18,15 +18,20 @@ The kernels are bound to PyTorch as the operators
 ``lidar_port::robust_weights`` and ``lidar_port::gn_update``
 (``csrc/gn_kernels_op.cpp``, CUDA only). ``build`` compiles the three
 files into one library with ``nvcc`` against the installed torch (at
-first use, into ``build/kernels/``); ``load`` loads it. A failed build
-or launch raises. Nothing is compiled or loaded at import time.
+first use, into ``build/kernels/``); ``load`` loads it. ``robust_weights``
+reads ``xf.rsqrt``'s estimates from ``rsqrt_table``, which the wrapper
+copies to each device once (the library's ``robust_weights_set_table``).
+A failed build or launch raises. Nothing is compiled or loaded at import
+time.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from lidar_feature_extraction_tpu_torch.ops import fma_cuda
@@ -54,6 +59,53 @@ def load():
     return torch.ops.lidar_port
 
 
+def rsqrt_table() -> np.ndarray:
+    """``xf.rsqrt``'s 12-bit estimate for each of its 2,048 input classes,
+    indexed by the exponent's parity (bit 10) and the top ten mantissa
+    bits, as uint16: ``round(8192 / sqrt(mid) - 4096)`` in float64 at the
+    class's midpoint ``mid`` scaled to [1, 4), as ``core/_xla_f32.py``'s
+    ``rsqrt`` computes it."""
+    index = np.arange(2048)
+    mid = (1.0 + ((index & 0x3FF) + 0.5) / 1024.0) \
+        * np.where(index >> 10 == 1, 1.0, 2.0)
+    return np.rint(8192.0 / np.sqrt(mid) - 4096.0).astype(np.uint16)
+
+
+_TABLE_DEVICES: set = set()
+
+
+@functools.lru_cache(maxsize=None)
+def _c_library():
+    """The loaded library's C functions (ctypes)."""
+    load()
+    lib = ctypes.CDLL(str(build()))  # the library load() loaded
+    lib.robust_weights_set_table.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.robust_weights_set_table.restype = ctypes.c_int
+    lib.robust_weights_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.robust_weights_cluster_size.restype = ctypes.c_int
+    return lib
+
+
+def cluster_size(batch: int, tasks: int) -> int:
+    """The CTAs ``robust_weights`` gives each of ``tasks`` tasks of
+    ``batch`` lanes (1 + the residual blocks with the block medians)."""
+    return _c_library().robust_weights_cluster_size(batch, tasks)
+
+
+def _set_table(device: torch.device) -> None:
+    """Copies ``rsqrt_table`` to ``device``; the wrapper calls it once per
+    device and process (the kernel refuses to launch on a device without
+    the table)."""
+    table = rsqrt_table()
+    with torch.cuda.device(device):
+        err = _c_library().robust_weights_set_table(table.ctypes.data,
+                                                    table.size)
+    if err:
+        raise RuntimeError(f"robust_weights: the rsqrt table was not "
+                           f"copied to {device}: CUDA error {err}")
+    _TABLE_DEVICES.add(device.index)
+
+
 def robust_weights_cuda(errors: torch.Tensor, valid: torch.Tensor,
                         shape: tuple, huber_k: float = 1.345,
                         with_block_medians: bool = False):
@@ -66,6 +118,8 @@ def robust_weights_cuda(errors: torch.Tensor, valid: torch.Tensor,
     if not errors.is_cuda:
         raise ValueError(f"robust_weights: needs CUDA tensors, got "
                          f"{errors.device}")
+    if errors.device.index not in _TABLE_DEVICES:
+        _set_table(errors.device)
     n_valid, error, scale, weights, meds = load().robust_weights(
         errors, valid, [n for n, _ in shape], float(huber_k),
         with_block_medians)

@@ -183,6 +183,7 @@ _PORT_FILES = sorted(
                                  "profile_drive.py", "profile_fits.py",
                                  "profile_k1.py",
                                  "profile_normal_equations.py",
+                                 "profile_robust_weights.py",
                                  "reference_cases.py", "scatter_probe.py",
                                  "tests/torch_parallel_worker.py")])
 

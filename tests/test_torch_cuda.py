@@ -1139,16 +1139,18 @@ def test_gn_update_kernel_reads_strided_operands(cuda):
 
 @pytest.mark.parametrize("medians", [False, True], ids=["step", "loop"])
 @pytest.mark.parametrize("n,batch", [(n, b) for n in (1, 33, 2047, 10240,
-                                                      14336)
+                                                      14336, 81920)
                                      for b in (1, 8, 32)]
-                         + [(81920, 1), (81920, 8)])
+                         + [(131073, 1), (65537, 8), (32769, 16),
+                            (32769, 32)])
 def test_robust_weights_kernel_matches_plain_version(cuda, n, batch,
                                                      medians):
     """csrc/robust_weights.cu against ``stats.robust_weights_plain`` on the
     card, bit for bit (a NaN against a NaN), on gn_kernels_check's seeded
-    errors (the edge cases in a batch's first eight lanes; at 81,920 a
-    lane is read from L2, not staged), each lane equal to its lone
-    launch."""
+    errors (the edge cases in a batch's first eight lanes, lane 7 on the
+    first round's thresholds; the last four sizes one error past what
+    their launch's cluster holds in shared memory, gk.RW_CLUSTER_CASES),
+    each lane equal to its lone launch."""
     import gn_kernels_check as gk
     from lidar_feature_extraction_tpu_torch.core import stats
     from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (

@@ -8,7 +8,11 @@ at B = 1, 8 and 32 (the edge cases in the first eight lanes of a batch)
 every lane of a batch equals its lone call, and the edge lanes do what
 the module's note says. A float32 iteration calls each once. The kernels
 themselves run only on the card (``tests/test_torch_cuda.py``); here their
-wrappers must refuse CPU tensors rather than compute anything.
+wrappers must refuse CPU tensors rather than compute anything, and two of
+``robust_weights``' parts are held in their numpy and torch mirrors: its
+exact guess-and-correct bucket search against the definition (the first
+threshold at or above a value), and its rsqrt from a host-built table
+against ``xf.rsqrt``.
 The float32 step's parity with the JAX package is held by the existing
 tests (``test_torch_localization.py``, ``test_torch_drive.py``,
 ``test_torch_host_localizer.py``, ``test_torch_xla_dot.py``).
@@ -20,6 +24,7 @@ import torch
 
 import gn_kernels_check as gk
 from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import stats
 from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
 from lidar_feature_extraction_tpu_torch.ops import smallalg
@@ -94,6 +99,96 @@ def test_robust_weights_edge_lanes():
     assert int(n_valid[6]) == 1 and float(scale[6]) == 0
     assert torch.isfinite(scale[[0, 2, 3, 4, 5, 7]]).all()
     assert n_valid[0] == errors.shape[1]
+
+
+def test_robust_weights_threshold_lane():
+    """Lane 7 holds its ends and the first round's 256 thresholds and
+    their neighbours, all valid, so the median's first round sees values
+    on every threshold."""
+    errors, valid, shape = _rw_args(10240, gk.RW_EDGE_LANES)
+    lane = errors[7].numpy()
+    lo, hi = np.float32(lane.min()), np.float32(lane.max())
+    t = gk._fma32(np.float32((hi - lo) / np.float32(256)),
+                  np.arange(1, 257, dtype=np.float32), lo)
+    assert bool(valid[7].all()) and (lo, hi) == (np.float32(0.25),
+                                                np.float32(3.3))
+    assert np.isin(t[t <= hi], lane).all()
+    assert np.isin(np.nextafter(t[:-1], np.float32(0)), lane).all()
+
+
+_F32 = np.float32
+# (lo, hi) of a median's round: w = 0, subnormal w (from 0 and across 0),
+# a span of 1e-8..1e4, w below an ulp of lo, and NaN thresholds (lo -inf
+# or NaN) or infinite ones (hi +inf).
+_BUCKET_RANGES = {
+    "w0": (1.5, 1.5), "subnormal": (0.0, _F32(3 * 2.0 ** -149 * 256)),
+    "subnormal_across_0": (_F32(-1e-40), _F32(1e-40)),
+    "span_1e-8_1e4": (1e-8, 1e4), "below_ulp": (1e4, _F32(1e4) + _F32(1e-3)),
+    "negative": (-7.5, -0.125), "nan_from_-inf": (-np.inf, 1.0),
+    "nan_lo": (np.nan, 1.0), "inf_hi": (0.0, np.inf)}
+
+
+@pytest.mark.parametrize("lo,hi", list(_BUCKET_RANGES.values()),
+                         ids=list(_BUCKET_RANGES))
+def test_bucket_guess_correct_is_the_first_threshold_at_or_above(lo, hi):
+    """csrc/robust_weights.cu's bucket search (its numpy mirror) gives
+    every value the bucket of the definition, the first k with v <= t_k
+    (else 256): values on each of the 256 fma-computed thresholds, one ulp
+    below and above, the ends, NaN, +-inf, +-0 and seeded values around
+    the range."""
+    lo, hi = _F32(lo), _F32(hi)
+    with np.errstate(all="ignore"):
+        w = _F32((hi - lo) / _F32(256))
+        t = gk._fma32(w, np.arange(1, 257, dtype=_F32), lo)
+        rng = np.random.default_rng(11)
+        span = hi - lo if np.isfinite(hi - lo) else _F32(1)
+        base = lo if np.isfinite(lo) else _F32(0)
+        seeded = _F32(base + span * rng.uniform(-0.5, 1.5, 2000))
+    values = np.concatenate([
+        t, np.nextafter(t, _F32(-np.inf)), np.nextafter(t, _F32(np.inf)),
+        _F32([lo, hi, np.nan, np.inf, -np.inf, 0.0, -0.0]), seeded]
+    ).astype(_F32)
+    want = gk.bucket_first(values, lo, hi)
+    assert np.array_equal(gk.bucket_guess_correct(values, lo, hi), want)
+    if np.isnan(t).any():
+        assert (want == 256).all()
+
+
+def test_rsqrt_table_is_xf_rsqrt_estimate():
+    """The host-built table holds ``xf.rsqrt``'s 12-bit estimate for each
+    of the 2,048 classes (the exponent's parity, the top ten mantissa
+    bits), at two exponents each."""
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        rsqrt_table)
+
+    table = rsqrt_table()
+    assert table.shape == (2048,) and table.dtype == np.uint16
+    index = np.arange(2048)
+    for exponent in (127, 201):   # odd, then even
+        parity = np.where(index >> 10 == 1, exponent, exponent + 1)
+        bits = (parity << 23) | ((index & 0x3FF) << 13) | 0x1357
+        v = torch.as_tensor(bits.astype(np.int32)).view(torch.float32)
+        assert np.array_equal(xf._rsqrt_m12(v).numpy(),
+                              table.astype(np.int32))
+
+
+def test_rsqrt_from_table_matches_xf_rsqrt():
+    """The kernel's rsqrt (its torch mirror: the table's estimate and two
+    fused Newton steps) equals ``xf.rsqrt`` bit for bit on seeded normals
+    over the whole exponent range, the smallest and largest normals and
+    every power of two."""
+    from lidar_feature_extraction_tpu_torch.ops.gn_kernels_cuda import (
+        rsqrt_table)
+
+    rng = np.random.default_rng(17)
+    finfo = np.finfo(np.float32)
+    v = np.concatenate([
+        _F32(np.exp2(rng.uniform(-126, 128, 200_000))),
+        [finfo.tiny, finfo.max, np.nextafter(finfo.tiny, _F32(1))],
+        _F32(2.0) ** np.arange(-126, 128)]).astype(_F32)
+    v = torch.as_tensor(v[np.isfinite(v)])
+    got = gk.rsqrt_from_table(v, rsqrt_table())
+    assert torch.equal(got.view(torch.int32), xf.rsqrt(v).view(torch.int32))
 
 
 def test_gn_iteration_calls_each_fused_step_once(monkeypatch):
