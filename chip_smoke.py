@@ -22,7 +22,10 @@ Phases, each of which must pass (any failure exits non-zero):
    multiply-add of ``core/_xla_f32.py::fma``) against its plain version
    on the card, bit for bit (NaN against NaN): 10^6 random triples of
    every magnitude, signed zeros, subnormals, infinities, NaN, exact
-   cancellations, near-halfway sums, and broadcast and strided operands;
+   cancellations, near-halfway sums, and the layouts of ``FMA_LAYOUTS``
+   (sizes about a float4's multiple, views off 16-byte alignment, scalar
+   and broadcast ``a``, transposed and strided views, 8 dimensions that
+   coalesce, empty operands, which launch nothing);
    and ``normal_equations`` (the Gauss-Newton D, A and b in XLA:CPU's
    summation order, ROADMAP §C21, §C22) against its plain version
    ``core/_xla_dot.py::normal_equations_plain``, bit for bit: its tree
@@ -52,8 +55,10 @@ Phases, each of which must pass (any failure exits non-zero):
    bench's best-case prior t = (0.3, -0.2, 0.05), and it with a 0.2 m +
    ~1 degree error drawn with numpy), each on a fresh image tensor. K1's
    launch count is reset just before and read just after, and must be at
-   least the number of scans. Every result must be finite and registered
-   (a status other than EMPTY_INPUT, at least one iteration). On the
+   least the number of scans; fma_f32's launches are tallied by element
+   count (``fma_size_tally``) over the same calls. Every result must be
+   finite and registered (a status other than EMPTY_INPUT, at least one
+   iteration). On the
    street scene the best-case prior must end within 0.1 m of the truth
    (identity), and no noisy prior may end farther from it than it began.
    ``normal_equations``, ``robust_weights`` and ``gn_update`` are counted
@@ -86,7 +91,9 @@ Phases, each of which must pass (any failure exits non-zero):
    scan's gaps and the first scan that differs are printed. K1's,
    fma_f32's and normal_equations' counts are reset just before each
    run and read just after; each must be at least the number of
-   scans. Per run: ATE, xy ATE, mean step drift, ms/scan (host
+   scans; fma_f32's launches are also tallied by element count, in
+   power-of-two buckets and the most common counts (as in phase 3's
+   line). Per run: ATE, xy ATE, mean step drift, ms/scan (host
    clock ending in ``synchronize()``: mean, median, first scan), GN
    iterations and status counts, and the wall time of the last scan's
    ``localize_scan`` alone, run again from the previous scan's fused
@@ -263,12 +270,14 @@ Phases, each of which must pass (any failure exits non-zero):
    street scan through ``HostLocalizer`` over FeatureMaps
    (``profile_fits.fit_calls``: the launches of one search round's fits,
    of one GN iteration on them, of one that refits, and of the whole
-   registration). Last, ``fma_f32`` timed at 2^20 elements and at a row
-   block's [8192, 3] (profiler device time with the operands read from
-   memory, cycling through more operand sets than the L2 holds, and with
-   one set in L2; host time, the plain version's CUDA-event time,
-   ``torch.addcmul``'s profiler device times by the same two methods and
-   its CUDA-event time, the bytes bound);
+   registration). Last, ``fma_f32`` timed at 2^20 elements, at a row
+   block's [8192, 3] and at the most common element count of phases 3
+   and 4's tally (its line ``fma_f32_sizes``) (profiler device time with
+   the operands read from memory, cycling through more operand sets than
+   the L2 holds, and with one set in L2; host time of the wrapper, of
+   ``xf.fma`` and of ``torch.addcmul``, the plain version's CUDA-event
+   time, ``torch.addcmul``'s profiler device times by the same two
+   methods and its CUDA-event time, the bytes bound);
    ``normal_equations`` at the drives' row counts (10,240 and 14,336)
    alone and as a batch of 32, and at 2,047 rows, on row-major operands
    as the main path's (profiler device time, also with j column-major,
@@ -281,7 +290,10 @@ Phases, each of which must pass (any failure exits non-zero):
    medians, and as a batch of 32): profiler device time, host time, the
    plain version's CUDA-event time, the bytes bound and, in the timing
    line only, the chain floor (the longest chain of dependent float
-   operations at the same assumed 4 cycles, computed, not measured); and
+   operations at the same assumed 4 cycles, computed, not measured; for
+   gn_update each division and root at the dependent length of its SASS
+   sequence, beside it the count with each one step and the count of a
+   serial design); and
    the launch floor, the device
    time per launch of PyTorch's near-empty spin kernel
    (``torch.cuda._sleep(0)``; the profiler, as for the kernels).
@@ -319,6 +331,9 @@ FMA_LAUNCHES = 200
 # The device kernel of torch.addcmul on CUDA float32 (part of its name, as
 # the profiler reports it).
 ADDCMUL_KERNEL = "addcmul_cuda_kernel"
+# The profiler's name of every fma_f32 kernel (the streaming and the strided
+# one) contains this.
+FMA_KERNEL = "fma_f32_"
 # fma_f32's timing cycles through this many bytes of operands, twice the
 # H100's 50 MB L2, so that each launch reads its operands from memory.
 ROTATE_BYTES = 100 << 20
@@ -591,10 +606,12 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
     torch.cuda.synchronize()
     k1.label_and_columns_cuda.launches = 0
     fma.fma_f32_cuda.launches = 0
+    fma.fma_f32_cuda.sizes = {}
     gn_counts(reset=True)
     fields = rc.port_drive(maps, cfg, scans, twists, device, ms=ms)
     launches = k1.label_and_columns_cuda.launches
     fma_launches = fma.fma_f32_cuda.launches
+    fma_sizes, fma.fma_f32_cuda.sizes = fma.fma_f32_cuda.sizes, None
     gn_launches = gn_counts()
 
     est = fields["measured_t"]
@@ -612,7 +629,8 @@ def drive_run(maps, cfg, scans, twists, gt, device, k1, fma):
     last_ms = 1e3 * (time.perf_counter() - start)
     return {
         "scans": len(scans), "k1_launches": launches,
-        "fma_launches": fma_launches, "gn_launches": gn_launches,
+        "fma_launches": fma_launches, "fma_sizes": fma_size_tally(fma_sizes),
+        "fma_sizes_raw": fma_sizes, "gn_launches": gn_launches,
         "finite": bool(np.isfinite(poses).all()),
         "ate_rmse_m": ate_rmse(est, gt, align=False),
         "ate_xy_rmse_m": ate_rmse(np.pad(est[:, :2], ((0, 0), (0, 1))),
@@ -2137,34 +2155,89 @@ def fma_operands(device):
     return tuple(torch.as_tensor(v, device=device) for v in (a, b, c))
 
 
+# fma_f32's layouts (``fma_layout``): contiguous operands of sizes about a
+# float4's multiple, views that are not 16-byte aligned, a Python float
+# ``a``, one broadcast element, a row block's [8192, 1] against [8192, 3],
+# a transposed and a strided view, 8 dimensions that coalesce into 1 or
+# stay 3, empty operands.
+FMA_LAYOUTS = ("n1", "n3", "n4", "n5", "n1023", "n1048579", "offset_b",
+               "offset_all", "scalar_a", "element_a", "scalar_tensor_a",
+               "column_a", "transposed", "strided", "dims8_contiguous",
+               "dims8_broadcast", "empty", "empty_rows")
+
+
+def fma_layout(name: str, device):
+    """The operands (a, b, c) of fma_f32's layout ``name``
+    (``FMA_LAYOUTS``), made with numpy from a seed and moved to
+    ``device``."""
+    import torch
+
+    rng = np.random.default_rng(list(FMA_LAYOUTS).index(name) + 100)
+
+    def rand(*shape):
+        return torch.as_tensor(np.float32(rng.normal(size=shape)),
+                               device=device)
+
+    if name.startswith("n"):
+        n = int(name[1:])
+        return rand(n), rand(n), rand(n)
+    m = 8192
+    if name == "offset_b":
+        return rand(4097), rand(4098)[1:], rand(4097)
+    if name == "offset_all":
+        return rand(4098)[1:], rand(4098)[1:], rand(4098)[1:]
+    if name == "scalar_a":
+        return -1.5, rand(4099), rand(4099)
+    if name == "element_a":
+        return rand(1), rand(4099), rand(4099)
+    if name == "scalar_tensor_a":
+        return rand(1)[0], rand(m, 3), rand(m, 3)
+    if name == "column_a":
+        return rand(m, 1), rand(m, 3), rand(m, 3)
+    if name == "transposed":
+        return rand(m, 3), rand(3, m).t(), rand(m, 3)
+    if name == "strided":
+        return rand(2 * m, 3)[::2], rand(m, 3), rand(1, 3)
+    shape = (2, 3, 2, 2, 2, 2, 2, 3)
+    if name == "dims8_contiguous":
+        return rand(*shape), rand(*shape), rand(*shape)
+    if name == "dims8_broadcast":
+        return rand(2, 3, 1, 1, 1, 1, 1, 1), rand(*shape), rand(1, *shape[1:])
+    if name == "empty":
+        return rand(0), rand(0), rand(0)
+    if name == "empty_rows":
+        return rand(0, 1), rand(0, 3), rand(0, 3)
+    raise ValueError(name)
+
+
 def fma_phase(dev, fma) -> dict:
     """fma_f32 against its plain version (``_xla_f32._fma_plain``) on the
     card, bit for bit (NaN against NaN): the random and edge-case
-    triples of ``fma_operands``, then broadcast shapes (a Python float
-    ``a``, a [N, 1] against [N, 3], a strided view). The launches made
-    here are not counted for any main path."""
+    triples of ``fma_operands``, then every layout of ``FMA_LAYOUTS``
+    (shape, and no launch for an empty output, checked too). The
+    launches made here are not counted for any main path."""
     import torch
+    import gn_kernels_check as gk
     from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
-
-    def differ(x, y):
-        same = (x.view(torch.int32) == y.view(torch.int32)) \
-            | (torch.isnan(x) & torch.isnan(y))
-        return int((~same).sum())
 
     saved = fma.fma_f32_cuda.launches
     a, b, c = fma_operands(dev)
     got = fma.fma_f32_cuda(a, b, c)
     want = xf._fma_plain(a, b, c)
     finite = torch.isfinite(got) & torch.isfinite(want)
-    out = {"elements": a.numel(), "differ": differ(got, want),
+    out = {"elements": a.numel(), "differ": gk.differing(got, want),
            "max_abs_err": float((got - want)[finite].abs().max())}
-    m = 8192
-    u, v = b[:3 * m].view(m, 3), c[:3 * m].view(m, 3)
-    cases = {"scalar_a": (2.0, u, v), "column_a": (a[:m].view(m, 1), u, v),
-             "strided": (a[:6 * m:2].view(m, 3), u.t().contiguous().t(), v)}
-    for name, (x, y, z) in cases.items():
-        out[f"differ_{name}"] = differ(fma.fma_f32_cuda(x, y, z),
-                                       xf._fma_plain(x, y, z))
+    for name in FMA_LAYOUTS:
+        x, y, z = fma_layout(name, dev)
+        before = fma.fma_f32_cuda.launches
+        got = fma.fma_f32_cuda(x, y, z)
+        want = xf._fma_plain(x, y, z)
+        launched = fma.fma_f32_cuda.launches - before
+        out[f"differ_{name}"] = (
+            gk.differing(got, want) if got.shape == want.shape
+            else f"shape {list(got.shape)} against {list(want.shape)}")
+        if launched != int(want.numel() > 0):
+            out[f"differ_{name}_launches"] = f"{launched} launches"
     torch.cuda.synchronize()
     fma.fma_f32_cuda.launches = saved
     bad = {k: v for k, v in out.items() if k.startswith("differ") and v}
@@ -2172,17 +2245,37 @@ def fma_phase(dev, fma) -> dict:
     return out
 
 
+def fma_size_tally(sizes: dict) -> dict:
+    """fma_f32's launches by element count (``fma_f32_cuda.sizes``): in
+    power-of-two buckets ("2^k": counts of 2^k <= n < 2^(k+1)) and the
+    ten most common counts, [[n, launches], ...]."""
+    buckets = {}
+    for n, count in sizes.items():
+        key = f"2^{int(n).bit_length() - 1}"
+        buckets[key] = buckets.get(key, 0) + count
+    top = sorted(sizes.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+    return {"launches": sum(sizes.values()),
+            "pow2": dict(sorted(buckets.items(),
+                                key=lambda kv: int(kv[0][2:]))),
+            "top": [[int(n), c] for n, c in top]}
+
+
 def fma_timing(dev, fma, bound_us, device_us_per_launch,
-               host_us_per_call) -> dict:
-    """fma_f32 timed on the card at 2^20 elements of one shape and at a
-    production row block's [8192, 3] with a broadcast ``a`` [8192, 1]:
-    device time per launch (profiler) with the operands read from memory
-    (each launch takes the next of ``ROTATE_BYTES`` of operand sets, more
-    than the L2 holds) and, as ``device_us_l2``, with one set that stays in
-    L2; host time per call, the plain version's time (CUDA events),
-    ``torch.addcmul``'s device time per launch by the same two profiler
-    methods (and its CUDA-event time beside them), and the bound (16 bytes
-    per element at the memory rate; 2 operations)."""
+               host_us_per_call, tallied: int) -> dict:
+    """fma_f32 timed on the card at 2^20 elements of one shape, at a
+    production row block's [8192, 3] with a broadcast ``a`` [8192, 1], and
+    at ``tallied`` elements of one shape (the main path's most common
+    size, ``fma_size_tally``): device time per launch (profiler) with the
+    operands read from memory (each launch takes the next of
+    ``ROTATE_BYTES`` of operand sets, more than the L2 holds; the
+    library's launches go on where the kernel's stopped) and, as
+    ``device_us_l2``, with one set that stays in L2; host time per call of
+    the wrapper (``host_us``), of ``xf.fma`` (``host_us_xf``, the port's
+    call) and of ``torch.addcmul`` (``library_host_us``), by the same
+    method; the plain version's time (CUDA events), ``torch.addcmul``'s
+    device time per launch by the same two profiler methods (and its
+    CUDA-event time beside them), and the bound (16 bytes per element at
+    the memory rate; 2 operations)."""
     import itertools
     import torch
     from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
@@ -2191,7 +2284,8 @@ def fma_timing(dev, fma, bound_us, device_us_per_launch,
     out = {}
     g = torch.Generator(device=dev).manual_seed(12)
     for name, shape_a, shape in (("1m", (1 << 20,), (1 << 20,)),
-                                 ("rows", (8192, 1), (8192, 3))):
+                                 ("rows", (8192, 1), (8192, 3)),
+                                 ("tallied", (tallied,), (tallied,))):
         n = shape[0] * (shape[1] if len(shape) > 1 else 1)
         nbytes = 4 * (shape_a[0] + 3 * n)
         sets = -(-ROTATE_BYTES // nbytes)
@@ -2201,9 +2295,12 @@ def fma_timing(dev, fma, bound_us, device_us_per_launch,
         a, b, c = a_all[0], b_all[0], c_all[0]
         bound, by = bound_us(nbytes, 2 * n)
 
-        def from_memory(fn):
-            order = itertools.cycle(range(sets))
+        # One rotation for the kernel and addcmul: a fresh one would hand
+        # addcmul the sets the kernel has just read, which fit in L2 at
+        # the tallied size.
+        order = itertools.cycle(range(sets))
 
+        def from_memory(fn):
             def call():
                 i = next(order)
                 return fn(a_all[i], b_all[i], c_all[i])
@@ -2219,10 +2316,12 @@ def fma_timing(dev, fma, bound_us, device_us_per_launch,
             "shape": list(shape),
             "operand_sets": sets,
             "device_us": device_us_per_launch(
-                from_memory(kernel), "fma_f32_kernel", FMA_LAUNCHES)[0],
+                from_memory(kernel), FMA_KERNEL, FMA_LAUNCHES)[0],
             "device_us_l2": device_us_per_launch(
-                lambda: kernel(a, b, c), "fma_f32_kernel", FMA_LAUNCHES)[0],
+                lambda: kernel(a, b, c), FMA_KERNEL, FMA_LAUNCHES)[0],
             "host_us": host_us_per_call(lambda: kernel(a, b, c)),
+            "host_us_xf": host_us_per_call(lambda: xf.fma(a, b, c)),
+            "library_host_us": host_us_per_call(lambda: library(a, b, c)),
             "plain_ms": time_ms(lambda: xf._fma_plain(a, b, c)),
             "library_device_us": device_us_per_launch(
                 from_memory(library), ADDCMUL_KERNEL, FMA_LAUNCHES)[0],
@@ -2546,53 +2645,82 @@ def gn_kernels_phase(dev) -> dict:
     return out
 
 
-def _factor_depth(n: int, start: int, fused: bool) -> dict:
-    """Depths (dependent float operations from the start) of an unrolled
+# csrc/gn_update.cu's IEEE divisions and square roots as ``cuobjdump -sass``
+# shows their fast paths (sm_90a): a division is MUFU.RCP of the divisor
+# and five dependent FFMAs, the numerator entering at the third from the
+# end; a root is MUFU.RSQ, an FMUL and two FFMAs (beside them, a range
+# check and a branch to the slow path). A count with each as one step
+# understates the chain.
+DIV_AFTER_DIVISOR, DIV_AFTER_NUMERATOR, ROOT_STEPS = 6, 3, 4
+
+
+def _steps(sass: bool) -> tuple:
+    """(steps after the divisor, after the numerator, of a root)."""
+    return ((DIV_AFTER_DIVISOR, DIV_AFTER_NUMERATOR, ROOT_STEPS) if sass
+            else (1, 1, 1))
+
+
+def _factor_depth(n: int, start: int, fused: bool, sass: bool = False,
+                  shuffle: int = 0) -> dict:
+    """Depths (dependent operations from the start) of an unrolled
     Cholesky factor's entries l[i, j] of an n x n matrix whose entries are
-    ready at ``start``: ``s - l l`` one step fused, two plain; a square
-    root or a division one step."""
+    ready at ``start``: ``s - l l`` one step fused, two plain; a division
+    and a root one step each, or their SASS lengths (``sass``); an
+    off-diagonal entry reaches the other lanes ``shuffle`` steps later."""
     step = 1 if fused else 2
+    after_divisor, after_numerator, root = _steps(sass)
     d = {}
     for i in range(n):
         for j in range(i + 1):
             s = start
             for k in range(j):
-                s = max(s, d[i, k], d[j, k]) + step
-            d[i, j] = s + 1 if i == j else max(s, d[j, j]) + 1
+                s = max(s, d[i, k] + shuffle * (i != k),
+                        d[j, k] + shuffle * (j != k)) + step
+            d[i, j] = s + root if i == j else max(
+                s + after_numerator, d[j, j] + after_divisor)
     return d
 
 
-# gn_update after its solve: the guard (1), exp_so3 (the sum of squares 3,
-# the root 1, the branch 1, the half angle 1; glibc's reduction and
-# polynomial in float64, 12; the sine over the angle 1, dq's vector 1),
-# the fused quaternion product (4), its norm (4 + the root 1 + the clamp
-# 1) and the division (1): counted from csrc/gn_update.cu.
-POSE_UPDATE_OPS = 33
+def gn_update_chain_ops(sass: bool = True, columns: bool = True) -> int:
+    """The longest chain of dependent float operations in gn_update: the
+    lift and the two products (1 + 7 + 7), then the fused 6 x 6 factor and
+    its two substitutions, or beside it the plain 7 x 7 eigenvalue test
+    (from the loads), then the pose update. A division or a root is one
+    step, or (``sass``) its SASS length; ``columns`` counts this design's
+    shuffles (a factor column's broadcast, the sine and cosine's exchange:
+    one step each), without it the serial design (the solve, the test and
+    the pose update each on one thread)."""
+    after_divisor, after_numerator, root = _steps(sass)
+    shuffle = 1 if columns else 0
 
+    def div(n, d):
+        return max(n + after_numerator, d + after_divisor)
 
-def gn_update_chain_ops() -> int:
-    """The longest chain of dependent float operations in gn_update (every
-    operation one step, divisions and square roots included): the lift
-    and the two products (1 + 7 + 7), then the fused 6 x 6 factor and its
-    two substitutions, or beside it the plain 7 x 7 eigenvalue test
-    (from the loads), then ``POSE_UPDATE_OPS``."""
     start = 15
-    l = _factor_depth(6, start, True)
-    y, fwd = [], start
-    for i in range(6):
-        fwd = start
-        for k in range(i):
-            fwd = max(fwd, l[i, k], y[k]) + 1
-        y.append(max(fwd, l[i, i]) + 1)
+    l = _factor_depth(6, start, True, sass, shuffle)
+    y, s = [], [start] * 6
+    for k in range(5):
+        # This design divides y[k] in the factor's column k and shuffles it.
+        y.append(div(s[k], l[k, k]) + shuffle)
+        for i in range(k + 1, 6):
+            s[i] = max(s[i], l[i, k] + shuffle, y[k]) + 1
     x = [0] * 6
-    x[5] = max(fwd, l[5, 5] + 1) + 1
+    x[5] = div(s[5], l[5, 5] + 1)
     for i in reversed(range(5)):
-        s = y[i]
+        v = y[i]
         for k in range(i + 1, 6):
-            s = max(s, l[k, i], x[k]) + 1
-        x[i] = max(s, l[i, i]) + 1
-    eig = max(_factor_depth(7, 1, False).values()) + 1
-    return max(max(x), eig) + POSE_UPDATE_OPS
+            v = max(v, l[k, i] + shuffle, x[k]) + 1
+        x[i] = div(v, l[i, i])
+    eig = max(_factor_depth(7, 1, False, sass, shuffle).values()) + 1
+    # The guard (1); exp_so3: the sum of squares (3), the root, the branch
+    # and the half angle (2), glibc's reduction and polynomial in float64
+    # (12), the sine and cosine's exchange, the sine over the angle (a
+    # division whose divisor is long ready), dq's vector (1); the fused
+    # quaternion product (4), its norm (4, the root, the clamp 1) and the
+    # division by it.
+    pose = 1 + 3 + root + 2 + 12 + shuffle + after_numerator + 1 + 4 + 4 \
+        + root + 1 + after_divisor
+    return max(max(x), eig) + pose
 
 
 def robust_weights_chain_ops(n: int, cluster: int) -> int:
@@ -2652,7 +2780,8 @@ def gn_kernels_timing(dev, bound_us, device_us_per_launch,
     output written once), robust_weights' cluster size and, computed, not
     measured, the chain floor: the longest chain of dependent float
     operations at an assumed ``FMA_LATENCY_CYCLES`` each and the SM
-    clock's maximum."""
+    clock's maximum (for gn_update each division and root at its SASS
+    length, with the one-step count and the serial design's beside it)."""
     import torch
     import gn_kernels_check as gk
     from lidar_feature_extraction_tpu_torch.core import _xla_dot as xd
@@ -2675,6 +2804,11 @@ def gn_kernels_timing(dev, bound_us, device_us_per_launch,
         dev_us, seen = device_us_per_launch(
             lambda: gn_update_cuda(*args, gk.TAU), "gn_update_kernel",
             GN_LAUNCHES)
+        # The same count with each division and root one step, and the
+        # serial design's with the SASS lengths.
+        counts = {"chain_ops_one_step_each": gn_update_chain_ops(False),
+                  "chain_ops_serial_design": gn_update_chain_ops(
+                      True, columns=False)}
         out[f"gn_update.{batch}"] = {
             "batch": batch, "device_us": dev_us,
             "device_launches_seen": seen,
@@ -2684,7 +2818,7 @@ def gn_kernels_timing(dev, bound_us, device_us_per_launch,
                                 reps=5, warmup=1),
             "bound_us": bound, "bound_by": by, "bytes": nbytes,
             "chain_ops": ops,
-            "chain_floor_us": ops * FMA_LATENCY_CYCLES / mhz}
+            "chain_floor_us": ops * FMA_LATENCY_CYCLES / mhz, **counts}
     for n, batch, medians in ((10240, 1, False), (10240, 1, True),
                               (10240, 32, True), (14336, 1, True)):
         errors, valid, shape = gk.robust_weights_case(n, batch)
@@ -2819,6 +2953,7 @@ def main() -> int:
     chains = {}
     k1.label_and_columns_cuda.launches = 0
     fma_cuda.fma_f32_cuda.launches = 0
+    fma_cuda.fma_f32_cuda.sizes = {}
     gn_counts(reset=True)
     for scene, (maps, img) in (("bench", (bench_maps, bench_img)),
                                ("street", (street_maps, street_img))):
@@ -2828,6 +2963,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = k1.label_and_columns_cuda.launches
     fma_launches = fma_cuda.fma_f32_cuda.launches
+    fma_sizes = {"localize": fma_cuda.fma_f32_cuda.sizes}
+    fma_cuda.fma_f32_cuda.sizes = None
     launches_by_phase = {"localize": launches}
     fma_by_phase = {"localize": fma_launches}
     gn_by_phase = {"localize": gn_counts()}
@@ -2883,7 +3020,8 @@ def main() -> int:
              t_norm_max=max(t_err), t_norm_last=t_err[-1],
              within_0_1m=sum(e < 0.1 for e in t_err),
              prior_t_norm_mean=statistics.fmean(t_prior),
-             plain_path_agrees=True)
+             plain_path_agrees=True,
+             fma_sizes=fma_size_tally(fma_sizes["localize"]))
     torch.cuda.synchronize()
 
     # 4. drive: the closed loop of eval_ate.py, both configurations.
@@ -2922,6 +3060,7 @@ def main() -> int:
     for name, c in (("production", cfg), ("faithful", faithful)):
         run, last_scans[name], drive_poses[name] = drive_run(
             maps[name], c, scans, twists, gt, dev, k1, fma_cuda)
+        fma_sizes[f"drive {name}"] = run.pop("fma_sizes_raw")
         drive[name] = run
         limit = ATE_FACTOR * ATE_REFERENCE_M[name] + ATE_MARGIN_M
         # Against the JAX package's drive record: every scan's gaps, and
@@ -3346,8 +3485,14 @@ def main() -> int:
              / prof["profiled_wall_ms"], **prof)
 
     from k1_check import device_us_per_launch, host_us_per_call
+    main_sizes = {}
+    for sizes in fma_sizes.values():
+        for n, count in sizes.items():
+            main_sizes[n] = main_sizes.get(n, 0) + count
+    tallied = fma_size_tally(main_sizes)
+    emit("fma_f32_sizes", phases=list(fma_sizes), **tallied)
     fma_times = fma_timing(dev, fma_cuda, bound_us, device_us_per_launch,
-                           host_us_per_call)
+                           host_us_per_call, tallied["top"][0][0])
     emit("fma_f32_timing", nvidia_smi=smi, **fma_times)
     ne_times = ne_timing(dev, ne_cuda, bound_us, device_us_per_launch,
                          host_us_per_call)

@@ -21,9 +21,13 @@ same inputs. A batch of B >= 8 lanes starts with the edge cases:
 ``robust_weights``' kernel spreads a lane over a cluster of CTAs whose
 size follows B and the tasks; ``RW_CLUSTER_CASES`` puts one more error in
 a lane than each cluster size holds in shared memory. Beside the cases, the
-kernel's parts in numpy and torch, for the CPU tests: its bucket search
-(``bucket_guess_correct``, against the definition ``bucket_first``) and
-its rsqrt from a table (``rsqrt_from_table``).
+kernels' parts in numpy and torch, for the CPU tests: ``robust_weights``'
+bucket search (``bucket_guess_correct``, against the definition
+``bucket_first``) and its rsqrt from a table (``rsqrt_from_table``);
+``gn_update``'s lift from packed constants (``lift_from_constants``), its
+order of H's entries over the lanes (``h_entry``), and its solve and
+eigenvalue test in the kernel's order, column by column
+(``cholesky_solve_by_columns``, ``min_eigval_below_by_columns``).
 """
 
 from __future__ import annotations
@@ -242,6 +246,103 @@ def compare(got: tuple, want: tuple, names: tuple) -> dict:
         else:
             out[name] = differing(g.cpu(), w.cpu())
     return out
+
+
+# gn_update's lift (csrc/gn_update.cu::lift): in row k < 4 of make_m's
+# top-left 4 x 3, column i is 0.5 q[nibble i of LIFT_INDEX[k]], negated
+# where bit i of LIFT_NEGATE[k] is set.
+LIFT_INDEX = (0x321, 0x230, 0x103, 0x012)
+LIFT_NEGATE = (7, 2, 4, 1)
+
+
+def lift_from_constants(q):
+    """``make_m(q)`` [..., 7, 6] as ``gn_update`` reads it from q and the
+    packed constants (a torch tensor in and out)."""
+    import torch
+
+    m = torch.zeros(q.shape[:-1] + (7, 6), dtype=q.dtype)
+    for k in range(4):
+        for i in range(3):
+            v = q[..., (LIFT_INDEX[k] >> (4 * i)) & 0xF]
+            m[..., k, i] = 0.5 * (-v if (LIFT_NEGATE[k] >> i) & 1 else v)
+    for k in range(4, 7):
+        m[..., k, k - 1] = 1.0
+    return m
+
+
+def h_entry(e: int) -> tuple[int, int]:
+    """The (row, column) of H that ``gn_update``'s lane or thread ``e``
+    (0-35) computes: the lower triangle in row order first (lanes 0-20,
+    which the factor reads), then the upper one: (c, r) for the
+    (e - 21)-th entry (r, c) of the strict lower triangle."""
+    if e < 21:
+        r = sum(e >= x for x in (1, 3, 6, 10, 15))
+        return r, e - r * (r + 1) // 2
+    u = e - 21
+    r = 1 + sum(u >= x for x in (1, 3, 6, 10))
+    return u - r * (r - 1) // 2, r
+
+
+def cholesky_solve_by_columns(h, g, eps: float = 1e-30):
+    """``_xla_dot.cholesky_solve(h, g)`` (float32 torch, [..., 6, 6] and
+    [..., 6]) in ``gn_update``'s order: the fused factor column by column
+    (each column's root, its divisions by the guarded pivot beside the
+    forward substitution's y[k] = s[k] / l[k][k], then every later diagonal
+    chain, row entry and s[i] updated by it; the unused y[5] not divided),
+    the last unknown divided by l*l, the back substitution. Every entry
+    still runs its terms in ascending index order."""
+    import torch
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
+    n = h.shape[-1]
+    diag = [h[..., j, j] for j in range(n)]
+    row = {(i, j): h[..., i, j] for i in range(n) for j in range(i)}
+    s = [g[..., i] for i in range(n)]
+    L, y = {}, [None] * (n - 1)
+    for k in range(n - 1):
+        L[k, k] = xf.sqrt(diag[k])
+        pivot = torch.where(L[k, k].abs() < eps,
+                            torch.full_like(L[k, k], eps), L[k, k])
+        y[k] = s[k] / L[k, k]
+        for i in range(k + 1, n):
+            L[i, k] = row[i, k] / pivot
+        for j in range(k + 1, n):
+            diag[j] = xf.fma(-L[j, k], L[j, k], diag[j])
+            for i in range(j + 1, n):
+                row[i, j] = xf.fma(-L[i, k], L[j, k], row[i, j])
+            s[j] = xf.fma(-L[j, k], y[k], s[j])
+    L[n - 1, n - 1] = xf.sqrt(diag[n - 1])
+    x = [None] * n
+    x[n - 1] = s[n - 1] / (L[n - 1, n - 1] * L[n - 1, n - 1])
+    for i in reversed(range(n - 1)):
+        v = y[i]
+        for k in range(i + 1, n):
+            v = xf.fma(-L[k, i], x[k], v)
+        x[i] = v / L[i, i]
+    return torch.stack(x, dim=-1)
+
+
+def min_eigval_below_by_columns(d, tau: float):
+    """``smallalg.min_eigval_below(d, tau)`` (float32 torch [..., n, n]) in
+    ``gn_update``'s order: plain arithmetic, column by column as
+    ``cholesky_solve_by_columns`` factors (the last root not taken)."""
+    import torch
+
+    n = d.shape[-1]
+    diag = [d[..., j, j] - tau for j in range(n)]
+    row = {(i, j): d[..., i, j] - 0.0 for i in range(n) for j in range(i)}
+    ok = torch.ones(d.shape[:-2], dtype=torch.bool)
+    for k in range(n):
+        ok = ok & (diag[k] > 0)
+        if k == n - 1:
+            break
+        lkk = torch.sqrt(torch.clamp_min(diag[k], 1e-30))
+        col = {i: row[i, k] / lkk for i in range(k + 1, n)}
+        for j in range(k + 1, n):
+            diag[j] = diag[j] - col[j] * col[j]
+            for i in range(j + 1, n):
+                row[i, j] = row[i, j] - col[i] * col[j]
+    return ~ok
 
 
 GN_OUTPUTS = ("q", "t", "H", "dq_norm", "dt_norm")

@@ -34,6 +34,7 @@ graphs' linearization) calls plain torch functions instead
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -55,11 +56,17 @@ def fma(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     version ``_fma_plain``, which rounds the same); other dtypes round
     each operation. ``a`` may be a Python float that float32 holds
     exactly."""
-    if _float32(a, b, c) and b.is_cuda:
-        from lidar_feature_extraction_tpu_torch.ops.fma_cuda import (
-            fma_f32_cuda)
-        return fma_f32_cuda(a, b, c)
+    if b.is_cuda and _float32(a, b, c):
+        return _fma_cuda()(a, b, c)
     return _fma_plain(a, b, c)
+
+
+@functools.cache
+def _fma_cuda():
+    """``ops/fma_cuda.fma_f32_cuda``, imported at the first call on a card
+    (that module imports torch's CUDA build helpers) and then reused."""
+    from lidar_feature_extraction_tpu_torch.ops.fma_cuda import fma_f32_cuda
+    return fma_f32_cuda
 
 
 def _fma_plain(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

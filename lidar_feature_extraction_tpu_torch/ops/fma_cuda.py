@@ -58,25 +58,33 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def load():
     """Build (if needed) and load the library once per process; returns
-    the operator."""
+    the operator's one overload (called directly, not through the
+    overload packet)."""
     torch.ops.load_library(str(build()))
-    return torch.ops.lidar_port.fma_f32
+    return torch.ops.lidar_port.fma_f32.default
 
 
 def fma_f32_cuda(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once, on CUDA float32 tensors of shapes that
     broadcast (``a`` may be a Python float). Returns a new contiguous
     tensor of the broadcast shape, on the current stream, without
-    synchronising. Each launch adds one to ``fma_f32_cuda.launches``."""
+    synchronising. Each launch adds one to ``fma_f32_cuda.launches`` and,
+    while ``fma_f32_cuda.sizes`` is a dict, one to its entry for the
+    launch's element count."""
     if not b.is_cuda:
         raise ValueError(f"fma_f32: needs CUDA tensors, got {b.device}")
     if isinstance(a, torch.Tensor):
         out = load()(a, 0.0, b, c)
     else:
         out = load()(None, float(a), b, c)
-    if out.numel():
+    n = out.numel()
+    if n:
         fma_f32_cuda.launches += 1
+        sizes = fma_f32_cuda.sizes
+        if sizes is not None:
+            sizes[n] = sizes.get(n, 0) + 1
     return out
 
 
 fma_f32_cuda.launches = 0
+fma_f32_cuda.sizes = None

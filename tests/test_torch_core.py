@@ -181,6 +181,7 @@ _PORT_FILES = sorted(
     + [_ROOT / name for name in ("chip_smoke.py", "gn_kernels_check.py",
                                  "k1_check.py",
                                  "profile_drive.py", "profile_fits.py",
+                                 "profile_fma_gn_update.py",
                                  "profile_k1.py",
                                  "profile_normal_equations.py",
                                  "profile_robust_weights.py",

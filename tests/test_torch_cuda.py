@@ -10,6 +10,10 @@ against the CPU, their lone runs or the per-scan pipeline; and every
 float scatter-add of the port giving the same bits on two calls (ROADMAP
 §C16).
 
+fma_f32 on chip_smoke's layouts and its random and edge triples, bit for
+bit against its plain version, with no launch for an empty output, and
+past 32-bit indices and offsets (2^31 + 5 elements, 8 GiB an operand).
+
 Needs a CUDA device and ``nvcc``; every test here is marked ``gpu`` and
 skips elsewhere. The file imports neither JAX nor the JAX package, so on
 a machine without JAX it runs without the suite's conftest:
@@ -53,6 +57,8 @@ from lidar_feature_extraction_tpu_torch.utils.synthetic import (  # noqa: E402
     bench_scan, street_scan, street_world)
 
 pytestmark = pytest.mark.gpu
+
+import chip_smoke  # noqa: E402  (numpy only at import)
 
 
 @pytest.fixture
@@ -1088,6 +1094,145 @@ def test_normal_equations_kernel_equals_the_record(cuda):
                 arrays[f"cut.{scene}.{key}"].view(np.int32)), (scene, key)
 
 
+@pytest.mark.parametrize("layout", chip_smoke.FMA_LAYOUTS)
+def test_fma_f32_kernel_matches_plain_version(cuda, layout):
+    """csrc/fma_f32.cu against ``_xla_f32._fma_plain`` on the card, bit for
+    bit (a NaN against a NaN), on chip_smoke's layouts: contiguous sizes
+    around a float4's multiple, views off 16-byte alignment, a scalar or
+    one broadcast element ``a``, [8192, 1] against [8192, 3], transposed
+    and strided views, 8 dimensions that coalesce, empty operands (no
+    launch)."""
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+    from lidar_feature_extraction_tpu_torch.ops.fma_cuda import fma_f32_cuda
+
+    a, b, c = chip_smoke.fma_layout(layout, cuda)
+    before = fma_f32_cuda.launches
+    got = fma_f32_cuda(a, b, c)
+    launched = fma_f32_cuda.launches - before
+    want = xf._fma_plain(a, b, c)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_contiguous()
+    assert gk.differing(got, want) == 0
+    assert launched == int(want.numel() > 0)
+
+
+def test_fma_f32_kernel_matches_plain_version_on_the_smoke_triples(cuda):
+    """chip_smoke's ``fma_operands``: a million random triples of every
+    magnitude, then signed zeros, subnormals, infinities, NaN, exact
+    cancellations and halfway sums; also through ``xf.fma``, the port's
+    call, which launches the kernel once."""
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+    from lidar_feature_extraction_tpu_torch.ops.fma_cuda import fma_f32_cuda
+
+    a, b, c = chip_smoke.fma_operands(cuda)
+    want = xf._fma_plain(a, b, c)
+    assert gk.differing(fma_f32_cuda(a, b, c), want) == 0
+    before = fma_f32_cuda.launches
+    got = xf.fma(a, b, c)
+    assert fma_f32_cuda.launches - before == 1
+    assert gk.differing(got, want) == 0
+
+
+def test_fma_f32_refuses_what_it_cannot_take(cuda):
+    """A CPU tensor raises in the wrapper, a float64 CUDA tensor and
+    shapes that do not broadcast in the operator; nothing falls back to
+    the plain version."""
+    from lidar_feature_extraction_tpu_torch.ops.fma_cuda import fma_f32_cuda
+
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        fma_f32_cuda(x.cpu(), x.cpu(), x.cpu())
+    with pytest.raises(RuntimeError, match="float32"):
+        fma_f32_cuda(x, x.double(), x)
+    with pytest.raises(RuntimeError, match="broadcast"):
+        fma_f32_cuda(x, x, torch.ones(3, device=cuda))
+
+
+# Past 32-bit indices and not a multiple of 4: 8 GiB an operand.
+WIDE = (1 << 31) + 5
+
+
+def _fma_matches_plain_in_slices(got, a, b, c, rows):
+    """``got`` against ``_xla_f32._fma_plain`` bit for bit, ``rows`` rows
+    of the first dimension at a time (the plain version's float64
+    temporaries of the whole would not fit); ``a`` is a scalar or
+    broadcasts along the first dimension where it has one row."""
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+
+    n = got.shape[0]
+    for lo in range(0, n, rows):
+        part = slice(lo, lo + rows)
+        a_part = a[part] if isinstance(a, torch.Tensor) and \
+            a.shape[0] == n else a
+        want = xf._fma_plain(a_part, b[part], c[part])
+        assert gk.differing(got[part], want) == 0, lo
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "offset_b", "scalar_a",
+                                    "scalar_a_offset_b", "element_a",
+                                    "element_a_offset_b"])
+def test_fma_f32_kernel_past_32_bit_indices(cuda, layout):
+    """``WIDE`` elements of one dimension take the streaming kernel with
+    64-bit indices: every operand 16-byte aligned (float4 loads and a
+    scalar tail) or ``b`` one element off (scalar loads), with ``a``
+    contiguous, a scalar or one broadcast element; bit for bit against
+    the plain version."""
+    from lidar_feature_extraction_tpu_torch.ops.fma_cuda import fma_f32_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    b = torch.randn(WIDE + 1, device=cuda, generator=g)
+    b = b[1:] if layout.endswith("offset_b") else b[:WIDE]
+    c = torch.randn(WIDE, device=cuda, generator=g)
+    if layout.startswith("scalar_a"):
+        a = -1.5
+    elif layout.startswith("element_a"):
+        a = torch.randn(1, device=cuda, generator=g)
+    else:
+        a = torch.randn(WIDE, device=cuda, generator=g)
+    got = fma_f32_cuda(a, b, c)
+    assert got.shape == (WIDE,)
+    _fma_matches_plain_in_slices(got, a, b, c, 1 << 26)
+
+
+def test_fma_f32_kernel_past_32_bit_indices_with_a_broadcast_column(cuda):
+    """A row block's layout (``a`` [rows, 1] against [rows, 3]) over more
+    than 2^31 elements takes the strided kernel with 64-bit indices and
+    a 64-bit divider; bit for bit against the plain version."""
+    from lidar_feature_extraction_tpu_torch.ops.fma_cuda import fma_f32_cuda
+
+    rows = -(-WIDE // 3)
+    g = torch.Generator(device=cuda).manual_seed(32)
+    a = torch.randn(rows, 1, device=cuda, generator=g)
+    b = torch.randn(rows, 3, device=cuda, generator=g)
+    c = torch.randn(rows, 3, device=cuda, generator=g)
+    got = fma_f32_cuda(a, b, c)
+    assert got.shape == (rows, 3)
+    _fma_matches_plain_in_slices(got, a, b, c, 1 << 24)
+
+
+@pytest.mark.parametrize("a_shape", [(3, 7, 5), (1, 7, 1)])
+def test_fma_f32_kernel_past_32_bit_offsets(cuda, a_shape):
+    """A [3, 7, 5] view whose rows lie 2^30 elements apart in one 8 GiB
+    buffer (its last offset past 2^31) against a [3, 7, 5] or a
+    broadcast [1, 7, 1] ``a``: the strided kernel with 64-bit offsets and
+    two 64-bit dividers (its inner dimensions do not merge); bit for bit
+    against the plain version."""
+    import gn_kernels_check as gk
+    from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
+    from lidar_feature_extraction_tpu_torch.ops.fma_cuda import fma_f32_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(33)
+    buf = torch.randn(2 * (1 << 30) + 7 * 8, device=cuda, generator=g)
+    b = buf.as_strided((3, 7, 5), (1 << 30, 8, 1))
+    a = torch.randn(a_shape, device=cuda, generator=g)
+    c = torch.randn(3, 7, 5, device=cuda, generator=g)
+    got = fma_f32_cuda(a, b, c)
+    assert gk.differing(got, xf._fma_plain(a, b, c)) == 0
+
+
 def _gn_kernel_args(m, batch, device):
     import gn_kernels_check as gk
 
@@ -1095,7 +1240,7 @@ def _gn_kernel_args(m, batch, device):
             for a in gk.gn_update_case(m, batch)]
 
 
-@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("batch", [1, 8, 32, 132, 133])
 @pytest.mark.parametrize("m", [2047, 10240, 14336])
 def test_gn_update_kernel_matches_plain_version(cuda, m, batch):
     """csrc/gn_update.cu against ``_xla_dot.gn_update_plain`` on the card,

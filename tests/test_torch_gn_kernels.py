@@ -12,7 +12,9 @@ wrappers must refuse CPU tensors rather than compute anything, and two of
 ``robust_weights``' parts are held in their numpy and torch mirrors: its
 exact guess-and-correct bucket search against the definition (the first
 threshold at or above a value), and its rsqrt from a host-built table
-against ``xf.rsqrt``.
+against ``xf.rsqrt``; and ``gn_update``'s: its lift from packed
+constants, its order of H's entries, and its factor, substitutions and
+eigenvalue test column by column against the serial order.
 The float32 step's parity with the JAX package is held by the existing
 tests (``test_torch_localization.py``, ``test_torch_drive.py``,
 ``test_torch_host_localizer.py``, ``test_torch_xla_dot.py``).
@@ -70,6 +72,40 @@ def test_gn_update_edge_lanes():
     assert float(dq_norm[5]) > np.sin(0.5)
     for lane in (0, 7):
         assert 0 < float(dq_norm[lane]) < 0.5 and float(dt_norm[lane]) > 0
+
+
+def test_gn_update_lift_constants_build_make_m():
+    """csrc/gn_update.cu reads the lift's entries from q through packed
+    constants: they give make_m(q) bit for bit."""
+    q = torch.as_tensor(gk._unit_quaternions(np.random.default_rng(3), 64))
+    assert torch.equal(gk.lift_from_constants(q).view(torch.int32),
+                       gn.make_m(q).view(torch.int32))
+
+
+def test_gn_update_h_entries_cover_h_once():
+    """The kernel's 36 H entries: each entry of H once, the factor's lower
+    triangle on the first 21 lanes."""
+    entries = [gk.h_entry(e) for e in range(36)]
+    assert sorted(entries) == [(i, j) for i in range(6) for j in range(6)]
+    assert all(i >= j for i, j in entries[:21])
+
+
+@pytest.mark.parametrize("m", gk.ROWS)
+def test_gn_update_column_order_equals_the_serial_order(m):
+    """The kernel's factor, substitutions and eigenvalue test, column by
+    column across lanes, give the serial order's bits (a NaN against a
+    NaN) on the seeded lanes, the edge lanes among them: each entry still
+    runs its terms in ascending index order."""
+    D, A, b, q, _ = _gn_args(m, 32)
+    M = gn.make_m(q)
+    mt = M.transpose(-1, -2)
+    H = xf.matmul(xf.matmul(mt, A), M)
+    g = xf.matmul(mt, b[..., None])[..., 0]
+    _assert_equal([gk.cholesky_solve_by_columns(H, g)],
+                  [xd.cholesky_solve(H, g)], ("x",))
+    for S in (D, A, -D):
+        assert torch.equal(gk.min_eigval_below_by_columns(S, gk.TAU),
+                           smallalg.min_eigval_below(S, gk.TAU))
 
 
 @pytest.mark.parametrize("n,batch", [(1, 1), (33, 8), (2047, 32),
