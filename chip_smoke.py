@@ -382,6 +382,17 @@ SPIN_KERNEL = "spin_kernel"
 # floor (computed, not measured; reported in the timing line only).
 FMA_LATENCY_CYCLES = 4
 # Scans of each drive held to the drive record (ROADMAP §C20, §C21).
+# lu_solve ports no TPU kernel: the reference leaves the pose graph's
+# dense solve to XLA:CPU, which calls LAPACK (OpenBLAS).
+LU_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/lu_solve.cu"
+LU_REPLACES = ("none (jnp.linalg.solve of the pose graph, "
+               "lidar_feature_extraction_tpu/parallel/pose_graph.py:193, "
+               "which XLA:CPU hands to LAPACK's sgetrf and strsm)")
+# lu_solve's check and timing: 6K at K = 40 (slam_loop's keyframes), 64
+# (their bucket) and 128 (the dense solver's most keyframes).
+LU_SIZES = (240, 384, 768)
+LU_TIMED = 384
+LU_LAUNCHES = 120
 DRIVE_HELD_SCANS = {"production": 20, "faithful": 20}
 # The drive's acceptance limits. ATE_EVAL.json's closed-loop ATE-RMSE of
 # the reference (JAX on the CPU, eval_ate.py), the factor and margin a
@@ -699,14 +710,15 @@ def odometry_chain(frames, gt, cfg, device):
     import torch
     from lidar_feature_extraction_tpu_torch.core.pose import Pose
     from lidar_feature_extraction_tpu_torch.pipeline.odometry import (
-        geometry_odometry_step, init_geometry_odometry)
+        chained_prior, geometry_odometry_step, init_geometry_odometry)
+    import reference_cases as rc
 
     state = init_geometry_odometry(cfg, device=device)
     prev = Pose(state.pose_q, state.pose_t)
-    ts, iters, ms = [], [], []
+    results, ms = [], []
     for frame in frames:
         cur = Pose(state.pose_q, state.pose_t)
-        prior = cur.compose(prev.inverse().compose(cur))
+        prior = chained_prior(cur, prev)
         last = (state, frame, prior)
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -714,32 +726,34 @@ def odometry_chain(frames, gt, cfg, device):
             state, *frame, cfg, prior_q=prior.q, prior_t=prior.t)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - start))
-        ts.append(result.pose.t)
-        iters.append(result.iterations)
+        results.append(result)
         prev = cur
-    est = torch.stack(ts).cpu().numpy()
-    iters = torch.stack(iters).cpu().numpy()
-    # Frame 0 starts the window at the origin; drift over the rest.
-    step_err = np.linalg.norm(np.diff(est, axis=0) - np.diff(gt, axis=0),
-                              axis=-1)
+    fields = {k: torch.stack([get(r) for r in results]).cpu().numpy()
+              for k, get in (("status", lambda r: r.status),
+                             ("iterations", lambda r: r.iterations),
+                             ("pose_q", lambda r: r.pose.q),
+                             ("pose_t", lambda r: r.pose.t))}
+    est = fields["pose_t"]
     return {
         "frames": len(frames), "finite": bool(np.isfinite(est).all()),
         "ms_per_scan_mean": statistics.fmean(ms),
         "ms_per_scan_median": statistics.median(ms),
         "ms_first_scan": ms[0],
-        "gn_iterations_per_scan": float(np.mean(iters[1:])),
-        "final_drift_m": float(np.linalg.norm(est[-1] - gt[-1])),
-        "mean_step_drift_m": float(step_err.mean()),
-    }, last
+        "gn_iterations_per_scan": float(np.mean(fields["iterations"][1:])),
+        # Frame 0 starts the window at the origin; drift over the rest.
+        **rc.odometry_metrics(est, gt),
+    }, last, fields
 
 
-def slam_run(cfg, world, rng, with_imu: bool, device, k1, fma):
+def slam_run(cfg, world, rng, with_imu: bool, device, k1, fma,
+             recorder=None):
     """eval_ate.py's ``eval_slam_loop`` on the card: the port's
     ``run_mapping_drive`` over 80 scans of a 10 m circle, drawing from
     ``rng``, with the pipeline's ``process_scan``, ``optimize`` and
     loop-closure registrations timed (host clock ending in
-    ``synchronize()``). Returns the metrics, the pipeline and the last
-    (keyframe, target) pair that closed."""
+    ``synchronize()``) and, given a ``reference_cases.MappingRecorder``,
+    recorded. Returns the metrics, the pipeline and the last (keyframe,
+    target) pair that closed."""
     import torch
     from lidar_feature_extraction_tpu_torch.pipeline import slam
     from lidar_feature_extraction_tpu_torch.utils import worldsim
@@ -776,7 +790,8 @@ def slam_run(cfg, world, rng, with_imu: bool, device, k1, fma):
     k1.label_and_columns_cuda.launches = 0
     fma.fma_f32_cuda.launches = 0
     plain = slam.MappingPipeline
-    slam.MappingPipeline = TimedPipeline
+    slam.MappingPipeline = TimedPipeline if recorder is None \
+        else recorder.recording(TimedPipeline)
     try:
         pipeline, gt = worldsim.run_mapping_drive(
             world, cfg, rng, n_scans=SLAM_SCANS, radius=10.0,
@@ -2852,6 +2867,91 @@ def gn_kernels_timing(dev, bound_us, device_us_per_launch,
     return out
 
 
+def lu_system(n: int, kind: str, device):
+    """A seeded float32 system of order ``n``: ``spd`` is shaped like the
+    pose graph's (J^T J over 2n random rows, plus the gauge prior 1e6 on
+    the first 6 diagonal entries and the damping 1e-6 on the rest),
+    ``random`` is a dense normal matrix (rows swap while it factors)."""
+    import torch
+
+    rng = np.random.default_rng(n + (0 if kind == "spd" else 1))
+    if kind == "spd":
+        j = rng.normal(size=(2 * n, n))
+        a = j.T @ j / (2 * n) + np.diag([1e6] * 6 + [1e-6] * (n - 6))
+    else:
+        a = rng.normal(size=(n, n))
+    b = rng.normal(size=n)
+    return (torch.as_tensor(a, dtype=torch.float32, device=device),
+            torch.as_tensor(b, dtype=torch.float32, device=device))
+
+
+def lu_phase(dev, lu) -> dict:
+    """lu_solve against its plain version on the card, bit for bit: a
+    pose-graph-shaped and a random system at each of ``LU_SIZES``, and
+    three systems in one launch against their lone launches. These
+    launches are not counted."""
+    import torch
+
+    saved = lu.lu_solve_cuda.launches
+    cases, worst = {}, 0.0
+    for n in LU_SIZES:
+        for kind in ("spd", "random"):
+            a, b = lu_system(n, kind, dev)
+            got = lu.lu_solve_cuda(a, b)
+            want = lu.lu_solve_plain(a, b)
+            torch.cuda.synchronize()
+            equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            err = float((got.double() - want.double()).abs().max())
+            worst = max(worst, err)
+            cases[f"{kind}.{n}"] = {"bits_equal": equal, "max_abs_err": err,
+                                    "finite": bool(torch.isfinite(got).all())}
+            check(equal, f"lu_solve: {kind} n = {n} differs from its plain "
+                         f"version by {err}")
+    systems = [lu_system(LU_SIZES[0], "spd", dev)[0] + 0.5 * k
+               for k in range(3)]
+    rhs = [lu_system(LU_SIZES[0], "random", dev)[1] * (k + 1)
+           for k in range(3)]
+    batch = lu.lu_solve_cuda(torch.stack(systems), torch.stack(rhs))
+    lone = torch.stack([lu.lu_solve_cuda(a, b) for a, b in zip(systems, rhs)])
+    torch.cuda.synchronize()
+    lanes_equal = torch.equal(batch.view(torch.int32), lone.view(torch.int32))
+    check(lanes_equal, "lu_solve: a batch's systems differ from their lone "
+                       "launches")
+    lu.lu_solve_cuda.launches = saved
+    return {"sizes": list(LU_SIZES), "max_abs_err": worst,
+            "batch_lanes_equal": lanes_equal, "cases": cases}
+
+
+def lu_timing(dev, lu, bound_us, device_us_per_launch,
+              host_us_per_call) -> dict:
+    """lu_solve timed on the card at ``LU_SIZES`` on the pose-graph-shaped
+    systems: device time per launch (profiler), host time per call, the
+    plain version's time and ``torch.linalg.solve_ex``'s (cuSOLVER; used
+    nowhere in the port) by CUDA events, and the bound (the matrix and
+    right-hand side read once and the solution written once at the
+    memory rate, against 2n^3/3 float32 operations)."""
+    import torch
+
+    saved = lu.lu_solve_cuda.launches
+    out = {}
+    for n in LU_SIZES:
+        a, b = lu_system(n, "spd", dev)
+        nbytes = 4 * (n * n + 2 * n)
+        bound, by = bound_us(nbytes, 2 * n ** 3 // 3)
+        dev_us, seen = device_us_per_launch(lambda: lu.lu_solve_cuda(a, b),
+                                            "lu_solve_kernel", LU_LAUNCHES)
+        out[str(n)] = {
+            "n": n, "device_us": dev_us, "device_launches_seen": seen,
+            "host_us": host_us_per_call(lambda: lu.lu_solve_cuda(a, b),
+                                        calls=20),
+            "plain_ms": time_ms(lambda: lu.lu_solve_plain(a, b), reps=1,
+                                warmup=1),
+            "library_ms": time_ms(lambda: torch.linalg.solve_ex(a, b)),
+            "bound_us": bound, "bound_by": by, "bytes": nbytes}
+    lu.lu_solve_cuda.launches = saved
+    return out
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
     import torch
@@ -2887,6 +2987,7 @@ def main() -> int:
         localize_scan)
     from lidar_feature_extraction_tpu_torch.ops import fma_cuda
     from lidar_feature_extraction_tpu_torch.ops import gn_kernels_cuda
+    from lidar_feature_extraction_tpu_torch.ops import lu_cuda
     from lidar_feature_extraction_tpu_torch.ops import (
         normal_equations_cuda as ne_cuda)
     from k1_check import bound_us, check_and_time, k1_args, k1_work
@@ -2910,15 +3011,15 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     start = time.perf_counter()
-    builders = (k1, fma_cuda, ne_cuda, gn_kernels_cuda)
+    builders = (k1, fma_cuda, ne_cuda, gn_kernels_cuda, lu_cuda)
     with ThreadPoolExecutor(len(builders)) as pool:
         libs = [f.result() for f in [pool.submit(b.build) for b in builders]]
     for b in builders:
         b.load()
-    so, fma_so, ne_so, gn_so = libs
+    so, fma_so, ne_so, gn_so, lu_so = libs
     emit("build", seconds=time.perf_counter() - start, library=so.name,
          fma_library=fma_so.name, ne_library=ne_so.name,
-         gn_kernels_library=gn_so.name)
+         gn_kernels_library=gn_so.name, lu_library=lu_so.name)
     for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
@@ -2932,6 +3033,8 @@ def main() -> int:
     emit("normal_equations", **ne_check)
     gn_check = gn_kernels_phase(dev)
     emit("gn_kernels", **gn_check)
+    lu_check = lu_phase(dev, lu_cuda)
+    emit("lu_solve", **lu_check)
 
     # 2. scenes
     cfg = kitti_hdl64()
@@ -3111,12 +3214,25 @@ def main() -> int:
     k1.label_and_columns_cuda.launches = 0
     frames, odom_gt = odometry_frames(cfg, dev)
     frames_s = time.perf_counter() - start
-    odom, odom_last = odometry_chain(frames, odom_gt, cfg, dev)
+    odom, odom_last, odom_fields = odometry_chain(frames, odom_gt, cfg, dev)
     torch.cuda.synchronize()
     odom["k1_launches"] = k1.label_and_columns_cuda.launches
     drift_limit = ATE_FACTOR * ODOM_DRIFT_REFERENCE_M + ATE_MARGIN_M
+    map_arrays, map_manifest = rc.load_mapping()
+    frames_equal = rc.frames_sha256([torch.stack(f) for f in zip(*frames)]) \
+        == map_manifest["odometry"]["frames_sha256"]
+    odom_gaps = rc.odometry_gaps(odom_fields, map_arrays)
     emit("odometry", frames_s=frames_s, drift_limit_m=drift_limit,
-         drift_reference_m=ODOM_DRIFT_REFERENCE_M, **odom)
+         drift_reference_m=ODOM_DRIFT_REFERENCE_M,
+         frames_equal_record=frames_equal,
+         record_final_drift_m=map_manifest["odometry"]["final_drift_m"],
+         record_mean_step_drift_m=map_manifest["odometry"][
+             "mean_step_drift_m"], record_gaps=odom_gaps, **odom)
+    check(frames_equal, "odometry: the frames differ from the mapping "
+                        "record's")
+    check(odom_gaps["first_frame_that_differs"] is None,
+          f"odometry: frame {odom_gaps['first_frame_that_differs']} differs "
+          f"from the mapping record")
     check(odom["finite"], "odometry: non-finite pose")
     check(odom["k1_launches"] >= odom["frames"],
           f"odometry: K1 launched {odom['k1_launches']} times for "
@@ -3132,14 +3248,52 @@ def main() -> int:
     # drive's twists as eval_ate.py does.
     slam_runs, slam_ate = {}, {}
     slam_rng = copy.deepcopy(rng)   # the chunk phase draws slam_loop's scans
+    lu_by_phase = {}
+    record = map_manifest["slam"]
+    check(rng.bit_generator.state == record["rng_state"],
+          "slam: the generator differs from the mapping record's")
     for name, with_imu in (("slam_loop", False), ("slam_loop_imu", True)):
+        recorder = None if with_imu else rc.MappingRecorder()
+        lu_cuda.lu_solve_cuda.launches = 0
         run, pipeline, pair = slam_run(cfg, world, rng, with_imu, dev, k1,
-                                       fma_cuda)
+                                       fma_cuda, recorder)
+        lu_by_phase[name] = lu_cuda.lu_solve_cuda.launches
         slam_runs[name] = (pipeline, pair)
         slam_ate[name] = run["ate_rmse_m"]
         limit = ATE_FACTOR * SLAM_ATE_REFERENCE_M[name] + ATE_MARGIN_M
+        held = {}
+        if recorder is not None:
+            # slam_loop against the mapping record: every scan's odometry
+            # pose, the keyframes and the loop pairs bit for bit; the
+            # graphs (ROADMAP §C23: the dense solve's order is open) are
+            # reported, and the ATE held to its limit.
+            gaps = rc.mapping_gaps(recorder.fields(pipeline), map_arrays)
+            loop_pairs = [[int(c[0]), int(c[1])] for c in
+                          pipeline.constraints if c[1] - c[0] > 1]
+            held = {"record_ate_m": record["ate_rmse_m"],
+                    "ate_equal_record": run["ate_rmse_m"]
+                    == record["ate_rmse_m"],
+                    "features_equal_record": recorder.features
+                    == record["features_sha256"],
+                    "loop_pairs": loop_pairs,
+                    "lu_solve_launches": lu_by_phase[name],
+                    "record_gaps": gaps}
         emit("slam", run=name, ate_limit_m=limit,
-             ate_reference_m=SLAM_ATE_REFERENCE_M[name], **run)
+             ate_reference_m=SLAM_ATE_REFERENCE_M[name], **held, **run)
+        if recorder is not None:
+            check(held["features_equal_record"],
+                  f"{name}: the features differ from the mapping record's")
+            check(gaps["first_scan_that_differs"] is None,
+                  f"{name}: scan {gaps['first_scan_that_differs']}'s "
+                  f"odometry pose differs from the mapping record")
+            check(gaps["keyframes_equal"] and run["keyframes"]
+                  == record["n_keyframes"],
+                  f"{name}: the keyframes differ from the mapping record")
+            check(loop_pairs == record["loop_pairs"],
+                  f"{name}: loop pairs {loop_pairs}, the record's "
+                  f"{record['loop_pairs']}")
+            check(held["lu_solve_launches"] > 0,
+                  f"{name}: the dense solve never launched lu_solve")
         check(run["finite"], f"{name}: non-finite keyframe pose or bias")
         check(run["k1_launches"] >= run["scans"],
               f"{name}: K1 launched {run['k1_launches']} times for "
@@ -3271,8 +3425,10 @@ def main() -> int:
     start = time.perf_counter()
     chunk_images = chunk_scans(world, slam_rng, cfg, dev, SLAM_SCANS)
     scans_s = time.perf_counter() - start
+    lu_cuda.lu_solve_cuda.launches = 0
     chunked, chunk_launches, block_ms, replayed = chunk_run(chunk_images,
                                                             cfg, k1)
+    lu_by_phase["chunk"] = lu_cuda.lu_solve_cuda.launches
     per_scan = slam_runs["slam_loop"][0]
     n_blocks = len(block_ms)
     chunk_gt = np.stack([worldsim.circle_pose(
@@ -3501,6 +3657,9 @@ def main() -> int:
     gn_times = gn_kernels_timing(dev, bound_us, device_us_per_launch,
                                  host_us_per_call)
     emit("gn_kernels_timing", nvidia_smi=smi, **gn_times)
+    lu_times = lu_timing(dev, lu_cuda, bound_us, device_us_per_launch,
+                         host_us_per_call)
+    emit("lu_solve_timing", nvidia_smi=smi, **lu_times)
     floor = launch_floor(device_us_per_launch, host_us_per_call)
     emit("launch_floor", nvidia_smi=smi, **floor)
 
@@ -3508,6 +3667,7 @@ def main() -> int:
     fma_t = fma_times["1m"]
     ne_t = ne_times["10240x1"]
     gu_t = gn_times["gn_update.1"]
+    lu_t = lu_times[str(LU_TIMED)]
     rw_t = gn_times["robust_weights.10240x1.loop"]
 
     def by_phase(kernel):
@@ -3575,7 +3735,20 @@ def main() -> int:
         "cases_checked": gn_check["cases"][name]}
         for name, source, replaces, t in (
             ("gn_update", GU_SOURCE, GU_REPLACES, gu_t),
-            ("robust_weights", RW_SOURCE, RW_REPLACES, rw_t)))]}),
+            ("robust_weights", RW_SOURCE, RW_REPLACES, rw_t))), {
+        "name": "lu_solve", "route": "cuda", "source": LU_SOURCE,
+        "replaces": LU_REPLACES,
+        "launches": sum(lu_by_phase.values()),
+        "launches_by_phase": lu_by_phase,
+        "max_abs_err": lu_check["max_abs_err"],
+        "ms": lu_t["device_us"] / 1e3, "plain_ms": lu_t["plain_ms"],
+        "bound_ms": lu_t["bound_us"] / 1e3, "bound_by": lu_t["bound_by"],
+        # torch.linalg.solve_ex (cuSOLVER) on the same system; it is used
+        # nowhere on this path.
+        "library_ms": lu_t["library_ms"],
+        "device_us": lu_t["device_us"], "host_us": lu_t["host_us"],
+        "timed": lu_times, "check": {
+            k: v for k, v in lu_check.items() if k != "cases"}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,33 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def quat_multiply_fma(a: torch.Tensor, b: torch.Tensor,
+                      fuse_second: bool = False) -> torch.Tensor:
+    """``quat_multiply`` as a jitted program of the reference computes
+    it: in float32 each component's first two products as ``fma`` of
+    one into the other, rounded (the first product fused into the
+    second's rounded value, or with ``fuse_second`` the second into the
+    first's, as the program's fusion orders them), then each further
+    product fused into the running sum; other dtypes as
+    ``quat_multiply``."""
+    if not xf._float32(a, b):
+        return quat_multiply(a, b)
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    rows = (((aw, bw), (-ax, bx), (-ay, by), (-az, bz)),
+            ((aw, bx), (ax, bw), (ay, bz), (-az, by)),
+            ((aw, by), (-ax, bz), (ay, bw), (az, bx)),
+            ((aw, bz), (ax, by), (-ay, bx), (az, bw)))
+    out = []
+    for (p0, p1, *rest) in rows:
+        first, second = (p1, p0) if fuse_second else (p0, p1)
+        acc = xf.fma(first[0], first[1], second[0] * second[1])
+        for u, v in rest:
+            acc = xf.fma(u, v, acc)
+        out.append(acc)
+    return torch.stack(out, dim=-1)
+
+
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
     return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
                             device=q.device)
@@ -74,13 +101,20 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / torch.clamp_min(_norm(q, keepdim=True), eps)
 
 
-def quat_rotate(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def quat_rotate(q: torch.Tensor, p: torch.Tensor,
+                plain: bool = False) -> torch.Tensor:
     """Rotate point(s) ``p`` [..., 3] by quaternion(s) ``q`` [..., 4]
-    (expanded Rodrigues form, two cross products)."""
+    (expanded Rodrigues form, two cross products), as the reference
+    computes it outside a jitted program: ``jnp.cross`` is a jitted
+    function of its own, so in float32 each cross product is
+    ``xf.cross``'s fused form, and the rest rounds each operation.
+    ``plain``: torch's cross products, for callers that batch or
+    differentiate it with ``torch.func``."""
     w = q[..., :1]
     v = q[..., 1:]
-    uv = _cross(v, p)
-    uuv = _cross(v, uv)
+    cross = _cross if plain else xf.cross
+    uv = cross(v, p)
+    uuv = cross(v, uv)
     return p + 2.0 * (w * uv + uuv)
 
 

@@ -88,7 +88,9 @@ def preintegrate(gyro: torch.Tensor, accel: torch.Tensor, dts: torch.Tensor,
     for k in range(n):
         dt, ok = dts[k], valid[k]
         r = quat.quat_to_matrix(dq)
-        a_rot = quat.quat_rotate(dq, a[k])
+        # Plain rotations: the reference's loop is a jitted lax.scan,
+        # whose float32 forms are not read yet (ROADMAP §C24).
+        a_rot = quat.quat_rotate(dq, a[k], plain=True)
         dp_new = dp + dv * dt + 0.5 * a_rot * dt * dt
         dv_new = dv + a_rot * dt
         dq_new = quat.quat_normalize(quat.quat_multiply(dq, dq_step[k]))

@@ -109,57 +109,105 @@ def _pairwise_products(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def lu_factor(a: torch.Tensor):
-    """OpenBLAS's ``sgetrf`` of a float32 [n, n] (n = 2 or 3) as its
-    unblocked left-looking ``getf2`` computes it: each column's updates
-    as dot products (the first product rounded, the rest fused, then
-    subtracted), the pivot the first largest magnitude, the column below
-    it scaled by the rounded reciprocal. Returns the packed factors and
-    the row permutation (tensors on ``a``'s device, nothing read back)."""
+    """OpenBLAS's ``sgetrf`` of a float32 [n, n] as its unblocked
+    left-looking ``getf2`` computes it: each entry's updates as one dot
+    product (the first product rounded, the rest fused in ascending
+    order), then subtracted; the pivot the first largest magnitude (a
+    NaN never wins); the column below it scaled by the pivot's rounded
+    reciprocal (not when the pivot is 0). Returns the packed factors and
+    the row permutation (tensors on ``a``'s device, nothing read back).
+
+    The dot products are carried as running sums, one rank-1 step per
+    column (``acc``), which adds each entry's products in the same
+    order as the column-by-column dots. Equal to the reference's bits at
+    n = 2 and 3 (the EKF's); above OpenBLAS's blocking threshold its
+    ``sgetrf`` recurses into panels whose trailing updates its ``sgemm``
+    kernel sums by blocks (ROADMAP §C23), which this does not follow.
+    ``csrc/lu_solve.cu`` computes the same on the card."""
     n = a.shape[-1]
+    lu = a.clone()
+    acc = torch.zeros_like(a)
     rows = torch.arange(n, device=a.device)
     perm = rows
     for j in range(n):
-        col = list(a[:, j].unbind())
-        for i in range(1, n):
-            terms = min(i, j)
-            if terms == 0:
-                continue
-            acc = a[i, 0] * col[0]
-            for k in range(1, terms):
-                acc = xf.fma(a[i, k], col[k], acc)
-            col[i] = col[i] - acc
-        col = torch.stack(col)
-        a = torch.cat([a[:, :j], col[:, None], a[:, j + 1:]], dim=1)
-        jp = j + torch.argmax(torch.abs(col[j:]))
+        if j:
+            lu[j:, j] = lu[j:, j] - acc[j:, j]
+        mag = torch.abs(lu[j:, j])
+        jp = j + torch.argmax(torch.where(torch.isnan(mag), -1.0, mag))
         swap = torch.where(rows == j, jp, torch.where(rows == jp, j, rows))
-        a, perm = a.index_select(0, swap), perm.index_select(0, swap)
-        pivot = a[j, j]
-        below = a[j + 1:, j] * (1.0 / pivot)
-        below = torch.where(pivot != 0, below, a[j + 1:, j])
-        a = torch.cat([a[:j + 1], torch.cat(
-            [a[j + 1:, :j], below[:, None], a[j + 1:, j + 1:]], dim=1)])
-    return a, perm
+        lu, acc = lu.index_select(0, swap), acc.index_select(0, swap)
+        perm = perm.index_select(0, swap)
+        pivot = lu[j, j]
+        below = lu[j + 1:, j]
+        lu[j + 1:, j] = torch.where(pivot != 0, below * (1.0 / pivot), below)
+        if j:
+            lu[j, j + 1:] = lu[j, j + 1:] - acc[j, j + 1:]
+        l_col, u_row = lu[j + 1:, j, None], lu[None, j, j + 1:]
+        acc[j + 1:, j + 1:] = l_col * u_row if j == 0 else xf.fma(
+            l_col, u_row, acc[j + 1:, j + 1:])
+    return lu, perm
+
+
+# OpenBLAS's trsm kernels solve a block of rows of this many, then the
+# rest in blocks of 8, 4, 2 and 1 rows (the remainder's bits, largest
+# first).
+TRSM_ROWS = 16
+
+
+def trsm_blocks(n: int) -> list[tuple[int, int]]:
+    """The row blocks [lo, hi) of ``lu_solve``, top to bottom."""
+    blocks = [(lo, lo + TRSM_ROWS) for lo in range(0, n - TRSM_ROWS + 1,
+                                                   TRSM_ROWS)]
+    lo = len(blocks) * TRSM_ROWS
+    size = TRSM_ROWS // 2
+    while size:
+        if (n - lo) & size:
+            blocks.append((lo, lo + size))
+            lo += size
+        size //= 2
+    return blocks
+
+
+def _subtract_dot(x: torch.Tensor, lu: torch.Tensor, lo: int, hi: int,
+                  ks: range) -> torch.Tensor:
+    """Rows lo:hi of ``x`` minus the dot products of ``lu[lo:hi, ks]``
+    with ``x[ks]``: the first product rounded, the rest fused in the
+    order of ``ks``."""
+    k0, *rest = ks
+    acc = lu[lo:hi, k0, None] * x[k0]
+    for k in rest:
+        acc = xf.fma(lu[lo:hi, k, None], x[k], acc)
+    return x[lo:hi] - acc
 
 
 def lu_solve(lu: torch.Tensor, perm: torch.Tensor,
              b: torch.Tensor) -> torch.Tensor:
-    """Solve ``a x = b`` (b [n] or [n, k], n = 2 or 3) from ``lu_factor``
-    as OpenBLAS's two ``strsm`` calls compute it: the unit lower then the
-    upper triangle, a solved row's updates fused into the rows after it
-    within a block of two rows, a whole earlier block's as one rounded
-    dot product, and each unknown multiplied by its pivot's rounded
-    reciprocal."""
+    """Solve ``a x = b`` (b [n] or [n, k]) from ``lu_factor`` as
+    OpenBLAS's two ``strsm`` calls compute it: the unit lower, then the
+    upper triangle, by blocks of rows (``trsm_blocks``); within a block
+    a solved row's updates fused into the rows after it, the earlier
+    blocks' as one dot product per row (``_subtract_dot``, ascending),
+    and each unknown multiplied by its pivot's rounded reciprocal.
+    Equal to the reference's bits at n = 2 and 3 (ROADMAP §C23 for
+    more); ``csrc/lu_solve.cu`` computes the same on the card."""
     n = lu.shape[-1]
-    x = list(b.index_select(0, perm).unbind(0))
-    x[1] = xf.fma(-x[0], lu[1, 0], x[1])
-    if n == 3:
-        x[2] = x[2] - xf.fma(lu[2, 1], x[1], x[0] * lu[2, 0])
-        x[2] = x[2] * (1.0 / lu[2, 2])
-        x[0] = x[0] - x[2] * lu[0, 2]
-        x[1] = x[1] - x[2] * lu[1, 2]
-    x[1] = x[1] * (1.0 / lu[1, 1])
-    x[0] = xf.fma(-x[1], lu[0, 1], x[0]) * (1.0 / lu[0, 0])
-    return torch.stack(x)
+    vector = b.dim() == 1
+    x = b.index_select(0, perm)
+    x = x[:, None] if vector else x.clone()
+    blocks = trsm_blocks(n)
+    for lo, hi in blocks:
+        if lo:
+            x[lo:hi] = _subtract_dot(x, lu, lo, hi, range(lo))
+        for i in range(lo, hi - 1):
+            x[i + 1:hi] = xf.fma(-x[i], lu[i + 1:hi, i, None], x[i + 1:hi])
+    for lo, hi in reversed(blocks):
+        if hi < n:
+            x[lo:hi] = _subtract_dot(x, lu, lo, hi, range(hi, n))
+        for i in reversed(range(lo, hi)):
+            x[i] = x[i] * (1.0 / lu[i, i])
+            if i > lo:
+                x[lo:i] = xf.fma(-x[i], lu[lo:i, i, None], x[lo:i])
+    return x[:, 0] if vector else x
 
 
 def lu_inverse(a: torch.Tensor) -> torch.Tensor:

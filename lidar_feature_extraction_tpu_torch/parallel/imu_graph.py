@@ -80,16 +80,16 @@ def imu_residual_9(qi, ti, vi, qj, tj, vj, dq, dv, dp, dt, gravity=GRAVITY):
     rel_q = quat.quat_multiply(qi_inv, qj)
     r_theta = quat.log_so3(quat.quat_multiply(quat.quat_conjugate(dq), rel_q),
                            plain=True)
-    r_v = quat.quat_rotate(qi_inv, vj - vi - gravity * dt) - dv
+    r_v = quat.quat_rotate(qi_inv, vj - vi - gravity * dt, plain=True) - dv
     r_p = quat.quat_rotate(
-        qi_inv, tj - ti - vi * dt - 0.5 * gravity * dt * dt) - dp
+        qi_inv, tj - ti - vi * dt - 0.5 * gravity * dt * dt, plain=True) - dp
     return torch.cat([r_theta, r_v, r_p], dim=-1)
 
 
 def _perturb9(q, t, v, xi):
     """Right perturbation of a 9-dim state: (dtheta, dt_local, dv)."""
     return (quat.quat_multiply(q, quat.exp_so3(xi[:3], plain=True)),
-            t + quat.quat_rotate(q, xi[3:6]), v + xi[6:9])
+            t + quat.quat_rotate(q, xi[3:6], plain=True), v + xi[6:9])
 
 
 def _linearize_imu_one(qi, ti, vi, qj, tj, vj, dq, dv, dp, dt):
@@ -309,8 +309,8 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
         cand = ImuGraph(
             poses_q=quat.quat_normalize(quat.quat_multiply(graph.poses_q,
                                                            dq)),
-            poses_t=graph.poses_t + quat.quat_rotate(graph.poses_q,
-                                                     xi[:, 3:6]),
+            poses_t=graph.poses_t + quat.quat_rotate(
+                graph.poses_q, xi[:, 3:6], plain=True),
             vels=graph.vels + xi[:, 6:9], bg=graph.bg, ba=graph.ba)
         # Near-neutral acceptance (0.1% slack): plateau-crossing steps
         # pass, blow-ups (orders of magnitude) do not.

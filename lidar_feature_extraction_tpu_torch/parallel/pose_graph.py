@@ -9,15 +9,22 @@ r = log(Z_ij^-1 (T_i^-1 T_j)) in R^6 (rotation, local translation);
 its Jacobians with respect to right tangent perturbations of T_i and T_j
 are ``torch.func.jacfwd`` at zero under ``torch.func.vmap``, the
 reference's ``jax.vmap(jax.jacfwd(...))``, cast back to the state's
-dtype (``_jac``). The exponential and logarithmic maps are torch's
-plain functions (``quaternion.exp_so3(..., plain=True)``), in the
-residual, the perturbation and the update alike: ``torch.func`` cannot
-batch the float32 forms that the registration's maps use
-(``core/_xla_f32.py``). The 6x6 blocks scatter into the normal equations, and
-the CG solver's rows through ``ops/scatter.py``, in a fixed order on
-the card and on the CPU (``scatter_normal_equations``), so a solve gives
-the same bits every run. The dense solve is ``torch.linalg.solve_ex``
-(``solve`` would read the device to check for errors). The reference's
+dtype (``_jac``). The exponential and logarithmic maps and the
+rotations there are torch's plain functions (``plain=True``):
+``torch.func`` cannot batch or differentiate the float32 forms that the
+registration's maps use (``core/_xla_f32.py``; on the card they are a
+kernel without a derivative), so the linearization is not yet the
+reference's bits (ROADMAP §C23). From the linearization on, float32
+follows the reference's optimizer program: the robust weights, the 6x6
+blocks and g as in-order FMA chains, scattered onto the gauge prior and
+damping (XLA folds the reference's ``h + diag`` into its scatter), and
+the pose update in its jitted forms. The blocks scatter into the normal
+equations, and the CG solver's rows through ``ops/scatter.py``, in a
+fixed order on the card and on the CPU (``scatter_normal_equations``),
+so a solve gives the same bits every run. The dense float32 solve is
+OpenBLAS's unblocked ``getf2`` + ``strsm`` order (``ops/lu_cuda.py``: a
+kernel of this package on the card), float64 ``torch.linalg.solve_ex``.
+The reference's
 ``fori_loop`` / ``scan`` are Python loops of device steps with no host
 read.
 
@@ -37,9 +44,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch.func import jacfwd, vmap
 
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
+from lidar_feature_extraction_tpu_torch.ops import lu_cuda
 from lidar_feature_extraction_tpu_torch.ops.scatter import index_add_rows
 from lidar_feature_extraction_tpu_torch.parallel.mesh import (
     Mesh, psum, replicated, shard_batch)
@@ -64,15 +74,16 @@ class Constraints(NamedTuple):
 def _perturb(q, t, xi):
     """Right perturbation T * Exp(xi): xi = (dtheta, dt_local)."""
     q2 = quat.quat_multiply(q, quat.exp_so3(xi[:3], plain=True))
-    return q2, t + quat.quat_rotate(q, xi[3:])
+    return q2, t + quat.quat_rotate(q, xi[3:], plain=True)
 
 
 def constraint_residual(qi, ti, qj, tj, z_q, z_t):
     """r = log(Z^-1 (T_i^-1 T_j)) in R^6."""
     rel_q = quat.quat_multiply(quat.quat_conjugate(qi), qj)
-    rel_t = quat.quat_rotate(quat.quat_conjugate(qi), tj - ti)
+    rel_t = quat.quat_rotate(quat.quat_conjugate(qi), tj - ti, plain=True)
     err_q = quat.quat_multiply(quat.quat_conjugate(z_q), rel_q)
-    err_t = quat.quat_rotate(quat.quat_conjugate(z_q), rel_t - z_t)
+    err_t = quat.quat_rotate(quat.quat_conjugate(z_q), rel_t - z_t,
+                             plain=True)
     return torch.cat([quat.log_so3(err_q, plain=True), err_t], dim=-1)
 
 
@@ -108,7 +119,7 @@ def _robust_weights(cons: Constraints, r, robust_delta):
     w = cons.weight
     if robust_delta is not None:
         d2 = robust_delta * robust_delta
-        r2 = torch.sum(r * r, dim=-1)
+        r2 = xf.sum_squares(r)
         w = w * torch.square(d2 / (d2 + r2))
     return w
 
@@ -117,8 +128,7 @@ def _weighted_jacobians(cons: Constraints, w, ji, jj):
     """(Lambda Ji, Lambda Jj) with Lambda = w * info (or w)."""
     if cons.info is not None:
         lam = w[:, None, None] * cons.info
-        return (torch.einsum("mab,mbc->mac", lam, ji),
-                torch.einsum("mab,mbc->mac", lam, jj))
+        return xf.matmul(lam, ji), xf.matmul(lam, jj)
     return w[:, None, None] * ji, w[:, None, None] * jj
 
 
@@ -148,12 +158,16 @@ def _scatter_add(out: torch.Tensor, index: tuple, src: torch.Tensor):
 
 def scatter_normal_equations(h, g, bi, bj, r, ji, jj, wji, wjj, d: int):
     """Accumulate one factor family's blocks into H [dK, dK] and g [dK]:
-    H_ii = Ji^T Lambda Ji etc., ``wji = Lambda Ji``."""
-    hii = torch.einsum("mki,mkj->mij", wji, ji)
-    hij = torch.einsum("mki,mkj->mij", wji, jj)
-    hjj = torch.einsum("mki,mkj->mij", wjj, jj)
-    gi = torch.einsum("mki,mk->mi", wji, r)
-    gj = torch.einsum("mki,mk->mi", wjj, r)
+    H_ii = Ji^T Lambda Ji etc., ``wji = Lambda Ji``; in float32 each
+    entry an in-order FMA chain (``xf.matmul``), the blocks added in the
+    reference's scatter order (H_ii, H_ij, H_ji, H_jj, constraint by
+    constraint)."""
+    wti, wtj = wji.transpose(1, 2), wjj.transpose(1, 2)
+    hii = xf.matmul(wti, ji)
+    hij = xf.matmul(wti, jj)
+    hjj = xf.matmul(wtj, jj)
+    gi = xf.matmul(wti, r[..., None])[..., 0]
+    gj = xf.matmul(wtj, r[..., None])[..., 0]
     h = _scatter_add(h, _block_index(bi, bi, d), hii)
     h = _scatter_add(h, _block_index(bi, bj, d), hij)
     h = _scatter_add(h, _block_index(bj, bi, d), hij.transpose(1, 2))
@@ -170,31 +184,53 @@ def _gather(graph: PoseGraph, cons: Constraints):
             graph.poses_t[j], cons.z_q, cons.z_t)
 
 
-def _local_normal_equations(graph: PoseGraph, cons: Constraints,
-                            n_poses: int,
-                            robust_delta: float | None = None):
-    """H [6K, 6K] and g [6K] of the constraints at the current poses.
-    ``robust_delta`` applies the redescending Geman-McClure kernel on the
-    6-dim residual norm; with ``info`` the kernel stays on the plain
-    norm and the information rides in Lambda."""
-    r, ji, jj = _linearize(*_gather(graph, cons))
+def _normal_equations(cons: Constraints, r, ji, jj, h0: torch.Tensor,
+                      robust_delta: float | None = None):
+    """H (``h0`` plus the constraints' blocks) and g [6K] from the
+    linearization (r, Ji, Jj). ``robust_delta`` applies the redescending
+    Geman-McClure kernel on the 6-dim residual norm; with ``info`` the
+    kernel stays on the plain norm and the information rides in
+    Lambda."""
     w = _robust_weights(cons, r, robust_delta)
     wji, wjj = _weighted_jacobians(cons, w, ji, jj)
-    k6 = 6 * n_poses
-    dtype, dev = graph.poses_t.dtype, graph.poses_t.device
     return scatter_normal_equations(
-        torch.zeros((k6, k6), dtype=dtype, device=dev),
-        torch.zeros((k6,), dtype=dtype, device=dev),
+        h0, torch.zeros(h0.shape[:1], dtype=h0.dtype, device=h0.device),
         cons.i, cons.j, r, ji, jj, wji, wjj, 6)
 
 
+def _local_normal_equations(graph: PoseGraph, cons: Constraints,
+                            n_poses: int,
+                            robust_delta: float | None = None,
+                            h0: torch.Tensor | None = None):
+    """H [6K, 6K] (``h0`` plus the blocks; zeros by default) and g [6K]
+    of the constraints at the current poses."""
+    if h0 is None:
+        k6 = 6 * n_poses
+        h0 = torch.zeros((k6, k6), dtype=graph.poses_t.dtype,
+                         device=graph.poses_t.device)
+    return _normal_equations(cons, *_linearize(*_gather(graph, cons)), h0,
+                             robust_delta)
+
+
 def _apply_update(graph: PoseGraph, dx: torch.Tensor) -> PoseGraph:
+    """The poses moved by the tangent step ``dx`` [6K], in float32 in the
+    forms of the reference's optimizer program."""
     k = graph.poses_q.shape[0]
     xi = dx.reshape(k, 6)
-    dq = quat.exp_so3(xi[:, :3], plain=True)
-    q2 = quat.quat_normalize(quat.quat_multiply(graph.poses_q, dq))
-    t2 = graph.poses_t + quat.quat_rotate(graph.poses_q, xi[:, 3:])
+    dq = quat.exp_so3(xi[:, :3])
+    q2 = quat.quat_normalize(quat.quat_multiply_fma(graph.poses_q, dq))
+    t2 = graph.poses_t + quat.quat_rotate_fma(graph.poses_q, xi[:, 3:])
     return PoseGraph(poses_q=q2, poses_t=t2)
+
+
+def _solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The dense solve: in float32 the reference's LAPACK order
+    (``ops/lu_cuda.solve``: the ``lu_solve`` kernel on the card, its plain
+    version on the CPU); other dtypes ``torch.linalg.solve_ex`` (``solve``
+    would read the device to check for errors)."""
+    if h.dtype == torch.float32:
+        return lu_cuda.solve(h, g)
+    return torch.linalg.solve_ex(h, g)[0]
 
 
 def optimize_pose_graph(graph: PoseGraph, cons: Constraints,
@@ -213,11 +249,19 @@ def optimize_pose_graph(graph: PoseGraph, cons: Constraints,
     prior = torch.zeros(6 * k, dtype=dtype, device=dev)
     prior[:6] = prior_weight
     diag = torch.diag(prior + damping)
+    # XLA folds the reference's H + diag(prior + damping) into its
+    # scatter, so the blocks are added onto the diagonal; over ranks the
+    # sum comes first, as the reference's psum.
+    one_rank = group is None or dist.get_world_size(group) == 1
     for _ in range(n_iterations):
-        h, g = _local_normal_equations(graph, cons, k,
-                                       robust_delta=robust_delta)
-        h, g = psum(h, group), psum(g, group)
-        dx = -torch.linalg.solve_ex(h + diag, g)[0]
+        if one_rank:
+            h, g = _local_normal_equations(graph, cons, k, robust_delta,
+                                           h0=diag)
+            h, g = psum(h, group), psum(g, group)
+        else:
+            h, g = _local_normal_equations(graph, cons, k, robust_delta)
+            h, g = psum(h, group) + diag, psum(g, group)
+        dx = -_solve(h, g)
         graph = _apply_update(graph, dx)
     return graph
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from lidar_feature_extraction_tpu_torch.config import PipelineConfig
+from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import Pose
 from lidar_feature_extraction_tpu_torch.fusion import imu as imu_mod
 from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
@@ -106,6 +107,23 @@ def init_geometry_odometry(cfg: PipelineConfig, dtype=torch.float32,
         **_window_fields(cfg, dtype, device))
 
 
+def chained_prior(cur: Pose, prev: Pose) -> Pose:
+    """The constant-velocity prior ``cur (prev^-1 cur)`` as the
+    reference's odometry chain computes it inside its jitted
+    ``lax.scan`` (bench_odometry.py's ``bench_mode``): in float32 the
+    rotations ``quat_rotate_fma``, the inner product
+    ``quat_multiply_fma`` and the outer one with its second product
+    fused first, each normalized by ``quat_normalize``. (``Odometry``'s
+    own prior runs on the host, as ``Pose.compose``.)"""
+    inv_q = quat.quat_conjugate(prev.q)
+    inv_t = -quat.quat_rotate_fma(inv_q, prev.t)
+    delta_q = quat.quat_normalize(quat.quat_multiply_fma(inv_q, cur.q))
+    delta_t = quat.quat_rotate_fma(inv_q, cur.t) + inv_t
+    return Pose(quat.quat_normalize(quat.quat_multiply_fma(
+        cur.q, delta_q, fuse_second=True)),
+        quat.quat_rotate_fma(cur.q, delta_t) + cur.t)
+
+
 def _prior(state, prior_q, prior_t) -> Pose:
     return Pose(state.pose_q if prior_q is None else prior_q,
                 state.pose_t if prior_t is None else prior_t)
@@ -180,10 +198,10 @@ def odometry_step(state: OdometryState, edge_pts, edge_valid, surf_pts,
     w = state.edge_window.shape[0]
     new_state = OdometryState(
         edge_window=_put(state.edge_window, state.slot,
-                         new_pose.apply(edge_pts)),
+                         new_pose.apply_fma(edge_pts)),
         edge_mask=_put(state.edge_mask, state.slot, edge_valid),
         surf_window=_put(state.surf_window, state.slot,
-                         new_pose.apply(surf_pts)),
+                         new_pose.apply_fma(surf_pts)),
         surf_mask=_put(state.surf_mask, state.slot, surf_valid),
         slot=(state.slot + 1) % w, n_scans=state.n_scans + 1,
         pose_q=new_q, pose_t=new_t)
@@ -246,9 +264,10 @@ def geometry_odometry_step(state: GeometryOdometryState, edge_pts,
     # 3. Evict the slot leaving the window and insert the new scan: one
     # signed moment scatter per grid. The inserted masks record what the
     # scatter really adds (out-of-bounds points go to its dump row), so
-    # no eviction ever subtracts a point that was not added.
-    te = new_pose.apply(edge_pts)
-    ts = new_pose.apply(surf_pts)
+    # no eviction ever subtracts a point that was not added. The points
+    # move as the reference's jitted step moves them (``apply_fma``).
+    te = new_pose.apply_fma(edge_pts)
+    ts = new_pose.apply_fma(surf_pts)
     old_e = _take(state.edge_window, state.slot)
     old_s = _take(state.surf_window, state.slot)
     ins_em = edge_valid & _in_bounds(te, edge_origin, em.voxel_size, dims)

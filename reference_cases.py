@@ -532,6 +532,199 @@ def drive_gaps(got: dict, want: dict, n: int) -> dict:
             "max_fused_t_gap_m": gap["fused_t"]}
 
 
+# ---- the mapping record ------------------------------------------------
+
+MAPPING_RECORD = os.path.join(HERE, "tests", "data",
+                              "torch_reference_mapping.npz")
+MAPPING_MANIFEST = os.path.join(HERE, "tests", "data",
+                                "torch_reference_mapping.json")
+# bench_odometry.py's extracted-feature chain.
+ODOM_FRAMES = 100
+# eval_ate.py's eval_slam_loop without IMU: run_mapping_drive's
+# arguments after the world, the configuration and the generator.
+SLAM_DRIVE = dict(n_scans=80, radius=10.0, scan_period=0.1, with_imu=False,
+                  pipeline_kwargs=dict(loop_radius=6.0, loop_min_gap=10,
+                                       optimize_every=8),
+                  n_rings=64, n_az=2048, elev_deg=(2.0, -24.8))
+
+
+def _np(a) -> np.ndarray:
+    """A torch tensor, JAX array or numpy array as a numpy array."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def load_mapping():
+    """(arrays by ``odometry.<name>`` / ``slam.<name>``, the manifest) of
+    the mapping record."""
+    return load(MAPPING_RECORD, MAPPING_MANIFEST)
+
+
+def frames_sha256(frames) -> str:
+    """The digest of feature frames: (edges [N, E, 3], edge valid,
+    surfaces [N, S, 3], surface valid), float32 and bool."""
+    h = hashlib.sha256()
+    for a, dtype in zip(frames, (np.float32, bool, np.float32, bool)):
+        h.update(np.ascontiguousarray(_np(a), dtype=dtype).tobytes())
+    return h.hexdigest()
+
+
+def odometry_metrics(ts: np.ndarray, gt: np.ndarray) -> dict:
+    """bench_odometry.py's drift figures of a chain's positions."""
+    ts, gt = np.asarray(ts), np.asarray(gt)
+    step_err = np.linalg.norm(np.diff(ts, axis=0) - np.diff(gt, axis=0),
+                              axis=-1)
+    return {"final_drift_m": float(np.linalg.norm(ts[-1] - gt[-1])),
+            "mean_step_drift_m": float(step_err.mean())}
+
+
+def odometry_gaps(got: dict, want: dict, n: int | None = None) -> dict:
+    """How the first ``n`` frames of a chain (arrays ``status``,
+    ``iterations``, ``pose_q``, ``pose_t``, float32) differ from the
+    record's ``odometry.*``: the frames that differ in any bit, the
+    first of them, and the largest position gap (metres)."""
+    n = len(want["odometry.status"]) if n is None else n
+    differ = np.zeros(n, bool)
+    for k in ("status", "iterations", "pose_q", "pose_t"):
+        a, b = np.asarray(got[k])[:n], want[f"odometry.{k}"][:n]
+        differ |= (a != b).reshape(n, -1).any(-1)
+    frames = [int(i) for i in np.nonzero(differ)[0]]
+    return {"frames": n, "frames_that_differ": len(frames),
+            "first_frame_that_differs": frames[0] if frames else None,
+            "max_t_gap_m": float(np.abs(np.float64(got["pose_t"][:n])
+                                        - want["odometry.pose_t"][:n]).max())}
+
+
+class MappingRecorder:
+    """Records a ``MappingPipeline`` (either package's) as it runs: each
+    scan's odometry pose and feature digest, the scans that became
+    keyframes, and the keyframe poses after every ``optimize()``
+    (with the scans seen when it ran; the drive's closing call comes
+    after the last)."""
+
+    def __init__(self, stop_after: int | None = None):
+        self.stop_after = stop_after
+        self.pipeline = None         # the recording pipeline, once made
+        self.odom, self.features, self.keyframe_scans = [], [], []
+        self.optimized = []          # (scans seen, q [K, 4], t [K, 3])
+
+    def recording(self, base):
+        """A subclass of ``base`` that reports to this recorder. With
+        ``stop_after`` set, the scan after that many raises
+        ``StopIteration`` (the pipeline stays in ``self.pipeline``)."""
+        rec = self
+
+        class Recording(base):
+            def process_scan(self, *feats, **kwargs):
+                rec.pipeline = self
+                if rec.stop_after is not None \
+                        and len(rec.odom) >= rec.stop_after:
+                    raise StopIteration
+                h = hashlib.sha256()
+                for a in feats[:4]:
+                    h.update(np.ascontiguousarray(_np(a)).tobytes())
+                rec.features.append(h.hexdigest())
+                out = super().process_scan(*feats, **kwargs)
+                if len(self.keyframes) > len(rec.keyframe_scans):
+                    rec.keyframe_scans.append(len(rec.odom))
+                pose = self.odometry.pose
+                rec.odom.append((_np(pose.q), _np(pose.t)))
+                return out
+
+            def optimize(self, *args, **kwargs):
+                out = super().optimize(*args, **kwargs)
+                rec.optimized.append((
+                    len(rec.odom),
+                    np.stack([_np(kf.pose.q) for kf in self.keyframes]),
+                    np.stack([_np(kf.pose.t) for kf in self.keyframes])))
+                return out
+
+        return Recording
+
+    def fields(self, pipeline) -> dict:
+        """The record's ``slam.*`` arrays of the run so far."""
+        cons = pipeline.constraints
+        eye = np.zeros((6, 6), np.float32)
+        return {
+            "odom_q": np.float32([q for q, _ in self.odom]),
+            "odom_t": np.float32([t for _, t in self.odom]),
+            "keyframe_scans": np.int32(self.keyframe_scans),
+            "cons_i": np.int32([c[0] for c in cons]),
+            "cons_j": np.int32([c[1] for c in cons]),
+            "rel_q": np.float32([_np(c[2].q) for c in cons]).reshape(-1, 4),
+            "rel_t": np.float32([_np(c[2].t) for c in cons]).reshape(-1, 3),
+            "weight": np.float64([c[3] for c in cons]),
+            "has_info": np.bool_([c[4] is not None for c in cons]),
+            "info": np.float32([eye if c[4] is None else c[4]
+                                for c in cons]).reshape(-1, 6, 6),
+            "opt_scan": np.int32([o[0] for o in self.optimized]),
+            "opt_keyframes": np.int32([len(o[1]) for o in self.optimized]),
+            "opt_q": np.float32(np.concatenate(
+                [np.zeros((0, 4))] + [o[1] for o in self.optimized])),
+            "opt_t": np.float32(np.concatenate(
+                [np.zeros((0, 3))] + [o[2] for o in self.optimized])),
+            "traj_q": np.float32([_np(kf.pose.q)
+                                  for kf in pipeline.keyframes]),
+            "traj_t": np.float32([_np(kf.pose.t)
+                                  for kf in pipeline.keyframes])}
+
+    def summary(self, pipeline, ate: float) -> dict:
+        n_kf = len(pipeline.keyframes)
+        return {"ate_rmse_m": float(ate), "n_keyframes": n_kf,
+                "loop_pairs": [[int(c[0]), int(c[1])]
+                               for c in pipeline.constraints
+                               if c[1] - c[0] > 1],
+                "optimize_calls": len(self.optimized),
+                "optimize_scans": [o[0] for o in self.optimized],
+                "features_sha256": self.features}
+
+
+def mapping_gaps(got: dict, want: dict) -> dict:
+    """How a slam_loop run (``MappingRecorder.fields``, possibly of a
+    prefix of the drive) differs from the record's ``slam.*``: the first
+    scan whose odometry pose differs in any bit, whether the keyframes,
+    the constraints (pairs, relative poses, weights, information) and
+    the graphs of the ``optimize()`` calls that both ran are the
+    record's bit for bit, the first optimize that is not, and (over the
+    whole drive) the largest keyframe position gap in metres."""
+    n = len(got["odom_q"])
+    w = {k[5:]: v for k, v in want.items() if k.startswith("slam.")}
+    scans = np.nonzero((got["odom_q"] != w["odom_q"][:n]).any(-1)
+                       | (got["odom_t"] != w["odom_t"][:n]).any(-1))[0]
+    k = len(got["keyframe_scans"])
+    m = len(got["cons_i"])
+    cons_equal = all(
+        np.array_equal(got[f], w[f][:m])
+        for f in ("cons_i", "cons_j", "rel_q", "rel_t", "weight",
+                  "has_info", "info"))
+    n_opt = len(got["opt_scan"])
+    first_opt = None
+    ends = np.cumsum(w["opt_keyframes"])
+    for o in range(n_opt):
+        lo, hi = ends[o] - w["opt_keyframes"][o], ends[o]
+        glo = int(np.sum(got["opt_keyframes"][:o]))
+        same = (got["opt_scan"][o] == w["opt_scan"][o]
+                and got["opt_keyframes"][o] == w["opt_keyframes"][o]
+                and np.array_equal(got["opt_q"][glo:glo + hi - lo],
+                                   w["opt_q"][lo:hi])
+                and np.array_equal(got["opt_t"][glo:glo + hi - lo],
+                                   w["opt_t"][lo:hi]))
+        if not same:
+            first_opt = o
+            break
+    traj_gap = (float(np.abs(np.float64(got["traj_t"]) - w["traj_t"]).max())
+                if got["traj_t"].shape == w["traj_t"].shape else None)
+    return {"scans": n,
+            "first_scan_that_differs": int(scans[0]) if len(scans) else None,
+            "keyframes_equal": np.array_equal(got["keyframe_scans"],
+                                              w["keyframe_scans"][:k]),
+            "constraints": m, "constraints_equal": cons_equal,
+            "optimize_calls": n_opt,
+            "first_optimize_that_differs": first_opt,
+            "max_trajectory_gap_m": traj_gap}
+
+
 def main(argv=None) -> int:
     """Run the port's two drives over the drive record's inputs on a
     device and print, per drive, the record's and the port's ATE and how

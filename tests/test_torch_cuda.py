@@ -1358,3 +1358,117 @@ def test_gn_iteration_on_the_card_launches_each_kernel_once(cuda):
     with pytest.raises(RuntimeError, match="float32"):
         gn_update_cuda(*(torch.zeros(s, dtype=torch.float64, device=cuda)
                          for s in ((7, 7), (7, 7), (7,), (4,), (3,))), 0.1)
+
+
+# ---- lu_solve: the pose graph's dense float32 solve -----------------------
+
+def _bits_equal_nan(got, want):
+    """Bit for bit, a NaN equal to any NaN (the payload is the card's)."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(got)
+    return torch.equal(nan, torch.isnan(want)) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+_LU_CASES = [("random", 2), ("random", 3), ("random", 17), ("spd", 48),
+             ("random", 48), ("spd", 240), ("random", 240), ("spd", 384),
+             ("random", 384)]
+
+
+@pytest.mark.parametrize("kind,n", _LU_CASES,
+                         ids=[f"{k}-{n}" for k, n in _LU_CASES])
+def test_lu_solve_kernel_matches_plain_version(cuda, kind, n):
+    from lidar_feature_extraction_tpu_torch.ops import lu_cuda
+
+    if n < 6:
+        rng = np.random.default_rng(n)
+        a = torch.as_tensor(np.float32(rng.normal(size=(n, n))), device=cuda)
+        b = torch.as_tensor(np.float32(rng.normal(size=n)), device=cuda)
+    else:
+        a, b = chip_smoke.lu_system(n, kind, cuda)
+    before = lu_cuda.lu_solve_cuda.launches
+    got = lu_cuda.lu_solve_cuda(a, b)
+    assert lu_cuda.lu_solve_cuda.launches == before + 1
+    assert _bits_equal_nan(got, lu_cuda.lu_solve_plain(a, b))
+    # Several right-hand sides at once, each column as alone.
+    rhs = torch.stack([b, 2 * b, -b], dim=1)
+    cols = lu_cuda.lu_solve_cuda(a, rhs)
+    assert _bits_equal_nan(cols, lu_cuda.lu_solve_plain(a, rhs))
+    assert _bits_equal_nan(cols[:, 0], got)
+
+
+def test_lu_solve_kernel_singular_and_batched(cuda):
+    from lidar_feature_extraction_tpu_torch.ops import lu_cuda
+
+    a, b = chip_smoke.lu_system(48, "spd", cuda)
+    singular = a.clone()
+    singular[:, 7] = 0.0                    # a zero pivot: no scaling
+    nan = a.clone()
+    nan[3, 3] = float("nan")
+    systems = torch.stack([a, singular, nan, a + 1.0])
+    rhs = torch.stack([b, b, b, -b])
+    batch = lu_cuda.lu_solve_cuda(systems, rhs)
+    for k in range(len(systems)):
+        lone = lu_cuda.lu_solve_cuda(systems[k], rhs[k])
+        assert _bits_equal_nan(batch[k], lone)
+        assert _bits_equal_nan(lone, lu_cuda.lu_solve_plain(systems[k],
+                                                            rhs[k]))
+    with pytest.raises(ValueError, match="float32"):
+        lu_cuda.lu_solve_cuda(a.double(), b.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        lu_cuda.lu_solve_cuda(a.cpu(), b.cpu())
+
+
+def test_pose_graph_float32_solve_launches_lu_solve(cuda):
+    """The dense float32 pose graph on the card: one lu_solve launch per
+    Gauss-Newton iteration, and the result of the plain solve's path on
+    the card bit for bit."""
+    from lidar_feature_extraction_tpu_torch.ops import lu_cuda
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph as tpg
+
+    graph, cons = chip_smoke.seeded_graph(cuda)
+    before = lu_cuda.lu_solve_cuda.launches
+    got = tpg.optimize_pose_graph(graph, cons, n_iterations=3,
+                                  robust_delta=0.5)
+    torch.cuda.synchronize()
+    assert lu_cuda.lu_solve_cuda.launches == before + 3
+    plain = lu_cuda.solve
+    try:
+        lu_cuda.solve = lu_cuda.lu_solve_plain
+        want = tpg.optimize_pose_graph(graph, cons, n_iterations=3,
+                                       robust_delta=0.5)
+    finally:
+        lu_cuda.solve = plain
+    for g, w in zip(got, want):
+        assert _bits_equal_nan(g, w)
+
+
+def test_graph_linearizations_on_the_card_match_the_cpu(cuda):
+    """The pose and IMU graphs' torch.func linearizations in float32 on
+    the card against the CPU's (plain torch arithmetic both: the float32
+    forms have no derivative on the card). Tolerance: 1e-5 of each
+    Jacobian's largest entry (sin, cos and atan2 of two libraries)."""
+    from lidar_feature_extraction_tpu_torch.parallel import imu_graph as tig
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph as tpg
+
+    rng = np.random.default_rng(9)
+    m = 16
+    q = rng.normal(size=(2, m, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    t = rng.normal(scale=10.0, size=(2, m, 3))
+    v = rng.normal(size=(2, m, 3))
+    dq = q[1] + rng.normal(scale=0.01, size=(m, 4))
+    dq /= np.linalg.norm(dq, axis=-1, keepdims=True)
+    pose_args = [np.float32(a) for a in (q[0], t[0], q[1], t[1], dq,
+                                         t[1] - t[0])]
+    imu_args = [np.float32(a) for a in (q[0], t[0], v[0], q[1], t[1], v[1],
+                                        dq, v[1] - v[0], t[1] - t[0],
+                                        np.full(m, 0.1))]
+    for fn, args in ((tpg._linearize, pose_args),
+                     (tig._linearize_imu, imu_args)):
+        card = fn(*(torch.as_tensor(a, device=cuda) for a in args))
+        cpu = fn(*map(torch.as_tensor, args))
+        for g, w in zip(card, cpu):
+            scale = float(w.abs().max())
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                       atol=1e-5 * scale)

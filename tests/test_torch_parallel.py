@@ -64,6 +64,7 @@ from lidar_feature_extraction_tpu.parallel.mesh import (  # noqa: E402
     make_mesh as j_make_mesh)
 from lidar_feature_extraction_tpu.pipeline import (  # noqa: E402
     localization as jloc)
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf  # noqa: E402
 from lidar_feature_extraction_tpu_torch.parallel import (  # noqa: E402
     mesh as tmesh, multihost, pose_graph as tpg)
 from lidar_feature_extraction_tpu_torch.utils.synthetic import (  # noqa: E402
@@ -462,11 +463,14 @@ def test_normal_equations_scatter_repeats_on_a_large_graph():
     assert torch.equal(h1, h2) and torch.equal(g1, g2)
     want = np.zeros(6 * k * 6 * k, np.float32)
     ar = np.arange(6)
+    # The blocks in the reference's float32 form (in-order FMA chains,
+    # ROADMAP §C23), then added in index order.
+    wti, wtj = wji.transpose(1, 2), wjj.transpose(1, 2)
     for bi, bj, blocks in (
-            (i, i, torch.einsum("mki,mkj->mij", wji, ji)),
-            (i, j, torch.einsum("mki,mkj->mij", wji, jj)),
-            (j, i, torch.einsum("mki,mkj->mij", wji, jj).transpose(1, 2)),
-            (j, j, torch.einsum("mki,mkj->mij", wjj, jj))):
+            (i, i, xf.matmul(wti, ji)),
+            (i, j, xf.matmul(wti, jj)),
+            (j, i, xf.matmul(wti, jj).transpose(1, 2)),
+            (j, j, xf.matmul(wtj, jj))):
         rows = (bi[:, None] * 6 + ar)[:, :, None]
         cols = (bj[:, None] * 6 + ar)[:, None, :]
         np.add.at(want, (rows * 6 * k + cols).reshape(-1),

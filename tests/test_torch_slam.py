@@ -17,10 +17,15 @@ on the same inputs).
 
 Tolerances:
 - keyframe count, every constraint's (i, j) and IMU factor count
-  exactly; relative poses within 1e-4 (float32 registrations), loop
-  weights within 1e-6; the keyframe trajectory within 1e-3 m and the
-  assembled map within 2e-3 m (a dozen chained float32 registrations
-  and graph solves); the gyro bias within 1e-4 rad/s;
+  exactly; without IMU the chain constraints and the loop closures up to
+  the first ``optimize()`` bit for bit (relative pose, weight, 6x6
+  information), the later closures within 1e-4 (registered from the
+  optimized graph, ROADMAP §C23); with IMU relative poses within 1e-4
+  (the preintegration's order, ROADMAP §C24), loop weights within 1e-6;
+  the keyframe trajectory within 1e-3 m and the assembled map within
+  2e-3 m (a dozen chained float32 registrations and graph solves; at 0
+  an expected failure, strictly, naming the open site of §C23); the gyro
+  bias within 1e-4 rad/s;
 - the resumed run: its trajectory within 1e-6 m of the unbroken run's
   (the same operations on the same values in one process);
 - the mapping drive: ray-cast scans and IMU windows exactly (the same
@@ -61,6 +66,12 @@ jax.config.update("jax_enable_x64", True)
 
 REL_ATOL = 1e-4
 TRAJ_ATOL = 1e-3
+# Without IMU the front end equals the reference bit for bit: every
+# constraint whose registration does not start from an optimized graph
+# (the chain's, and loop closures up to the first optimize()) is held at
+# 0; the graph itself keeps the tolerances above until its linearization
+# and dense solve are in the reference's order (ROADMAP §C23).
+EXACT = 0.0
 CPU = "cpu"
 
 
@@ -211,10 +222,16 @@ def test_mapping_pipeline_matches_reference(pipelines, imu):
         [c[:2] for c in want.constraints]
     n_chain = len(want.keyframes) - 1
     assert len(want.constraints) > n_chain, "no loop constraint in the run"
-    for (_, _, rel, w, info), (_, _, jrel, jw, jinfo) in zip(
-            got.constraints, want.constraints):
-        _close(rel.q, jrel.q, REL_ATOL)
-        _close(rel.t, jrel.t, REL_ATOL)
+    for k, ((_, _, rel, w, info), (i, j, jrel, jw, jinfo)) in enumerate(
+            zip(got.constraints, want.constraints)):
+        exact = not imu and k <= _first_optimize(want.constraints)
+        atol = EXACT if exact or (not imu and j == i + 1) else REL_ATOL
+        _close(rel.q, jrel.q, atol)
+        _close(rel.t, jrel.t, atol)
+        if atol == EXACT:
+            assert w == jw
+            if info is not None:
+                _close(info, jinfo, EXACT)
         assert abs(w - jw) < 1e-6
         assert (info is None) == (jinfo is None)
     _close(got.trajectory, want.trajectory, TRAJ_ATOL)
@@ -225,6 +242,26 @@ def test_mapping_pipeline_matches_reference(pipelines, imu):
     je, js = want.assemble_map()
     assert e.shape == je.shape and s.shape == js.shape
     _close(e, je, TRAJ_ATOL + 1e-3)
+
+
+def _first_optimize(constraints) -> int:
+    """Index of the constraint after which the run first optimized: its
+    first loop closure (optimize_every exceeds the run's keyframes)."""
+    return next(k for k, c in enumerate(constraints) if c[1] - c[0] > 1)
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "ROADMAP §C23 (open): the pose graph's linearization and OpenBLAS's "
+    "blocked sgetrf / strsm order of its dense solve"))
+def test_mapping_pipeline_graph_is_the_reference_bit_for_bit(pipelines):
+    """The optimized trajectory and the loop closures registered from it,
+    at tolerance 0."""
+    want, got = pipelines[False]
+    for (_, _, rel, _, _), (_, _, jrel, _, _) in zip(got.constraints,
+                                                     want.constraints):
+        _close(rel.q, jrel.q, EXACT)
+        _close(rel.t, jrel.t, EXACT)
+    _close(got.trajectory, want.trajectory, EXACT)
 
 
 def _scans_half_metre(cfg, world):

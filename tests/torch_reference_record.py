@@ -6,6 +6,7 @@ manifest): what the JAX package computes on the CPU for every case of
     JAX_PLATFORMS=cpu python tests/torch_reference_record.py --write
     JAX_PLATFORMS=cpu python tests/torch_reference_record.py   # compare
     JAX_PLATFORMS=cpu python tests/torch_reference_record.py --drive --write
+    JAX_PLATFORMS=cpu python tests/torch_reference_record.py --mapping --write
 
 With ``--drive`` it writes (or checks) the second record,
 ``tests/data/torch_reference_drive.npz`` and its manifest: eval_ate.py's
@@ -20,6 +21,13 @@ threads it is given, so the drive record is what a machine with the
 manifest's ``cpu_count`` writes; the writer raises unless the port's
 forms (``core/_xla_dot.py``) give the same bits on the writing machine, and
 names their parameters in the manifest (``xla_cpu_contraction``).
+
+With ``--mapping`` it writes (or checks) the third record,
+``tests/data/torch_reference_mapping.npz`` and its manifest: the JAX
+package's mapper at ``kitti_hdl64()`` widths, bench_odometry.py's
+100-frame extracted-feature chain (its jitted ``lax.scan``) and
+eval_ate.py's 80-scan ``slam_loop`` drive without IMU
+(``reference_cases.py`` says what it holds; ~10 min on 8 cores).
 
 Per case (a scene under ``kitti_hdl64()`` or ``vlp16()`` at full width)
 and prior: the reference's labels (int8, and their sha256) and
@@ -595,14 +603,139 @@ def build_drive_record() -> tuple[dict, dict]:
     return arrays, manifest
 
 
+def reference_odometry_chain() -> tuple[dict, dict]:
+    """bench_odometry.py's extracted-feature chain: its frames (numpy
+    seed 0, 50 poles over 60 m, 100 ray-cast 64 x 2048 sweeps along
+    ``straight_drive`` through the jitted extraction) and its jitted
+    ``lax.scan`` of ``geometry_odometry_step`` with the
+    constant-velocity prior carried in the program. A copy of the chain
+    that also returns each frame's prior, status and rotation must give
+    the chain's positions and iterations bit for bit, or this raises."""
+    import bench_odometry
+    from lidar_feature_extraction_tpu.pipeline import odometry as jodo
+
+    cfg = jconfig.kitti_hdl64()
+    frames_np, gt = bench_odometry.make_frames_extracted(
+        cfg, np.random.default_rng(0), rc.ODOM_FRAMES)
+    frames = tuple(jnp.asarray(a) for a in frames_np)
+
+    def chain(frames, wobble, extra: bool):
+        # bench_odometry.py's bench_mode chain; ``extra`` adds outputs.
+        e, ev, s, sv = frames
+        state0 = jodo.init_geometry_odometry(cfg)
+
+        def body(carry, frame):
+            state, prev_q, prev_t = carry
+            fe, fev, fs, fsv = frame
+            cur = JPose(state.pose_q, state.pose_t)
+            prev = JPose(prev_q, prev_t)
+            prior = cur.compose(prev.inverse().compose(cur))
+            state2, result = jodo.geometry_odometry_step(
+                state, fe + wobble[None, :], fev, fs + wobble[None, :],
+                fsv, cfg, prior_q=prior.q, prior_t=prior.t)
+            out = (result.pose.t, result.iterations)
+            if extra:
+                out += (result.pose.q, result.status, prior.q, prior.t)
+            return (state2, cur.q, cur.t), out
+
+        carry0 = (state0, state0.pose_q, state0.pose_t)
+        return jax.lax.scan(body, carry0, (e, ev, s, sv))[1]
+
+    wobble = jnp.zeros(3, jnp.float32)
+    ts, iters = jax.jit(lambda f, w: chain(f, w, False))(frames, wobble)
+    got = jax.jit(lambda f, w: chain(f, w, True))(frames, wobble)
+    if np.asarray(ts).tobytes() != np.asarray(got[0]).tobytes() \
+            or np.asarray(iters).tobytes() != np.asarray(got[1]).tobytes():
+        raise RuntimeError("the chain with extra outputs departs from "
+                           "bench_odometry.py's chain")
+    ts_np, q, status, pq, pt = (np.asarray(a) for a in (
+        got[0], got[2], got[3], got[4], got[5]))
+    arrays = {"odometry.status": np.int32(status),
+              "odometry.iterations": np.int32(np.asarray(iters)),
+              "odometry.pose_q": np.float32(q),
+              "odometry.pose_t": np.float32(ts_np),
+              "odometry.prior_q": np.float32(pq),
+              "odometry.prior_t": np.float32(pt),
+              "odometry.gt_t": np.float32(gt)}
+    return arrays, {"frames_sha256": rc.frames_sha256(frames_np),
+                    **rc.odometry_metrics(ts_np, gt)}
+
+
+def reference_slam_loop() -> tuple[dict, dict]:
+    """eval_ate.py's ``eval_slam_loop`` without IMU: the JAX package's
+    ``run_mapping_drive`` over 80 scans of a 10 m circle, drawing from
+    the generator eval_ate.py's drive left (``reference_drive_inputs``),
+    with a recording ``MappingPipeline``: each scan's odometry pose and
+    features, the keyframes, the constraints and the graph after each
+    ``optimize()``."""
+    from lidar_feature_extraction_tpu.pipeline import slam as jslam
+    from lidar_feature_extraction_tpu.utils import worldsim
+    from lidar_feature_extraction_tpu.utils.evaluation import ate_rmse
+
+    rng = np.random.default_rng(0)
+    world = worldsim.make_world(rng, n_poles=50, extent=35.0)
+    worldsim.world_maps(world, rng, n_ground=30000)
+    worldsim.make_scan_sequence(world, rng, n_scans=rc.DRIVE_SCANS,
+                                n_rings=64, n_az=2048,
+                                elev_deg=(2.0, -24.8))
+    worldsim.synth_twists(rc.DRIVE_SCANS, rng=rng)
+    rng_state = rng.bit_generator.state
+    rec = rc.MappingRecorder()
+    plain = jslam.MappingPipeline
+    jslam.MappingPipeline = rec.recording(plain)
+    try:
+        pipeline, gt = worldsim.run_mapping_drive(
+            world, jconfig.kitti_hdl64(), rng, **rc.SLAM_DRIVE)
+    finally:
+        jslam.MappingPipeline = plain
+    arrays = {f"slam.{k}": a for k, a in rec.fields(pipeline).items()}
+    arrays["slam.gt"] = np.float32(gt)
+    return arrays, {"rng_state": rng_state,
+                    **rec.summary(pipeline, ate_rmse(
+                        np.float64(pipeline.trajectory), gt, align=False))}
+
+
+def build_mapping_record() -> tuple[dict, dict]:
+    """(arrays by ``odometry.<name>`` / ``slam.<name>``, manifest)."""
+    import scipy
+
+    arrays, odometry = reference_odometry_chain()
+    slam_arrays, slam = reference_slam_loop()
+    arrays.update(slam_arrays)
+    lapack = scipy.__config__.CONFIG["Build Dependencies"]["lapack"]
+    manifest = {
+        "written_by": "JAX_PLATFORMS=cpu python tests/"
+                      "torch_reference_record.py --mapping --write",
+        "versions": {"jax": jax.__version__, "numpy": np.__version__,
+                     "scipy": scipy.__version__,
+                     lapack["name"]: lapack["version"],
+                     "torch": torch.__version__,
+                     "python": sys.version.split()[0]},
+        "jax_enable_x64": True, "cpu_count": os.cpu_count(),
+        "odometry": {"inputs": "bench_odometry.py's make_frames_extracted: "
+                               "numpy seed 0, 50 poles over 60 m, 100 "
+                               "frames of 64 x 2048",
+                     **odometry},
+        "slam": {"inputs": "eval_ate.py's slam_loop: the generator after "
+                           "the drive's draws, 80 scans of a 10 m "
+                           "circle, no IMU",
+                 **slam}}
+    return arrays, manifest
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", action="store_true",
                     help="write the record (else compare with it)")
     ap.add_argument("--drive", action="store_true",
                     help="the drive record (else the full-width one)")
+    ap.add_argument("--mapping", action="store_true",
+                    help="the mapping record (else the full-width one)")
     args = ap.parse_args()
-    if args.drive:
+    if args.mapping:
+        arrays, manifest = build_mapping_record()
+        paths = (rc.MAPPING_RECORD, rc.MAPPING_MANIFEST)
+    elif args.drive:
         arrays, manifest = build_drive_record()
         paths = (rc.DRIVE_RECORD, rc.DRIVE_MANIFEST)
     else:
