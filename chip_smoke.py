@@ -388,9 +388,12 @@ LU_SOURCE = "lidar_feature_extraction_tpu_torch/csrc/lu_solve.cu"
 LU_REPLACES = ("none (jnp.linalg.solve of the pose graph, "
                "lidar_feature_extraction_tpu/parallel/pose_graph.py:193, "
                "which XLA:CPU hands to LAPACK's sgetrf and strsm)")
-# lu_solve's check and timing: 6K at K = 40 (slam_loop's keyframes), 64
-# (their bucket) and 128 (the dense solver's most keyframes).
-LU_SIZES = (240, 384, 768)
+# lu_solve's check and timing: 6K at the keyframe buckets slam_loop solves
+# (8, 16, 32, 64 keyframes: pipeline/slam.py's _bucket) and at 128 (the
+# dense solver's most keyframes); the kernel line reports 384.
+LU_SIZES = (48, 96, 192, 384, 768)
+LU_KINDS = ("spd", "random", "ties", "singular")
+LU_BATCHED = (48, 384)
 LU_TIMED = 384
 LU_LAUNCHES = 120
 DRIVE_HELD_SCANS = {"production": 20, "faithful": 20}
@@ -2871,65 +2874,93 @@ def lu_system(n: int, kind: str, device):
     """A seeded float32 system of order ``n``: ``spd`` is shaped like the
     pose graph's (J^T J over 2n random rows, plus the gauge prior 1e6 on
     the first 6 diagonal entries and the damping 1e-6 on the rest),
-    ``random`` is a dense normal matrix (rows swap while it factors)."""
+    ``random`` is a dense normal matrix (rows swap while it factors),
+    ``ties`` holds integers in [-3, 3] (ties in the pivot column) and
+    ``singular`` is normal with a zero column and a row twice another (a
+    zero pivot: its solution is not finite)."""
     import torch
 
-    rng = np.random.default_rng(n + (0 if kind == "spd" else 1))
+    rng = np.random.default_rng(n + LU_KINDS.index(kind) if kind != "spd"
+                                else n)
     if kind == "spd":
         j = rng.normal(size=(2 * n, n))
         a = j.T @ j / (2 * n) + np.diag([1e6] * 6 + [1e-6] * (n - 6))
+    elif kind == "ties":
+        a = rng.integers(-3, 4, size=(n, n)).astype(np.float64)
     else:
         a = rng.normal(size=(n, n))
+        if kind == "singular":
+            a[:, n // 2] = 0.0
+            a[n // 3] = 2.0 * a[0]
     b = rng.normal(size=n)
     return (torch.as_tensor(a, dtype=torch.float32, device=device),
             torch.as_tensor(b, dtype=torch.float32, device=device))
 
 
+def lu_bits_equal(got, want) -> bool:
+    """Bit for bit, a NaN equal to any NaN (the payload is the card's)."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(got)
+    return bool(torch.equal(nan, torch.isnan(want)) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
 def lu_phase(dev, lu) -> dict:
-    """lu_solve against its plain version on the card, bit for bit: a
-    pose-graph-shaped and a random system at each of ``LU_SIZES``, and
-    three systems in one launch against their lone launches. These
-    launches are not counted."""
+    """lu_solve against its plain version, bit for bit: each of
+    ``LU_KINDS`` at each of ``LU_SIZES``, the plain version on a CPU copy
+    of the same inputs (``lu_solve_plain``; on the CPU its chains run in
+    numpy), and at ``LU_BATCHED`` three systems in one launch against
+    their lone launches. These launches are not counted."""
     import torch
 
     saved = lu.lu_solve_cuda.launches
     cases, worst = {}, 0.0
     for n in LU_SIZES:
-        for kind in ("spd", "random"):
+        for kind in LU_KINDS:
             a, b = lu_system(n, kind, dev)
             got = lu.lu_solve_cuda(a, b)
-            want = lu.lu_solve_plain(a, b)
+            want = lu.lu_solve_plain(a.cpu(), b.cpu())
             torch.cuda.synchronize()
-            equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
-            err = float((got.double() - want.double()).abs().max())
+            equal = lu_bits_equal(got, want)
+            both = torch.isfinite(got.cpu()) & torch.isfinite(want)
+            err = float((got.cpu().double() - want.double())[both].abs()
+                        .max()) if bool(both.any()) else 0.0
             worst = max(worst, err)
-            cases[f"{kind}.{n}"] = {"bits_equal": equal, "max_abs_err": err,
-                                    "finite": bool(torch.isfinite(got).all())}
+            cases[f"{kind}.{n}"] = {
+                "bits_equal": equal, "max_abs_err": err,
+                "finite": bool(torch.isfinite(got).all())}
             check(equal, f"lu_solve: {kind} n = {n} differs from its plain "
                          f"version by {err}")
-    systems = [lu_system(LU_SIZES[0], "spd", dev)[0] + 0.5 * k
-               for k in range(3)]
-    rhs = [lu_system(LU_SIZES[0], "random", dev)[1] * (k + 1)
-           for k in range(3)]
-    batch = lu.lu_solve_cuda(torch.stack(systems), torch.stack(rhs))
-    lone = torch.stack([lu.lu_solve_cuda(a, b) for a, b in zip(systems, rhs)])
-    torch.cuda.synchronize()
-    lanes_equal = torch.equal(batch.view(torch.int32), lone.view(torch.int32))
-    check(lanes_equal, "lu_solve: a batch's systems differ from their lone "
-                       "launches")
+            check(kind == "singular" or bool(torch.isfinite(got).all()),
+                  f"lu_solve: {kind} n = {n} is not finite")
+    lanes = {}
+    for n in LU_BATCHED:
+        systems = [lu_system(n, "spd", dev)[0] + 0.5 * k for k in range(3)]
+        rhs = [lu_system(n, "random", dev)[1] * (k + 1) for k in range(3)]
+        batch = lu.lu_solve_cuda(torch.stack(systems), torch.stack(rhs))
+        lone = torch.stack([lu.lu_solve_cuda(a, b)
+                            for a, b in zip(systems, rhs)])
+        torch.cuda.synchronize()
+        lanes[str(n)] = lu_bits_equal(batch, lone)
+        check(lanes[str(n)], f"lu_solve: a batch's systems at n = {n} "
+                             "differ from their lone launches")
     lu.lu_solve_cuda.launches = saved
-    return {"sizes": list(LU_SIZES), "max_abs_err": worst,
-            "batch_lanes_equal": lanes_equal, "cases": cases}
+    return {"sizes": list(LU_SIZES), "kinds": list(LU_KINDS),
+            "max_abs_err": worst, "batch_lanes_equal": lanes,
+            "cases": cases}
 
 
 def lu_timing(dev, lu, bound_us, device_us_per_launch,
               host_us_per_call) -> dict:
     """lu_solve timed on the card at ``LU_SIZES`` on the pose-graph-shaped
-    systems: device time per launch (profiler), host time per call, the
-    plain version's time and ``torch.linalg.solve_ex``'s (cuSOLVER; used
-    nowhere in the port) by CUDA events, and the bound (the matrix and
-    right-hand side read once and the solution written once at the
-    memory rate, against 2n^3/3 float32 operations)."""
+    systems: device time per launch (profiler), host time per call,
+    launches per solve, ``torch.linalg.solve_ex``'s time (cuSOLVER; used
+    nowhere in the port) by CUDA events, the plain version's on a CPU copy
+    (host clock, one call), and the bound (the matrix and right-hand side
+    read once and the solution written once at the memory rate, against
+    2n^3/3 float32 operations)."""
     import torch
 
     saved = lu.lu_solve_cuda.launches
@@ -2938,14 +2969,21 @@ def lu_timing(dev, lu, bound_us, device_us_per_launch,
         a, b = lu_system(n, "spd", dev)
         nbytes = 4 * (n * n + 2 * n)
         bound, by = bound_us(nbytes, 2 * n ** 3 // 3)
+        lu.lu_solve_cuda.launches = 0
+        lu.lu_solve_cuda(a, b)
+        per_solve = lu.lu_solve_cuda.launches
         dev_us, seen = device_us_per_launch(lambda: lu.lu_solve_cuda(a, b),
                                             "lu_solve_kernel", LU_LAUNCHES)
+        a_cpu, b_cpu = a.cpu(), b.cpu()
+        start = time.perf_counter()
+        lu.lu_solve_plain(a_cpu, b_cpu)
+        plain_ms = 1e3 * (time.perf_counter() - start)
         out[str(n)] = {
             "n": n, "device_us": dev_us, "device_launches_seen": seen,
+            "launches_per_solve": per_solve,
             "host_us": host_us_per_call(lambda: lu.lu_solve_cuda(a, b),
                                         calls=20),
-            "plain_ms": time_ms(lambda: lu.lu_solve_plain(a, b), reps=1,
-                                warmup=1),
+            "plain_ms": plain_ms, "plain_device": "cpu",
             "library_ms": time_ms(lambda: torch.linalg.solve_ex(a, b)),
             "bound_us": bound, "bound_by": by, "bytes": nbytes}
     lu.lu_solve_cuda.launches = saved

@@ -26,8 +26,11 @@ OpenBLAS's ``sgetrf`` and two ``strsm`` (``lu_inverse``, ``lu_solve``).
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
@@ -108,54 +111,174 @@ def _pairwise_products(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return xf.sum_in_order(pairs, -1)
 
 
-def lu_factor(a: torch.Tensor):
-    """OpenBLAS's ``sgetrf`` of a float32 [n, n] as its unblocked
-    left-looking ``getf2`` computes it: each entry's updates as one dot
-    product (the first product rounded, the rest fused in ascending
-    order), then subtracted; the pivot the first largest magnitude (a
-    NaN never wins); the column below it scaled by the pivot's rounded
-    reciprocal (not when the pivot is 0). Returns the packed factors and
-    the row permutation (tensors on ``a``'s device, nothing read back).
+# --- the reference's float32 dense solves: OpenBLAS's sgetrf and strsm ---
+#
+# jnp.linalg.solve and jnp.linalg.inv in float32 reach LAPACK's sgetrf and
+# BLAS's strsm in the OpenBLAS that scipy's wheel ships (0.3.30, the SkylakeX
+# kernels), whose order was read from the library's object code (ROADMAP
+# §C23):
+#
+# - sgetrf threads from PARALLEL_ENTRIES entries (``sgetrf_threads``), and
+#   its panels depend on the thread count: single-threaded, a recursion that
+#   halves each panel (rounded up to GEMM_UNROLL_N, at most GEMM_Q) down to
+#   ``getf2`` at 2 GEMM_UNROLL_N; threaded, a first panel of that width
+#   factored by the same threaded recursion (``getf2`` at GEMM_UNROLL_N),
+#   then panels whose width a formula of the thread count sets, each
+#   factored single-threaded (``lu_plan``);
+# - after each panel, the columns to its right: ``strsm``'s kernel on the
+#   panel's rows (``_trsm_lower_unit``), then ``sgemm``'s kernel on the
+#   rows below, one FMA chain per entry over the panel from +0, subtracted
+#   once (``_chain``). Which thread takes which tile changes no entry;
+# - ``getf2`` is left-looking: a column's rows above the diagonal by
+#   ``sdot`` (fused pairs summed in float64), below it by ``sgemv``
+#   (one chain per row; at the panel's column 4 its 4x4 kernel's split
+#   sums, ``_gemv_sub``), the pivot the first
+#   largest magnitude, the column below it scaled by the pivot's rounded
+#   reciprocal; a zero or subnormal pivot swaps and scales nothing in the
+#   panel's columns up to it (``_getf2``).
+#
+# OPENBLAS_THREADS is pinned, as core/_xla_dot.py pins XLA_CPU_THREADS: the
+# machine that wrote the reference records had 8 threads, and n = 384 and
+# 768 factor differently at 1, 2 and 8.
 
-    The dot products are carried as running sums, one rank-1 step per
-    column (``acc``), which adds each entry's products in the same
-    order as the column-by-column dots. Equal to the reference's bits at
-    n = 2 and 3 (the EKF's); above OpenBLAS's blocking threshold its
-    ``sgetrf`` recurses into panels whose trailing updates its ``sgemm``
-    kernel sums by blocks (ROADMAP §C23), which this does not follow.
-    ``csrc/lu_solve.cu`` computes the same on the card."""
-    n = a.shape[-1]
-    lu = a.clone()
-    acc = torch.zeros_like(a)
-    rows = torch.arange(n, device=a.device)
-    perm = rows
-    for j in range(n):
-        if j:
-            lu[j:, j] = lu[j:, j] - acc[j:, j]
-        mag = torch.abs(lu[j:, j])
-        jp = j + torch.argmax(torch.where(torch.isnan(mag), -1.0, mag))
-        swap = torch.where(rows == j, jp, torch.where(rows == jp, j, rows))
-        lu, acc = lu.index_select(0, swap), acc.index_select(0, swap)
-        perm = perm.index_select(0, swap)
-        pivot = lu[j, j]
-        below = lu[j + 1:, j]
-        lu[j + 1:, j] = torch.where(pivot != 0, below * (1.0 / pivot), below)
-        if j:
-            lu[j, j + 1:] = lu[j, j + 1:] - acc[j, j + 1:]
-        l_col, u_row = lu[j + 1:, j, None], lu[None, j, j + 1:]
-        acc[j + 1:, j + 1:] = l_col * u_row if j == 0 else xf.fma(
-            l_col, u_row, acc[j + 1:, j + 1:])
-    return lu, perm
-
-
-# OpenBLAS's trsm kernels solve a block of rows of this many, then the
-# rest in blocks of 8, 4, 2 and 1 rows (the remainder's bits, largest
-# first).
+OPENBLAS_THREADS = 8
+GEMM_UNROLL_N = 4
+GEMM_Q = 448
+PARALLEL_ENTRIES = 40_000
+# strsm's kernels solve a block of rows of this many, then the rest in
+# blocks of 8, 4, 2 and 1 rows (largest first).
 TRSM_ROWS = 16
+FLT_MIN = 2.0 ** -126
+GETF2, UPDATE = 0, 1
+
+
+def sgetrf_threads(n: int, cpu: int = OPENBLAS_THREADS) -> int:
+    """The threads OpenBLAS's sgetrf gives an [n, n] system on ``cpu``
+    threads: one below PARALLEL_ENTRIES entries, else ``cpu`` while each
+    keeps PARALLEL_ENTRIES entries, else one per PARALLEL_ENTRIES."""
+    entries = n * n
+    if entries < PARALLEL_ENTRIES or cpu == 1:
+        return 1
+    if entries // cpu >= PARALLEL_ENTRIES:
+        return cpu
+    return entries // PARALLEL_ENTRIES
+
+
+def _round_up(x: int, unit: int = GEMM_UNROLL_N) -> int:
+    return (x + unit - 1) // unit * unit
+
+
+def _plan_single(n: int, off: int, w: int, steps: list) -> None:
+    """``sgetrf_single`` on columns [off, off + w) of rows [off, n)."""
+    mn = min(n - off, w)
+    blocking = min(_round_up(mn // 2), GEMM_Q)
+    if blocking <= 2 * GEMM_UNROLL_N:
+        steps.append((GETF2, off, w, 0, 0))
+        return
+    for j in range(0, mn, blocking):
+        jmin = min(mn - j, blocking)
+        _plan_single(n, off + j, jmin, steps)
+        if j + jmin < w:
+            steps.append((UPDATE, off + j, jmin, off + j + jmin, off + w))
+
+
+def _plan_parallel(n: int, off: int, w: int, t: int, steps: list) -> None:
+    """``sgetrf_parallel`` on columns [off, off + w) with ``t`` threads:
+    the next panel's width from the thread count (both formulas in
+    float64, as the library computes them)."""
+    m = n - off
+    mn = min(m, w)
+    bk = min(_round_up(mn // 2), GEMM_Q)
+    if bk <= GEMM_UNROLL_N:
+        steps.append((GETF2, off, w, 0, 0))
+        return
+    next_bk = bk
+    bk = min(mn, bk)
+    _plan_parallel(n, off, bk, t, steps)
+    done = 0
+    while done < mn:
+        width = int((float(m - done - bk) * float(bk) * (1.0 - t)
+                     / float(m - done) + float(w - done - bk)) / t)
+        if min(_round_up(width), mn - done - bk) < bk:
+            shrink = int((1.0 - math.sqrt(1.0 - 1.0 / t))
+                         * float(w - done + bk))
+            next_bk = min((shrink + GEMM_UNROLL_N) // GEMM_UNROLL_N
+                          * GEMM_UNROLL_N, bk)
+        if done + bk < w:
+            steps.append((UPDATE, off + done, bk, off + done + bk, off + w))
+        done += bk
+        bk = min(mn - done, next_bk)
+        if bk > 0:
+            _plan_single(n, off + done, bk, steps)
+
+
+@functools.lru_cache(maxsize=None)
+def lu_plan(n: int, cpu: int = OPENBLAS_THREADS) -> tuple:
+    """OpenBLAS's sgetrf of an [n, n] system on ``cpu`` threads as steps in
+    order: ``(GETF2, off, w, 0, 0)`` factors columns [off, off + w) of rows
+    [off, n); ``(UPDATE, r0, k, c0, c1)`` applies the panel [r0, r0 + k)
+    to columns [c0, c1) (``strsm`` on its rows, then ``sgemm`` below).
+    ``csrc/lu_solve.cu`` runs the same steps."""
+    steps: list = []
+    t = sgetrf_threads(n, cpu)
+    if t == 1:
+        _plan_single(n, 0, n, steps)
+    else:
+        _plan_parallel(n, 0, n, t, steps)
+    return tuple(steps)
+
+
+@np.errstate(all="ignore")  # NaN and inf round as they are
+def _fma_np(p: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """float32 ``p + c`` rounded once (``p`` an exact float64 product of
+    two float32 values, ``c`` float32 values in float64): the float64 sum
+    rounded to float32, which is the fused result unless that sum was
+    inexact and fell on a float32 halfway point or below float32's normal
+    range; those entries are rounded to odd in float64 first."""
+    s = p + c
+    bits = s.view(np.int64)
+    suspect = ((bits & 0x1FFFFFFF) == 0x10000000) | (
+        (bits & 0x7FF0000000000000) < 0x3810000000000000)
+    if np.count_nonzero(suspect & (s != 0)):
+        v = s - p
+        err = (p - (s - v)) + (c - v)
+        odd = (err != 0) & ((bits & 1) == 0) & np.isfinite(s)
+        s = np.where(odd, np.nextafter(s, err * np.inf), s)
+    return s.astype(np.float32)
+
+
+def _chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` ([r, k] x [k, c], float32) as OpenBLAS's sgemm, sgemv and
+    strsm kernels sum it: each entry one FMA chain over k in order from +0.
+    On the CPU in numpy (exact float64 products, ``_fma_np``)."""
+    if a.device.type != "cpu":
+        acc = a.new_zeros(a.shape[0], b.shape[1])
+        for k in range(a.shape[1]):
+            acc = xf.fma(a[:, k:k + 1], b[k:k + 1, :], acc)
+        return acc
+    a64 = a.numpy().astype(np.float64)
+    b64 = b.numpy().astype(np.float64)
+    acc = np.zeros((a.shape[0], b.shape[1]))
+    with np.errstate(all="ignore"):
+        for k in range(a.shape[1]):
+            acc = _fma_np(np.multiply.outer(a64[:, k], b64[k]), acc) \
+                .astype(np.float64)
+    return torch.from_numpy(acc.astype(np.float32))
+
+
+def _fms(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``c - x * y`` rounded once (strsm's in-block steps)."""
+    if c.device.type != "cpu":
+        return xf.fma(-x, y, c)
+    x, y = torch.broadcast_tensors(x, y)
+    with np.errstate(all="ignore"):
+        p = x.numpy().astype(np.float64) * y.numpy().astype(np.float64)
+    return torch.from_numpy(_fma_np(-p, c.numpy().astype(np.float64)))
 
 
 def trsm_blocks(n: int) -> list[tuple[int, int]]:
-    """The row blocks [lo, hi) of ``lu_solve``, top to bottom."""
+    """The row blocks [lo, hi) of strsm's kernels on n rows, top to
+    bottom."""
     blocks = [(lo, lo + TRSM_ROWS) for lo in range(0, n - TRSM_ROWS + 1,
                                                    TRSM_ROWS)]
     lo = len(blocks) * TRSM_ROWS
@@ -168,45 +291,154 @@ def trsm_blocks(n: int) -> list[tuple[int, int]]:
     return blocks
 
 
-def _subtract_dot(x: torch.Tensor, lu: torch.Tensor, lo: int, hi: int,
-                  ks: range) -> torch.Tensor:
-    """Rows lo:hi of ``x`` minus the dot products of ``lu[lo:hi, ks]``
-    with ``x[ks]``: the first product rounded, the rest fused in the
-    order of ``ks``."""
-    k0, *rest = ks
-    acc = lu[lo:hi, k0, None] * x[k0]
-    for k in rest:
-        acc = xf.fma(lu[lo:hi, k, None], x[k], acc)
-    return x[lo:hi] - acc
+def _trsm_lower_unit(lo_tri: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` [k, c] solved by the unit lower triangle of ``lo_tri`` [k, k]
+    as strsm's LT kernel: by row blocks (``trsm_blocks``) top to bottom,
+    each block first minus the earlier rows' chain (``_chain``), then
+    each solved row's update fused into the block's rows after it."""
+    x = x.clone()
+    for lo, hi in trsm_blocks(x.shape[0]):
+        if lo:
+            x[lo:hi] = x[lo:hi] - _chain(lo_tri[lo:hi, :lo], x[:lo])
+        for i in range(lo, hi - 1):
+            x[i + 1:hi] = _fms(x[i], lo_tri[i + 1:hi, i, None], x[i + 1:hi])
+    return x
+
+
+def _trsm_upper(up_tri: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` [k, c] solved by the upper triangle of ``up_tri`` [k, k] as
+    strsm's LN kernel: the same row blocks bottom to top, each first minus
+    the later rows' chain, then from its last row up: the unknown times
+    the pivot's rounded reciprocal, its update fused into the rows
+    above it in the block."""
+    x = x.clone()
+    n = x.shape[0]
+    for lo, hi in reversed(trsm_blocks(n)):
+        if hi < n:
+            x[lo:hi] = x[lo:hi] - _chain(up_tri[lo:hi, hi:], x[hi:])
+        for i in reversed(range(lo, hi)):
+            x[i] = x[i] * (1.0 / up_tri[i, i])
+            if i > lo:
+                x[lo:i] = _fms(x[i], up_tri[lo:i, i, None], x[lo:i])
+    return x
+
+
+def _sdot_strided(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sdot`` of a row (stride lda) with a column: fused pairs
+    ``fma(x0, y0, x1*y1)`` in float32, added in order in float64 from 0,
+    a last odd product rounded, the total rounded to float32."""
+    i = x.shape[0]
+    h = i // 2
+    terms = []
+    if h:
+        pairs = xf.fma(x[0:2 * h:2], y[0:2 * h:2],
+                       x[1:2 * h:2] * y[1:2 * h:2])
+        terms = list(pairs.double().unbind(0))
+    if i % 2:
+        terms.append((x[i - 1] * y[i - 1]).double())
+    acc = torch.zeros((), dtype=torch.float64, device=x.device)
+    for t in terms:
+        acc = acc + t
+    return acc.float()
+
+
+def _gemv_sub(a: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """``y - a x`` ([m, j] columns, j <= 48) as ``sgemv_n`` computes it in
+    ``getf2``: one chain per row, subtracted; at j = 4 its 4x4 kernel
+    sums the first (m - m % 4) % 16 rows as the chains (from +0) of
+    columns (0, 2) and (1, 3), added, then subtracted."""
+    j = a.shape[1]
+    if j != 4:
+        return y - _chain(a, x[:, None])[:, 0]
+    m = a.shape[0]
+    split = (m - m % 4) % 16
+    out = y - _chain(a, x[:, None])[:, 0]
+    if split:
+        s, zero = a[:split], a.new_zeros(split)
+        even = xf.fma(s[:, 2], x[2], xf.fma(s[:, 0], x[0], zero))
+        odd = xf.fma(s[:, 3], x[3], xf.fma(s[:, 1], x[1], zero))
+        out[:split] = y[:split] - (odd + even)
+    return out
+
+
+def _getf2(lu: torch.Tensor, perm: torch.Tensor, off: int, w: int):
+    """OpenBLAS's ``getf2`` on columns [off, off + w) of rows [off, n)
+    (w <= 48), row swaps applied to whole rows. The pivot is the first
+    largest magnitude (a NaN never wins, where isamax's vector code
+    differs); nothing is read back to the host."""
+    n = lu.shape[-1]
+    for j in range(w):
+        c = off + j
+        for i in range(1, j):
+            lu[off + i, c] = lu[off + i, c] - _sdot_strided(
+                lu[off + i, off:off + i], lu[off:off + i, c])
+        if j:
+            lu[c:, c] = _gemv_sub(lu[c:, off:c], lu[off:c, c], lu[c:, c])
+        mag = torch.abs(lu[c:, c])
+        jp = c + torch.argmax(torch.where(torch.isnan(mag), -1.0, mag))
+        idx = torch.stack([torch.full_like(jp, c), jp])
+        old = lu.index_select(0, idx)
+        new = old.flip(0)
+        pivot = new[0, c]
+        normal = (pivot != 0) & (torch.abs(pivot) >= FLT_MIN)
+        new[:, off:c + 1] = torch.where(normal, new[:, off:c + 1],
+                                        old[:, off:c + 1])
+        lu.index_copy_(0, idx, new)
+        perm.index_copy_(0, idx, perm.index_select(0, idx).flip(0))
+        if c + 1 < n:
+            below = lu[c + 1:, c]
+            lu[c + 1:, c] = torch.where(normal, below * (1.0 / pivot), below)
+
+
+def lu_factor(a: torch.Tensor):
+    """OpenBLAS's ``sgetrf`` of a float32 [n, n] at OPENBLAS_THREADS
+    threads, bit for bit: ``lu_plan``'s steps (``_getf2``, and for each
+    panel ``_trsm_lower_unit`` and ``_chain`` on the columns to its right).
+    Returns the packed factors and the row permutation (tensors on ``a``'s
+    device, nothing read back). ``csrc/lu_solve.cu`` computes the same on
+    the card."""
+    n = a.shape[-1]
+    lu = a.clone()
+    perm = torch.arange(n, device=a.device)
+    for op, p, q, r, s in lu_plan(n):
+        if op == GETF2:
+            _getf2(lu, perm, p, q)
+            continue
+        u12 = _trsm_lower_unit(lu[p:p + q, p:p + q], lu[p:p + q, r:s])
+        lu[p:p + q, r:s] = u12
+        lu[p + q:, r:s] = lu[p + q:, r:s] - _chain(lu[p + q:, p:p + q], u12)
+    return lu, perm
+
+
+def _solve_blocks(n: int, upper: bool) -> list[tuple[int, int]]:
+    """strsm's blocks of GEMM_Q rows [s, e) in the order it solves them:
+    from the top for the lower triangle, from the bottom for the upper."""
+    if not upper:
+        return [(s, min(s + GEMM_Q, n)) for s in range(0, n, GEMM_Q)]
+    return [(max(e - GEMM_Q, 0), e) for e in range(n, 0, -GEMM_Q)]
 
 
 def lu_solve(lu: torch.Tensor, perm: torch.Tensor,
              b: torch.Tensor) -> torch.Tensor:
     """Solve ``a x = b`` (b [n] or [n, k]) from ``lu_factor`` as
     OpenBLAS's two ``strsm`` calls compute it: the unit lower, then the
-    upper triangle, by blocks of rows (``trsm_blocks``); within a block
-    a solved row's updates fused into the rows after it, the earlier
-    blocks' as one dot product per row (``_subtract_dot``, ascending),
-    and each unknown multiplied by its pivot's rounded reciprocal.
-    Equal to the reference's bits at n = 2 and 3 (ROADMAP §C23 for
-    more); ``csrc/lu_solve.cu`` computes the same on the card."""
+    upper triangle, by blocks of GEMM_Q rows (``_solve_blocks``), each
+    solved by the kernel (``_trsm_lower_unit``, ``_trsm_upper``) and then
+    taken from the rows after it as one chain. ``csrc/lu_solve.cu``
+    computes the same on the card."""
     n = lu.shape[-1]
     vector = b.dim() == 1
     x = b.index_select(0, perm)
     x = x[:, None] if vector else x.clone()
-    blocks = trsm_blocks(n)
-    for lo, hi in blocks:
-        if lo:
-            x[lo:hi] = _subtract_dot(x, lu, lo, hi, range(lo))
-        for i in range(lo, hi - 1):
-            x[i + 1:hi] = xf.fma(-x[i], lu[i + 1:hi, i, None], x[i + 1:hi])
-    for lo, hi in reversed(blocks):
-        if hi < n:
-            x[lo:hi] = _subtract_dot(x, lu, lo, hi, range(hi, n))
-        for i in reversed(range(lo, hi)):
-            x[i] = x[i] * (1.0 / lu[i, i])
-            if i > lo:
-                x[lo:i] = xf.fma(-x[i], lu[lo:i, i, None], x[lo:i])
+    for s, e in _solve_blocks(n, upper=False):
+        x[s:e] = _trsm_lower_unit(lu[s:e, s:e], x[s:e])
+        if e < n:
+            x[e:] = x[e:] - _chain(lu[e:, s:e], x[s:e])
+    for s, e in _solve_blocks(n, upper=True):
+        x[s:e] = _trsm_upper(lu[s:e, s:e], x[s:e])
+        if s:
+            x[:s] = x[:s] - _chain(lu[:s, s:e], x[s:e])
     return x[:, 0] if vector else x
 
 

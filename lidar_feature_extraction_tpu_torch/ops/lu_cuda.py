@@ -2,9 +2,11 @@
 
 The reference solves the graph's normal equations with
 ``jnp.linalg.solve``, which XLA:CPU hands to OpenBLAS's ``sgetrf`` and
-two ``strsm`` calls. The kernel computes the LU factorization and both
-triangular solves of each system in one CTA, in the order of the plain
-version, ``fusion/kalman.py``'s ``lu_factor`` and ``lu_solve``, and
+two ``strsm`` calls. The kernel computes the blocked LU factorization
+(``kalman.lu_plan``'s steps: panels on one CTA, the updates to their
+right as float32 SIMT tiles over the system's CTAs) and both triangular
+solves of each system in one cooperative launch, in the order of the
+plain version, ``fusion/kalman.py``'s ``lu_factor`` and ``lu_solve``, and
 equals it bit for bit. No library solver (``torch.linalg``, cuSOLVER)
 is on this path.
 
@@ -45,25 +47,61 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the library once per process."""
+    """Build (if needed) and load the library once per process, and check
+    that its constants are the plain version's."""
     lib = ctypes.CDLL(str(build()))
-    lib.lu_solve.argtypes = [_P] * 5 + [_I, _I, _I, _P]
+    lib.lu_solve.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.lu_solve.restype = _I
     lib.lu_solve_error_string.argtypes = [_I]
     lib.lu_solve_error_string.restype = ctypes.c_char_p
-    lib.lu_solve_trsm_rows.argtypes = []
-    lib.lu_solve_trsm_rows.restype = _I
-    if lib.lu_solve_trsm_rows() != kalman.TRSM_ROWS:
-        raise RuntimeError("lu_solve: the kernel's row blocks differ from "
-                           "kalman.TRSM_ROWS")
+    for name, want in (("lu_solve_trsm_rows", kalman.TRSM_ROWS),
+                       ("lu_solve_gemm_q", kalman.GEMM_Q)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], _I
+        if fn() != want:
+            raise RuntimeError(f"lu_solve: {name}() differs from kalman's "
+                               f"{want}")
+    for name in ("lu_solve_max_n", "lu_solve_max_panel"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], _I
+    for name in ("lu_solve_grid", "lu_solve_workspace_floats"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [_I], _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n: int, device: torch.device) -> tuple[torch.Tensor, int]:
+    """``kalman.lu_plan(n)`` as an int32 [steps, 5] tensor on ``device``
+    (uploaded once per order and device) and the floats of a system's
+    workspace; raises above the kernel's order or panel width."""
+    lib = load()
+    if n > lib.lu_solve_max_n():
+        raise ValueError(f"lu_solve_cuda: n = {n} above "
+                         f"{lib.lu_solve_max_n()}")
+    widest = max(s[2] for s in kalman.lu_plan(n) if s[0] == kalman.GETF2)
+    if widest > lib.lu_solve_max_panel():
+        raise ValueError(f"lu_solve_cuda: a panel of {widest} columns")
+    return (torch.tensor(kalman.lu_plan(n), dtype=torch.int32, device=device),
+            lib.lu_solve_workspace_floats(n))
+
+
+@functools.lru_cache(maxsize=None)
+def _parts(batch: int, device: torch.device) -> int:
+    """CTAs per system (``lu_solve_grid``) on ``device``."""
+    with torch.cuda.device(device):
+        parts = load().lu_solve_grid(batch)
+    if parts <= 0:
+        raise ValueError(f"lu_solve_cuda: a batch of {batch} systems does not "
+                         "fit one cooperative launch")
+    return parts
 
 
 def lu_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``a x = b`` on the card: a [n, n] or [B, n, n] float32, b
-    [n], [n, k] or with the same leading batch; one launch, one CTA per
-    system. Returns x shaped as b. Counts its launches in
-    ``lu_solve_cuda.launches``."""
+    [n], [n, k] or with the same leading batch; one cooperative launch of
+    ``_parts`` CTAs per system. Returns x shaped as b. Counts its launches
+    in ``lu_solve_cuda.launches``."""
     if not (a.is_cuda and b.is_cuda):
         raise ValueError("lu_solve_cuda: CUDA tensors only")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
@@ -78,16 +116,18 @@ def lu_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.shape[:a.dim() - 1] != a.shape[:-1]:
         raise ValueError(f"lu_solve_cuda: b {tuple(b.shape)} does not fit a "
                          f"{tuple(a.shape)}")
-    lu = a.reshape(-1, n, n).contiguous().clone()
-    rhs = b.reshape(lu.shape[0], n, -1).contiguous()
+    a3 = a.reshape(-1, n, n).contiguous()
+    batch = a3.shape[0]
+    rhs = b.reshape(batch, n, -1).contiguous()
+    plan, floats = _plan(n, a.device)
+    parts = _parts(batch, a.device)
+    work = torch.empty((batch, floats), dtype=torch.float32, device=a.device)
     x = torch.empty_like(rhs)
-    acc = torch.empty_like(lu)
-    perm = torch.empty(lu.shape[:2], dtype=torch.int32, device=a.device)
     lib = load()
     with torch.cuda.device(a.device):
-        err = lib.lu_solve(lu.data_ptr(), acc.data_ptr(), perm.data_ptr(),
-                           x.data_ptr(), rhs.data_ptr(), lu.shape[0], n,
-                           rhs.shape[-1],
+        err = lib.lu_solve(a3.data_ptr(), x.data_ptr(), rhs.data_ptr(),
+                           plan.data_ptr(), work.data_ptr(), plan.shape[0],
+                           batch, n, rhs.shape[-1], parts,
                            torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lu_solve_cuda: CUDA error {err} "

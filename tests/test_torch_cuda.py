@@ -1370,9 +1370,12 @@ def _bits_equal_nan(got, want):
         got[~nan].view(torch.int32), want[~nan].view(torch.int32))
 
 
-_LU_CASES = [("random", 2), ("random", 3), ("random", 17), ("spd", 48),
-             ("random", 48), ("spd", 240), ("random", 240), ("spd", 384),
-             ("random", 384)]
+# The plain version runs on a CPU copy (its chains in numpy there).
+_LU_CASES = [("random", 2), ("random", 3), ("random", 17),
+             *((kind, n) for n in (48, 96, 192, 384, 768)
+               for kind in ("spd", "random")),
+             ("ties", 96), ("singular", 96), ("ties", 384),
+             ("singular", 768)]
 
 
 @pytest.mark.parametrize("kind,n", _LU_CASES,
@@ -1389,11 +1392,11 @@ def test_lu_solve_kernel_matches_plain_version(cuda, kind, n):
     before = lu_cuda.lu_solve_cuda.launches
     got = lu_cuda.lu_solve_cuda(a, b)
     assert lu_cuda.lu_solve_cuda.launches == before + 1
-    assert _bits_equal_nan(got, lu_cuda.lu_solve_plain(a, b))
+    assert _bits_equal_nan(got, lu_cuda.lu_solve_plain(a.cpu(), b.cpu()))
     # Several right-hand sides at once, each column as alone.
     rhs = torch.stack([b, 2 * b, -b], dim=1)
     cols = lu_cuda.lu_solve_cuda(a, rhs)
-    assert _bits_equal_nan(cols, lu_cuda.lu_solve_plain(a, rhs))
+    assert _bits_equal_nan(cols, lu_cuda.lu_solve_plain(a.cpu(), rhs.cpu()))
     assert _bits_equal_nan(cols[:, 0], got)
 
 
@@ -1411,8 +1414,8 @@ def test_lu_solve_kernel_singular_and_batched(cuda):
     for k in range(len(systems)):
         lone = lu_cuda.lu_solve_cuda(systems[k], rhs[k])
         assert _bits_equal_nan(batch[k], lone)
-        assert _bits_equal_nan(lone, lu_cuda.lu_solve_plain(systems[k],
-                                                            rhs[k]))
+        assert _bits_equal_nan(lone, lu_cuda.lu_solve_plain(
+            systems[k].cpu(), rhs[k].cpu()))
     with pytest.raises(ValueError, match="float32"):
         lu_cuda.lu_solve_cuda(a.double(), b.double())
     with pytest.raises(ValueError, match="CUDA"):

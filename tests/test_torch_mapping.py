@@ -17,15 +17,27 @@ jitted programs, all at tolerance 0.
   scan 14, ~45 s of CPU at full width; chip_smoke's ``slam`` phase holds
   all 80 scans on the card.
 - The pose graph's Gauss-Newton step: the linearization (residual and
-  Jacobians) against ``jax.jit(jax.vmap(_linearize_one))``, and the dense
-  solve (``fusion/kalman.py``'s ``lu_factor`` / ``lu_solve``) against
-  ``jax.jit(jnp.linalg.solve)`` at 6K = 48 to 384. Neither equals the
-  reference yet (ROADMAP §C23): these are marked as expected failures,
-  strictly, naming the open site; the float32 form of the smallest
-  systems (n <= 3, the EKF's) is held in test_torch_drive.py.
+  Jacobians) against ``jax.jit(jax.vmap(_linearize_one))``, which does not
+  equal the reference yet (ROADMAP §C23.1: a strict expected failure
+  naming the open site), and the dense solve (``fusion/kalman.py``'s
+  ``lu_factor`` / ``lu_solve``) against ``jax.jit(jnp.linalg.solve)`` at
+  6K = 48 to 768 (§C23.3, repaired).
+- OpenBLAS's own halves, which the reference's solve reaches: ``lu_factor``
+  against ``scipy.linalg.lu_factor`` (factors and pivots) and ``lu_solve``
+  on those factors against ``scipy.linalg.blas.strsm``. scipy's wheel and
+  jaxlib share one OpenBLAS, whose order depends on its thread count:
+  every reference call runs with it pinned to ``kalman.OPENBLAS_THREADS``
+  (``_openblas_threads``), whatever the machine's core count. The float32
+  form of the smallest systems (n <= 3, the EKF's) is held in
+  test_torch_drive.py.
 """
 
+import contextlib
+import ctypes
+import functools
 import json
+import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -201,23 +213,132 @@ def test_lu_solve_plain_solves_and_batches(n):
     np.testing.assert_array_equal(_bits(cols[:, 0]), _bits(got[0]))
 
 
-# The open site of ROADMAP §C23: the reference's dense solve is
-# OpenBLAS's blocked, recursive sgetrf (its panels' trailing updates
-# summed by sgemm's kernel, threaded above 10,000 entries) and strsm,
-# whose order the plain LU does not follow above n = 3.
-_LU_SITE = ("ROADMAP §C23 (open): OpenBLAS's blocked sgetrf / strsm "
-            "order of jnp.linalg.solve at 6K >= 48")
+@functools.cache
+def _openblas() -> ctypes.CDLL:
+    """The OpenBLAS of scipy's wheel (``scipy.libs``), which jaxlib's
+    LAPACK calls reach too."""
+    import scipy
+
+    libs = Path(scipy.__file__).resolve().parent.parent / "scipy.libs"
+    lib = ctypes.CDLL(str(next(libs.glob("libscipy_openblas-*.so"))))
+    lib.scipy_openblas_get_num_threads.restype = ctypes.c_int
+    lib.scipy_openblas_set_num_threads.argtypes = [ctypes.c_int]
+    return lib
+
+
+@contextlib.contextmanager
+def _openblas_threads(threads: int = kalman.OPENBLAS_THREADS):
+    """OpenBLAS pinned to ``threads`` threads, then restored: its sgetrf
+    orders the sums by its thread count (``kalman.sgetrf_threads``)."""
+    lib = _openblas()
+    old = lib.scipy_openblas_get_num_threads()
+    lib.scipy_openblas_set_num_threads(threads)
+    try:
+        yield
+    finally:
+        lib.scipy_openblas_set_num_threads(old)
+
+
+def _lu_case(n: int, kind: str) -> np.ndarray:
+    """A seeded float32 [n, n]: chip_smoke's pose-graph-shaped (``posegraph``,
+    its ``spd``), random, ties and singular systems, or ``spd`` (m m^T / n
+    + I, no row swaps)."""
+    if kind == "spd":
+        m = np.random.default_rng(n).normal(size=(n, n))
+        return np.float32(m @ m.T / n + np.eye(n))
+    return _system(n, "spd" if kind == "posegraph" else kind)[0]
+
+
+def _permutation(piv: np.ndarray) -> np.ndarray:
+    """LAPACK's sequential row swaps as the permutation they make."""
+    perm = np.arange(len(piv))
+    for i, p in enumerate(piv):
+        perm[[i, p]] = perm[[p, i]]
+    return perm
+
+
+# A pose-graph-shaped system has the 6 x 6 gauge prior: n >= 6.
+_LU_FACTOR_CASES = [
+    (n, kind)
+    for n in (2, 3, 4, 8, 16, 17, 32, 48, 96, 99, 100, 101, 192, 384, 768)
+    for kind in ("random", "spd", "posegraph", "ties", "singular")
+    if n >= 6 or kind != "posegraph"]
+
+
+@pytest.mark.parametrize("n,kind", _LU_FACTOR_CASES,
+                         ids=[f"{n}-{k}" for n, k in _LU_FACTOR_CASES])
+def test_lu_factor_is_openblas_sgetrf(n, kind):
+    """``kalman.lu_factor`` equals OpenBLAS's sgetrf at 8 threads
+    (``scipy.linalg.lu_factor`` in float32): factors and pivots bit for
+    bit, across getf2 (n <= 17), the single-threaded recursion and the
+    threaded path (3 threads at 384, 8 at 768)."""
+    import scipy.linalg
+
+    a = _lu_case(n, kind)
+    with _openblas_threads(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", scipy.linalg.LinAlgWarning)
+        want, piv = scipy.linalg.lu_factor(a, check_finite=False)
+    lu, perm = kalman.lu_factor(torch.as_tensor(a))
+    np.testing.assert_array_equal(_bits(lu), want.view(np.int32))
+    np.testing.assert_array_equal(to_np(perm), _permutation(piv))
+
+
+@pytest.mark.parametrize("kind", ["random", "posegraph", "singular"])
+@pytest.mark.parametrize("n", [17, 48, 101, 384, 768])
+def test_lu_solve_is_openblas_strsm(n, kind):
+    """``kalman.lu_solve`` on OpenBLAS's own factors equals its two strsm
+    calls (unit lower, then upper; at 768 strsm's blocks of GEMM_Q rows)
+    bit for bit, a NaN against any NaN."""
+    import scipy.linalg
+    from scipy.linalg.blas import strsm
+
+    a = _lu_case(n, kind)
+    b = _system(n, "random")[1]
+    with _openblas_threads(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", scipy.linalg.LinAlgWarning)
+        lu, piv = scipy.linalg.lu_factor(a, check_finite=False)
+        perm = _permutation(piv)
+        y = strsm(1.0, lu, b[perm][:, None].copy(), lower=1, diag=1)
+        want = strsm(1.0, lu, y, lower=0)[:, 0]
+    got = to_np(kalman.lu_solve(torch.as_tensor(lu), torch.as_tensor(perm),
+                                torch.as_tensor(b)))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    finite = ~np.isnan(got)
+    np.testing.assert_array_equal(got[finite].view(np.int32),
+                                  want[finite].view(np.int32))
 
 
 @pytest.mark.parametrize("kind", ["random", "spd"])
-@pytest.mark.parametrize("keyframes", [8, 16, 32, 64])
-@pytest.mark.xfail(strict=True, reason=_LU_SITE)
+@pytest.mark.parametrize("keyframes", [8, 16, 32, 64, 128])
 def test_lu_matches_jitted_jnp_solve(keyframes, kind):
+    """The port's float32 solve (``lu_cuda.solve`` on the CPU: the plain
+    version) equals jitted ``jnp.linalg.solve`` bit for bit at slam_loop's
+    keyframe buckets and the dense solver's most keyframes."""
     a, b = _system(6 * keyframes, kind)
-    want = np.asarray(jax.jit(jnp.linalg.solve)(jnp.asarray(a),
-                                                 jnp.asarray(b)))
+    with _openblas_threads():
+        want = np.asarray(jax.jit(jnp.linalg.solve)(jnp.asarray(a),
+                                                     jnp.asarray(b)))
     got = lu_cuda.solve(torch.as_tensor(a), torch.as_tensor(b))
     np.testing.assert_array_equal(_bits(got), want.view(np.int32))
+
+
+def test_openblas_pin_moves_the_reference():
+    """The pin reaches jitted jnp.linalg.solve: at 384 (threaded from two
+    threads) one and 8 threads differ, and the plan follows each."""
+    a, b = _system(384, "random")
+    solve = jax.jit(jnp.linalg.solve)
+    outs = {}
+    for threads in (1, kalman.OPENBLAS_THREADS):
+        with _openblas_threads(threads):
+            outs[threads] = np.asarray(solve(jnp.asarray(a),
+                                             jnp.asarray(b))).copy()
+    assert not np.array_equal(outs[1].view(np.int32),
+                              outs[kalman.OPENBLAS_THREADS].view(np.int32))
+    assert kalman.sgetrf_threads(384, 1) == 1
+    assert kalman.sgetrf_threads(384) == 3
+    assert kalman.sgetrf_threads(768) == 8
+    assert kalman.sgetrf_threads(199) == 1
+    assert kalman.lu_plan(384, 1) != kalman.lu_plan(384)
 
 
 def _graph_inputs(m: int = 8, seed: int = 4):
