@@ -119,7 +119,10 @@ Phases, each of which must pass (any failure exits non-zero):
    count reset just before the run and read just after). ATE at most
    1.25 x ``ATE_EVAL.json``'s + 0.005 m, 40 +- 2 keyframes, a loop
    constraint or more, everything finite, K1 and fma_f32 each launched
-   at least once per scan;
+   at least once per scan. slam_loop without IMU must equal the mapping
+   record bit for bit: every scan's odometry pose and features, the
+   keyframes, the loop pairs, every ``optimize()``'s graph, the
+   trajectory and the ATE;
 7. batch: the batched localizer (``make_batched_localizer``, B scans
    through one extraction, one K1 launch on the [B * 64, 2304] planes,
    and one lock-step Gauss-Newton loop) at B = 1, 8 and 32 on both
@@ -3301,10 +3304,9 @@ def main() -> int:
         limit = ATE_FACTOR * SLAM_ATE_REFERENCE_M[name] + ATE_MARGIN_M
         held = {}
         if recorder is not None:
-            # slam_loop against the mapping record: every scan's odometry
-            # pose, the keyframes and the loop pairs bit for bit; the
-            # graphs (ROADMAP §C23: the dense solve's order is open) are
-            # reported, and the ATE held to its limit.
+            # slam_loop against the mapping record, bit for bit: every
+            # scan's odometry pose, the keyframes, the loop pairs, every
+            # optimize()'s graph, the trajectory and the ATE.
             gaps = rc.mapping_gaps(recorder.fields(pipeline), map_arrays)
             loop_pairs = [[int(c[0]), int(c[1])] for c in
                           pipeline.constraints if c[1] - c[0] > 1]
@@ -3332,6 +3334,16 @@ def main() -> int:
                   f"{record['loop_pairs']}")
             check(held["lu_solve_launches"] > 0,
                   f"{name}: the dense solve never launched lu_solve")
+            check(gaps["first_optimize_that_differs"] is None,
+                  f"{name}: optimize() "
+                  f"{gaps['first_optimize_that_differs']}'s graph differs "
+                  f"from the mapping record")
+            check(gaps["max_trajectory_gap_m"] == 0.0,
+                  f"{name}: the trajectory is up to "
+                  f"{gaps['max_trajectory_gap_m']} m from the record's")
+            check(held["ate_equal_record"],
+                  f"{name}: ATE {run['ate_rmse_m']} m, the record's "
+                  f"{record['ate_rmse_m']} m")
         check(run["finite"], f"{name}: non-finite keyframe pose or bias")
         check(run["k1_launches"] >= run["scans"],
               f"{name}: K1 launched {run['k1_launches']} times for "

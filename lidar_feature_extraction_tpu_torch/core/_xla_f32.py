@@ -27,9 +27,10 @@ In every other dtype each helper computes the plain expression, one
 rounding per operation, in the order the port always used, so float64
 results do not change. The float32 forms read float bits through
 integer views and a kernel, which ``torch.func`` transforms cannot batch
-or differentiate: code that transforms its arithmetic (the pose and IMU
-graphs' linearization) calls plain torch functions instead
-(``quaternion.exp_so3(..., plain=True)``).
+or differentiate: code that transforms its arithmetic (the IMU graph's
+linearization) calls plain torch functions instead
+(``quaternion.exp_so3(..., plain=True)``); the pose graph writes its
+forward mode out (``parallel/pose_graph.py::_linearize``).
 """
 
 from __future__ import annotations
@@ -327,16 +328,21 @@ def fms(a, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor
     return fma(a, b, -(c * d))
 
 
-def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cross(a: torch.Tensor, b: torch.Tensor,
+          fuse_second: bool = False) -> torch.Tensor:
     """``a x b`` over the last axis (broadcasting like ``jnp.cross``),
-    each component ``fms``: the three components in one call. The
-    components are rotated with ``torch.roll``: indexing a card's tensor
-    with a Python list copies the index from the host, which waits for
-    the card."""
+    each component ``fms``: the three components in one call;
+    ``fuse_second``: each component ``fma(-a[k+2], b[k+1], a[k+1]
+    b[k+2])``, the second product fused. The components are rotated
+    with ``torch.roll``: indexing a card's tensor with a Python list
+    copies the index from the host, which waits for the card."""
     a, b = torch.broadcast_tensors(a, b)
     # component k: a[k+1] b[k+2] - a[k+2] b[k+1]
-    return fms(torch.roll(a, -1, -1), torch.roll(b, 1, -1),
-               torch.roll(a, 1, -1), torch.roll(b, -1, -1))
+    a1, b2 = torch.roll(a, -1, -1), torch.roll(b, 1, -1)
+    a2, b1 = torch.roll(a, 1, -1), torch.roll(b, -1, -1)
+    if fuse_second and _float32(a, b):
+        return fma(-a2, b1, a1 * b2)
+    return fms(a1, b2, a2, b1)
 
 
 def _reciprocal(c: float, dtype: torch.dtype) -> float:

@@ -53,6 +53,27 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+# The Hamilton product's terms: component k of a * b is the sum over
+# (x, y, sign) of sign * a[x] * b[y], in the reference's order.
+_HAMILTON = (((0, 0, 1), (1, 1, -1), (2, 2, -1), (3, 3, -1)),
+             ((0, 1, 1), (1, 0, 1), (2, 3, 1), (3, 2, -1)),
+             ((0, 2, 1), (1, 3, -1), (2, 0, 1), (3, 1, 1)),
+             ((0, 3, 1), (1, 2, 1), (2, 1, -1), (3, 0, 1)))
+
+
+def _hamilton_fma(a, b, k: int, fuse_second: bool = False) -> torch.Tensor:
+    """Component ``k`` of ``a * b`` in ``quat_multiply_fma``'s float32
+    form; ``a`` and ``b`` are sequences of the four component tensors."""
+    (x0, y0, s0), (x1, y1, s1), *rest = _HAMILTON[k]
+    p0, p1 = (-a[x0] if s0 < 0 else a[x0], b[y0]), \
+        (-a[x1] if s1 < 0 else a[x1], b[y1])
+    first, second = (p1, p0) if fuse_second else (p0, p1)
+    acc = xf.fma(first[0], first[1], second[0] * second[1])
+    for x, y, s in rest:
+        acc = xf.fma(-a[x] if s < 0 else a[x], b[y], acc)
+    return acc
+
+
 def quat_multiply_fma(a: torch.Tensor, b: torch.Tensor,
                       fuse_second: bool = False) -> torch.Tensor:
     """``quat_multiply`` as a jitted program of the reference computes
@@ -61,23 +82,35 @@ def quat_multiply_fma(a: torch.Tensor, b: torch.Tensor,
     second's rounded value, or with ``fuse_second`` the second into the
     first's, as the program's fusion orders them), then each further
     product fused into the running sum; other dtypes as
-    ``quat_multiply``."""
+    ``quat_multiply``. ``fuse_second`` may also be the set of components
+    that take the second order."""
     if not xf._float32(a, b):
         return quat_multiply(a, b)
-    aw, ax, ay, az = a.unbind(-1)
-    bw, bx, by, bz = b.unbind(-1)
-    rows = (((aw, bw), (-ax, bx), (-ay, by), (-az, bz)),
-            ((aw, bx), (ax, bw), (ay, bz), (-az, by)),
-            ((aw, by), (-ax, bz), (ay, bw), (az, bx)),
-            ((aw, bz), (ax, by), (-ay, bx), (az, bw)))
-    out = []
-    for (p0, p1, *rest) in rows:
-        first, second = (p1, p0) if fuse_second else (p0, p1)
-        acc = xf.fma(first[0], first[1], second[0] * second[1])
-        for u, v in rest:
-            acc = xf.fma(u, v, acc)
-        out.append(acc)
-    return torch.stack(out, dim=-1)
+    a, b = a.unbind(-1), b.unbind(-1)
+    second = set(range(4)) if fuse_second is True else \
+        set(fuse_second or ())
+    return torch.stack([_hamilton_fma(a, b, k, k in second)
+                        for k in range(4)], dim=-1)
+
+
+def quat_multiply_nested(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         second=()) -> torch.Tensor:
+    """``a * (b * c)`` as one loop of the reference's jitted program
+    computes it: in float32 both products in ``quat_multiply_fma``'s
+    form, where the loop recomputes the inner product for each outer
+    component and the backend contracts each copy on its own: the inner
+    component m that outer component k reads fuses its second product
+    first when ``(k, m)`` is in ``second``. Other dtypes as
+    ``quat_multiply``."""
+    if not xf._float32(a, b, c):
+        return quat_multiply(a, quat_multiply(b, c))
+    b, c = b.unbind(-1), c.unbind(-1)
+    first = [_hamilton_fma(b, c, m) for m in range(4)]
+    flipped = {m: _hamilton_fma(b, c, m, True) for _, m in second}
+    a = a.unbind(-1)
+    return torch.stack([_hamilton_fma(a, [
+        flipped[m] if (k, m) in second else first[m] for m in range(4)], k)
+        for k in range(4)], dim=-1)
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
@@ -126,6 +159,32 @@ def quat_rotate_fma(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     uv = xf.cross(q[..., 1:], p)
     uuv = xf.cross(q[..., 1:], uv)
     return p + 2.0 * xf.fma(q[..., :1], uv, uuv)
+
+
+def _cross_jvp(a, da, b, db):
+    """Tangent of ``xf.cross(a, b)``: per component ``(da_1 b_2 + a_1
+    db_2) - (da_2 b_1 + a_2 db_1)``, in float32 each pair with its first
+    product fused into the second's."""
+    def r1(x):
+        return torch.roll(x, -1, -1)
+
+    def r2(x):
+        return torch.roll(x, 1, -1)
+    return xf.fma(r1(da), r2(b), r1(a) * r2(db)) \
+        - xf.fma(r2(da), r1(b), r2(a) * r1(db))
+
+
+def quat_rotate_jvp(q: torch.Tensor, p: torch.Tensor, dq: torch.Tensor,
+                    dp: torch.Tensor) -> torch.Tensor:
+    """Tangent of ``quat_rotate_fma(q, p)`` along ``(dq, dp)``, as the
+    reference's jitted forward mode computes it: the product rule's two
+    terms of each product in JAX's order, in float32 the first fused into
+    the second, ``dp + 2 ((dw uv + w duv) + d(v x uv))``."""
+    v, dv = q[..., 1:], dq[..., 1:]
+    uv = xf.cross(v, p)
+    duv = _cross_jvp(v, dv, p, dp)
+    duuv = _cross_jvp(v, dv, uv, duv)
+    return dp + (xf.fma(dq[..., :1], uv, q[..., :1] * duv) + duuv) * 2.0
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -212,12 +271,15 @@ def quat_yaw(q: torch.Tensor) -> torch.Tensor:
 
 
 def exp_so3(theta: torch.Tensor, eps: float = 1e-8,
-            plain: bool = False) -> torch.Tensor:
+            plain: bool = False, norm: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Angle-axis vector [..., 3] -> unit quaternion (exponential map),
     with the reference's small-angle branch as a ``where``. ``plain``:
     torch's ``sqrt``, ``sin`` and ``cos`` in place of the float32 forms,
-    for callers that batch or differentiate it with ``torch.func``."""
-    k = _norm(theta, keepdim=True, plain=plain)
+    for callers that batch or differentiate it with ``torch.func``.
+    ``norm``: ``|theta|`` [..., 1], where the caller's program reduces it
+    in another form."""
+    k = _norm(theta, keepdim=True, plain=plain) if norm is None else norm
     small = k < eps
     ksafe = torch.where(small, torch.ones_like(k), k)
     half = ksafe * 0.5
@@ -240,6 +302,49 @@ def log_so3(q: torch.Tensor, eps: float = 1e-8,
     scale = torch.where(vn < eps, torch.full_like(vn, 2.0),
                         angle / torch.clamp_min(vn, eps))
     return q[..., 1:] * scale[..., None]
+
+
+def _tie(x: torch.Tensor, y: torch.Tensor, bound: float) -> torch.Tensor:
+    """JAX's derivative of ``max(x, bound)`` (or of ``min``) with
+    respect to ``x`` at its value ``y``: 1 where ``x`` is taken, 0 where
+    the bound is, halved on a tie."""
+    one = torch.ones_like(y)
+    return torch.where(x == y, one, 0.0 * one) / torch.where(
+        y == bound, 2.0 * one, one)
+
+
+def log_so3_jvp(q: torch.Tensor, dq: torch.Tensor,
+                eps: float = 1e-8) -> torch.Tensor:
+    """Tangents of ``log_so3(q)`` [..., 4] along each of ``dq`` [..., T,
+    4] -> [..., T, 3], as the reference's jitted forward mode computes
+    them: JAX's rules for the sign flip, the clamp (``_tie``), the norm,
+    ``atan2`` and the quotient, in float32 in the program's forms (its
+    ``|v|^2 + w^2`` as ``fma``, each pair of product-rule terms with the
+    first fused, the reduction of ``d|v|^2`` from +0)."""
+    sgn = torch.where(q[..., :1] < 0, -1.0, 1.0).to(q.dtype)
+    v = q[..., 1:] * sgn
+    w = q[..., :1] * sgn
+    vn = _norm(v, keepdim=True)
+    wc = torch.clamp(w, -1.0, 1.0)
+    s = sgn[..., None, :]
+    dv = dq[..., 1:] * s                                  # [..., T, 3]
+    two = dv * v[..., None, :]
+    two = two + two
+    dsq = ((torch.zeros_like(two[..., 0]) + two[..., 0]) + two[..., 1]) \
+        + two[..., 2]                                    # d|v|^2 [..., T]
+    den = xf.fma(vn, vn, wc * wc)
+    dvn = dsq * (0.5 / vn)
+    dw = ((dq[..., 0] * s[..., 0]) * _tie(w, torch.clamp_min(w, -1.0), -1.0)
+          ) * _tie(torch.clamp_min(w, -1.0), wc, 1.0)
+    mx = torch.clamp_min(vn, eps)
+    angle2 = xf.atan2(vn, wc) * 2.0
+    # d(angle / max(|v|, eps)): the angle's term, then the divisor's
+    dangle = (xf.fma(dvn, wc / den, dw * (-vn / den)) * 2.0) / mx
+    small = vn < eps
+    dscale = torch.where(small, torch.zeros_like(vn), xf.fma(
+        (-(dvn * _tie(vn, mx, eps))) * angle2, 1.0 / (mx * mx), dangle))
+    scale = torch.where(small, torch.full_like(vn, 2.0), angle2 / mx)
+    return xf.fma(dv, scale[..., None], v[..., None, :] * dscale[..., None])
 
 
 def drpdq(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -238,6 +238,27 @@ def surface_residuals(surface_map, scan_pts, scan_valid, pose: Pose,
                                        pose, min_neighbors)
 
 
+def surface_residuals_eager(surface_map, scan_pts, scan_valid, pose: Pose,
+                            k: int, min_neighbors: int = 5):
+    """``surface_residuals``'s residuals [N, 1] and valid mask as the
+    reference computes them outside a jitted program (its loop-closure
+    gate): in float32 the points through ``Pose.apply``, the map's kNN,
+    the plane fit's X^T X as the jitted ``jnp.einsum`` chains it, X^T 1
+    and w . p summed in order, the 3x3 solve and the residual with each
+    operation rounded, |w| as the jitted ``jnp.linalg.norm``."""
+    p_map = pose.apply(scan_pts)
+    nbrs, _, nvalid = lookup_knn(surface_map, p_map, k)
+    xw = nbrs * nvalid.to(nbrs.dtype)[..., None]
+    ata = xf.gram(xw, nbrs) + 1e-9 * torch.eye(3, dtype=nbrs.dtype,
+                                               device=nbrs.device)
+    w = solve3x3_sym(ata, -xf.sum_in_order(xw, dim=-2), rounded=True)
+    _, wnorm = _unit_normal(w)
+    res = (xf.sum_in_order(w * p_map, dim=-1)[..., None] + 1.0) \
+        / torch.clamp_min(wnorm, 1e-12)
+    ok = _enough(scan_valid, nvalid, min_neighbors)
+    return torch.where(ok[..., None], res, 0.0), ok
+
+
 # --- cached-candidate paths ---
 
 def edge_residuals_from_candidates(cand, cand_ok, scan_pts, scan_valid,

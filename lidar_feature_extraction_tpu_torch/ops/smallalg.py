@@ -16,7 +16,7 @@ from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 
 
 def solve3x3_sym(a: torch.Tensor, b: torch.Tensor,
-                 eps: float = 1e-30) -> torch.Tensor:
+                 eps: float = 1e-30, rounded: bool = False) -> torch.Tensor:
     """Solve ``a x = b`` for symmetric ``a`` [..., 3, 3], b [..., 3] by
     the adjugate (Cramer) form. A singular system gives large-magnitude
     garbage that the caller gates.
@@ -27,10 +27,24 @@ def solve3x3_sym(a: torch.Tensor, b: torch.Tensor,
     ``fma(a02, c02, fma(a01, c01, a00*c00))`` for x1 (XLA computes each
     component in its own loop, and LLVM fused the two products of the
     first add the other way round in x1's); each numerator row . b as
-    ``fma(r2, b2, fma(r1, b1, r0*b0))``. Other dtypes round each
-    operation, in the order (a00 c00 + a01 c01) + a02 c02."""
+    ``fma(r2, b2, fma(r1, b1, r0*b0))``. Other dtypes, and float32 with
+    ``rounded`` (the reference's plane fits outside a jitted program),
+    round each operation, in the order (a00 c00 + a01 c01) + a02 c02."""
     a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
     a11, a12, a22 = a[..., 1, 1], a[..., 1, 2], a[..., 2, 2]
+    if rounded or not xf._float32(a, b):
+        c00, c01, c02 = a11 * a22 - a12 * a12, a02 * a12 - a01 * a22, \
+            a01 * a12 - a02 * a11
+        c11, c12, c22 = a00 * a22 - a02 * a02, a01 * a02 - a00 * a12, \
+            a00 * a11 - a01 * a01
+        det = a00 * c00 + a01 * c01 + a02 * c02
+        inv_det = 1.0 / torch.where(torch.abs(det) < eps, torch.where(
+            det < 0, -eps, eps).to(det.dtype), det)
+        b0, b1, b2 = b.unbind(-1)
+        return torch.stack([(c00 * b0 + c01 * b1 + c02 * b2) * inv_det,
+                            (c01 * b0 + c11 * b1 + c12 * b2) * inv_det,
+                            (c02 * b0 + c12 * b1 + c22 * b2) * inv_det],
+                           dim=-1)
 
     def last(*v):
         return torch.stack(v, dim=-1)

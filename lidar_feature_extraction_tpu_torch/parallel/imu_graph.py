@@ -4,9 +4,11 @@ a process group.
 
 Port of ``lidar_feature_extraction_tpu/parallel/imu_graph.py``. Both
 factor families are linearized with ``torch.func.jacfwd`` under
-``torch.func.vmap`` and reduced to dense [9K, 9K] normal equations as in
-``pose_graph.py``, with the same plain exponential and logarithmic
-maps (``plain=True``). With ``group=`` (the reference's ``axis_name``) each
+``torch.func.vmap``, in torch's plain exponential and logarithmic maps
+(``plain=True``), not yet in the forms of the reference's program
+(ROADMAP §C24; ``pose_graph.py`` writes its forward mode out), and
+reduced to dense [9K, 9K] normal equations by ``pose_graph.py``'s
+scatter. With ``group=`` (the reference's ``axis_name``) each
 rank holds the graph whole and its shard of the factors and constraints
 (each IMU factor on the same rank as the chain constraint over its
 pair), and the sums are ``all_reduce``d where the reference ``psum``s:
@@ -28,14 +30,32 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import vmap
+from torch.func import jacfwd, vmap
 
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.fusion.imu import GRAVITY
 from lidar_feature_extraction_tpu_torch.parallel.mesh import psum
 from lidar_feature_extraction_tpu_torch.parallel.pose_graph import (
-    Constraints, _jac, _robust_weights, _weighted_jacobians,
-    constraint_residual, scatter_normal_equations)
+    Constraints, _robust_weights, _weighted_jacobians,
+    scatter_normal_equations)
+
+
+def _pose_residual(qi, ti, qj, tj, z_q, z_t):
+    """``pose_graph.constraint_residual`` in torch's plain forms, which
+    ``torch.func`` batches and differentiates."""
+    rel_q = quat.quat_multiply(quat.quat_conjugate(qi), qj)
+    rel_t = quat.quat_rotate(quat.quat_conjugate(qi), tj - ti, plain=True)
+    err_q = quat.quat_multiply(quat.quat_conjugate(z_q), rel_q)
+    err_t = quat.quat_rotate(quat.quat_conjugate(z_q), rel_t - z_t,
+                             plain=True)
+    return torch.cat([quat.log_so3(err_q, plain=True), err_t], dim=-1)
+
+
+def _jac(f, x):
+    """``jacfwd(f)(x)`` in ``x``'s dtype: forward mode promotes a Python
+    float times a 0-d float32 tensor to a float64 tangent, so some
+    columns would come out in float64."""
+    return jacfwd(f)(x).to(x.dtype)
 
 
 class ImuGraph(NamedTuple):
@@ -111,16 +131,16 @@ _linearize_imu = vmap(_linearize_imu_one)
 
 
 def _linearize_pose_one(qi, ti, qj, tj, z_q, z_t):
-    r = constraint_residual(qi, ti, qj, tj, z_q, z_t)
+    r = _pose_residual(qi, ti, qj, tj, z_q, z_t)
     v0 = torch.zeros(3, dtype=qi.dtype, device=qi.device)
 
     def fi(xi):
         q2, t2, _ = _perturb9(qi, ti, v0, xi)
-        return constraint_residual(q2, t2, qj, tj, z_q, z_t)
+        return _pose_residual(q2, t2, qj, tj, z_q, z_t)
 
     def fj(xi):
         q2, t2, _ = _perturb9(qj, tj, v0, xi)
-        return constraint_residual(qi, ti, q2, t2, z_q, z_t)
+        return _pose_residual(qi, ti, q2, t2, z_q, z_t)
 
     zero = torch.zeros(9, dtype=qi.dtype, device=qi.device)
     return r, _jac(fi, zero), _jac(fj, zero)
@@ -262,7 +282,7 @@ def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
         ranks (the same on each, so the accept below is too)."""
         c = torch.zeros((), dtype=dtype, device=dev)
         if cons is not None:
-            r = constraint_residual(*pose_args(g))
+            r = _pose_residual(*pose_args(g))
             if cons.info is not None:
                 rr = torch.einsum("mi,mij,mj->m", r, cons.info, r)
             else:

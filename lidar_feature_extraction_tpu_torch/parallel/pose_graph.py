@@ -7,26 +7,28 @@ State: poses [K] as (wxyz quaternion, translation). Constraints: (i, j,
 Z_ij), Z_ij the measured relative pose i -> j. Residual per constraint
 r = log(Z_ij^-1 (T_i^-1 T_j)) in R^6 (rotation, local translation);
 its Jacobians with respect to right tangent perturbations of T_i and T_j
-are ``torch.func.jacfwd`` at zero under ``torch.func.vmap``, the
-reference's ``jax.vmap(jax.jacfwd(...))``, cast back to the state's
-dtype (``_jac``). The exponential and logarithmic maps and the
-rotations there are torch's plain functions (``plain=True``):
-``torch.func`` cannot batch or differentiate the float32 forms that the
-registration's maps use (``core/_xla_f32.py``; on the card they are a
-kernel without a derivative), so the linearization is not yet the
-reference's bits (ROADMAP §C23). From the linearization on, float32
-follows the reference's optimizer program: the robust weights, the 6x6
-blocks and g as in-order FMA chains, scattered onto the gauge prior and
-damping (XLA folds the reference's ``h + diag`` into its scatter), and
-the pose update in its jitted forms. The blocks scatter into the normal
-equations, and the CG solver's rows through ``ops/scatter.py``, in a
-fixed order on the card and on the CPU (``scatter_normal_equations``),
-so a solve gives the same bits every run. The dense float32 solve is
-OpenBLAS's unblocked ``getf2`` + ``strsm`` order (``ops/lu_cuda.py``: a
-kernel of this package on the card), float64 ``torch.linalg.solve_ex``.
-The reference's
-``fori_loop`` / ``scan`` are Python loops of device steps with no host
-read.
+are the forward mode of the reference's ``jax.vmap(jax.jacfwd(...))``
+written out (``_linearize``), its six tangent columns in one tensor.
+
+In float32 every step is the reference's optimizer program, the loop
+``MappingPipeline.optimize`` runs (ROADMAP §C23): the linearization's
+forms, which XLA:CPU contracts per copy of each subexpression; the
+robust weights, the 6x6 blocks and g as in-order FMA chains, scattered
+onto the gauge prior and damping (XLA folds the reference's ``h + diag``
+into its scatter); the dense solve in OpenBLAS's blocked, threaded
+``sgetrf`` + ``strsm`` order (``ops/lu_cuda.py``: a kernel of this
+package on the card); the pose update in the forms of the program's
+vectorized loops. Those loops round otherwise in their 8-wide part and
+their remainder, so a few forms depend on a lane's position and on the
+number of poses or constraints. Float64 rounds each operation and solves
+with ``torch.linalg.solve_ex``. The blocks scatter into the normal
+equations each destination's in turn, as XLA's scatter adds them, on
+the card and on the CPU alike (``scatter_normal_equations``, through
+``ops/scatter.py::index_add_rows_in_order``), so a solve gives the same
+bits every run, and the card's the CPU's; the CG solver's rows in a
+fixed order (``index_add_rows``). The reference's ``fori_loop`` /
+``scan`` are Python loops of device steps; the dense path's one host
+read per scatter is its number of passes.
 
 Sharded (the reference's ``axis_name``): with ``group=`` a process
 group, each rank holds the poses whole and its own shard of the
@@ -45,12 +47,12 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.func import jacfwd, vmap
 
 from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.ops import lu_cuda
-from lidar_feature_extraction_tpu_torch.ops.scatter import index_add_rows
+from lidar_feature_extraction_tpu_torch.ops.scatter import (
+    index_add_rows, index_add_rows_in_order)
 from lidar_feature_extraction_tpu_torch.parallel.mesh import (
     Mesh, psum, replicated, shard_batch)
 
@@ -71,57 +73,98 @@ class Constraints(NamedTuple):
     info: torch.Tensor | None = None
 
 
-def _perturb(q, t, xi):
-    """Right perturbation T * Exp(xi): xi = (dtheta, dt_local)."""
-    q2 = quat.quat_multiply(q, quat.exp_so3(xi[:3], plain=True))
-    return q2, t + quat.quat_rotate(q, xi[3:], plain=True)
-
-
 def constraint_residual(qi, ti, qj, tj, z_q, z_t):
-    """r = log(Z^-1 (T_i^-1 T_j)) in R^6."""
-    rel_q = quat.quat_multiply(quat.quat_conjugate(qi), qj)
-    rel_t = quat.quat_rotate(quat.quat_conjugate(qi), tj - ti, plain=True)
-    err_q = quat.quat_multiply(quat.quat_conjugate(z_q), rel_q)
-    err_t = quat.quat_rotate(quat.quat_conjugate(z_q), rel_t - z_t,
-                             plain=True)
-    return torch.cat([quat.log_so3(err_q, plain=True), err_t], dim=-1)
+    """r = log(Z^-1 (T_i^-1 T_j)) in R^6, in float32 as the reference's
+    optimizer program computes it (``_linearize``)."""
+    zc, ci = quat.quat_conjugate(z_q), quat.quat_conjugate(qi)
+    err_q = quat.quat_multiply_nested(zc, ci, qj, _RESIDUAL_SECOND)
+    err_t = quat.quat_rotate_fma(zc, quat.quat_rotate_fma(ci, tj - ti) - z_t)
+    return torch.cat([quat.log_so3(err_q), err_t], dim=-1)
 
 
-def _linearize_one(qi, ti, qj, tj, z_q, z_t):
-    """Residual + Jacobians w.r.t. tangent perturbations of T_i, T_j."""
+# Which inner components of Z^-1 (A B) fuse their second product first,
+# as (outer, inner) pairs (``quat.quat_multiply_nested``), in the loops of
+# the reference's optimizer program: the residual's and the perturbation
+# of T_i's error quaternion, and the tangents of the error quaternion for
+# the perturbations of T_j and T_i.
+_RESIDUAL_SECOND = {(0, 3), (2, 1)}
+_TANGENT_J_SECOND = {(0, 1), (2, 3)}
+_TANGENT_I_SECOND = {(0, 1), (0, 3), (2, 1), (2, 3)}
+
+
+def _linearize(qi, ti, qj, tj, z_q, z_t):
+    """Residual [M, 6] and Jacobians [M, 6, 6] with respect to right
+    tangent perturbations (dtheta, dt_local) of T_i and T_j, at zero:
+    the forward mode that ``jax.jacfwd`` runs, written out. The six
+    tangent columns of each Jacobian ride in one [M, 6, .] tensor, the
+    basis itself as data (the reference's program keeps the identity as
+    a loop input, so every product with its zeros and ones is
+    computed): Exp's tangent at zero is (0, e/2) and the translation's
+    e. In float32 every entry is the program's expression: the primal
+    values of the perturbed poses recomputed (T * Exp(0)), the nested
+    products' orders above, ``log_so3_jvp``'s and ``quat_rotate_jvp``'s
+    forms. Steps whose forms the two perturbations share run once on
+    both, stacked (elementwise, so each lane's bits are its own)."""
+    dt, dev = qi.dtype, qi.device
+    eye = torch.eye(6, dtype=dt, device=dev)
+    ident = eye[0, :4]
+    d_exp = torch.cat([torch.zeros_like(eye[:, :1]), eye[:, :3] * 0.5], -1)
+    zc, ci = quat.quat_conjugate(z_q), quat.quat_conjugate(qi)
+    zc6 = zc[:, None]
     r = constraint_residual(qi, ti, qj, tj, z_q, z_t)
 
-    def fi(xi):
-        q2, t2 = _perturb(qi, ti, xi)
-        return constraint_residual(q2, t2, qj, tj, z_q, z_t)
+    # T_j * Exp(xi): err = Z^-1 (T_i^-1 T_j Exp(xi))
+    err_j = quat.quat_multiply_nested(zc, ci, quat.quat_multiply_fma(
+        qj, ident))
+    derr_j = quat.quat_multiply_nested(
+        zc6, ci[:, None], quat.quat_multiply_fma(qj[:, None], d_exp),
+        _TANGENT_J_SECOND)
+    # T_i * Exp(xi): err = Z^-1 ((T_i Exp(xi))^-1 T_j)
+    ci2 = quat.quat_conjugate(quat.quat_multiply_fma(qi, ident))
+    err_i = quat.quat_multiply_nested(zc, ci2, qj, _RESIDUAL_SECOND)
+    dci = quat.quat_conjugate(quat.quat_multiply_fma(qi[:, None], d_exp))
+    derr_i = quat.quat_multiply_nested(zc6, dci, qj[:, None],
+                                       _TANGENT_I_SECOND)
+    # R(q_j) e and R(q_i) e for the translation's tangents e
+    rot_j, rot_i = quat.quat_rotate_fma(
+        torch.stack([qj, qi])[:, :, None], eye[:, 3:]).unbind(0)
+    uv = xf.cross(qi[:, 1:], torch.zeros_like(ti))
+    t2 = ti + xf.fma(qi[:, :1], uv, xf.cross(qi[:, 1:], uv)) * 2.0
+    drel = torch.stack([
+        quat.quat_rotate_fma(ci[:, None], rot_j),
+        quat.quat_rotate_jvp(ci2[:, None], (tj - t2)[:, None], dci, -rot_i)])
+    jac = torch.cat([
+        quat.log_so3_jvp(torch.stack([err_j, err_i]),
+                         torch.stack([derr_j, derr_i])),
+        quat.quat_rotate_fma(zc6, drel)], dim=-1)
+    # [M, tangent, residual] -> jacfwd's [M, residual, tangent]
+    jj, ji = jac.transpose(2, 3).unbind(0)
+    return r, ji, jj
 
-    def fj(xi):
-        q2, t2 = _perturb(qj, tj, xi)
-        return constraint_residual(qi, ti, q2, t2, z_q, z_t)
 
-    zero = torch.zeros(6, dtype=qi.dtype, device=qi.device)
-    return r, _jac(fi, zero), _jac(fj, zero)
-
-
-def _jac(f, x):
-    """``jacfwd(f)(x)`` in ``x``'s dtype: forward mode promotes a Python
-    float times a 0-d float32 tensor to a float64 tangent, so some
-    columns would come out in float64."""
-    return jacfwd(f)(x).to(x.dtype)
-
-
-_linearize = vmap(_linearize_one)
-
-
-def _robust_weights(cons: Constraints, r, robust_delta):
+def _robust_weights(cons: Constraints, r, robust_delta, r2=None):
     """Scalar weights, times the Geman-McClure IRLS weight
-    (d^2 / (d^2 + |r|^2))^2 when ``robust_delta`` is set."""
+    (d^2 / (d^2 + |r|^2))^2 when ``robust_delta`` is set; |r|^2 is
+    ``r2`` where given, else ``xf.sum_squares(r)``."""
     w = cons.weight
     if robust_delta is not None:
         d2 = robust_delta * robust_delta
-        r2 = xf.sum_squares(r)
+        if r2 is None:
+            r2 = xf.sum_squares(r)
         w = w * torch.square(d2 / (d2 + r2))
     return w
+
+
+def _graph_weights(cons: Constraints, r, robust_delta):
+    """``_robust_weights`` with |r|^2 in float32 as the pose graph's
+    optimizer program reduces it: 8 constraints at a time as a plain sum
+    of rounded squares, the last M mod 8 as the fused chain."""
+    if robust_delta is None:
+        return cons.weight
+    m = r.shape[0]
+    wide = torch.arange(m, device=r.device) < 8 * (m // 8)
+    return _robust_weights(cons, r, robust_delta, torch.where(
+        wide, xf.sum_in_order(r * r, -1), xf.sum_squares(r)))
 
 
 def _weighted_jacobians(cons: Constraints, w, ji, jj):
@@ -132,50 +175,31 @@ def _weighted_jacobians(cons: Constraints, w, ji, jj):
     return w[:, None, None] * ji, w[:, None, None] * jj
 
 
-def _block_index(bi, bj, d: int):
-    """Row and column index grids [M, d, d] of the (bi, bj) blocks."""
-    ar = torch.arange(d, device=bi.device)
-    rows = (bi.long()[:, None] * d + ar[None, :])
-    cols = (bj.long()[:, None] * d + ar[None, :])
-    return (rows[:, :, None].expand(-1, d, d),
-            cols[:, None, :].expand(-1, d, d))
-
-
-def _scatter_add(out: torch.Tensor, index: tuple, src: torch.Tensor):
-    """``out`` with ``src`` added at ``index`` (index grids of ``src``'s
-    shape), out of place, in a fixed order: on the card
-    ``index_put(accumulate=True)`` (sorted by destination, ROADMAP §C16);
-    on the CPU ``index_add`` on the flattened tensor, which adds in index
-    order, where ``index_put`` splits a large input between threads."""
-    if out.is_cuda:
-        return out.index_put(index, src, accumulate=True)
-    flat = index[0]
-    for idx, n in zip(index[1:], out.shape[1:]):
-        flat = flat * n + idx
-    return out.reshape(-1).index_add(0, flat.reshape(-1),
-                                     src.reshape(-1)).reshape(out.shape)
-
-
 def scatter_normal_equations(h, g, bi, bj, r, ji, jj, wji, wjj, d: int):
     """Accumulate one factor family's blocks into H [dK, dK] and g [dK]:
     H_ii = Ji^T Lambda Ji etc., ``wji = Lambda Ji``; in float32 each
     entry an in-order FMA chain (``xf.matmul``), the blocks added in the
     reference's scatter order (H_ii, H_ij, H_ji, H_jj, constraint by
-    constraint)."""
+    constraint), a d x d block or a pose's d entries of g a row of a
+    scatter that adds each destination's rows in turn
+    (``index_add_rows_in_order``)."""
     wti, wtj = wji.transpose(1, 2), wjj.transpose(1, 2)
     hii = xf.matmul(wti, ji)
     hij = xf.matmul(wti, jj)
     hjj = xf.matmul(wtj, jj)
     gi = xf.matmul(wti, r[..., None])[..., 0]
     gj = xf.matmul(wtj, r[..., None])[..., 0]
-    h = _scatter_add(h, _block_index(bi, bi, d), hii)
-    h = _scatter_add(h, _block_index(bi, bj, d), hij)
-    h = _scatter_add(h, _block_index(bj, bi, d), hij.transpose(1, 2))
-    h = _scatter_add(h, _block_index(bj, bj, d), hjj)
-    ar = torch.arange(d, device=bi.device)
-    g = _scatter_add(g, (bi.long()[:, None] * d + ar,), gi)
-    g = _scatter_add(g, (bj.long()[:, None] * d + ar,), gj)
-    return h, g
+    k = g.shape[0] // d
+    bi, bj = bi.long(), bj.long()
+    # H as rows of blocks: block (a, b) is row a * K + b
+    hb = index_add_rows_in_order(
+        h.reshape(k, d, k, d).transpose(1, 2).reshape(k * k, d * d),
+        torch.cat([bi * k + bi, bi * k + bj, bj * k + bi, bj * k + bj]),
+        torch.cat([hii, hij, hij.transpose(1, 2), hjj]).reshape(-1, d * d))
+    gb = index_add_rows_in_order(g.reshape(k, d), torch.cat([bi, bj]),
+                                 torch.cat([gi, gj]))
+    return (hb.reshape(k, k, d, d).transpose(1, 2).reshape(k * d, k * d),
+            gb.reshape(-1))
 
 
 def _gather(graph: PoseGraph, cons: Constraints):
@@ -191,7 +215,7 @@ def _normal_equations(cons: Constraints, r, ji, jj, h0: torch.Tensor,
     Geman-McClure kernel on the 6-dim residual norm; with ``info`` the
     kernel stays on the plain norm and the information rides in
     Lambda."""
-    w = _robust_weights(cons, r, robust_delta)
+    w = _graph_weights(cons, r, robust_delta)
     wji, wjj = _weighted_jacobians(cons, w, ji, jj)
     return scatter_normal_equations(
         h0, torch.zeros(h0.shape[:1], dtype=h0.dtype, device=h0.device),
@@ -214,13 +238,40 @@ def _local_normal_equations(graph: PoseGraph, cons: Constraints,
 
 def _apply_update(graph: PoseGraph, dx: torch.Tensor) -> PoseGraph:
     """The poses moved by the tangent step ``dx`` [6K], in float32 in the
-    forms of the reference's optimizer program."""
+    forms of the reference's optimizer program. Two of its loops over the
+    poses run 8 wide over all but the last 1-8 poses and one at a time
+    over those (``_vector_poses``), and contract otherwise: the rotation
+    step's norm is a plain sum of rounded squares in the 8-wide part and
+    the fused chain after it; ``q * Exp`` takes ``quat_multiply_fma``'s
+    order in the 8-wide part and the second order for its x and y
+    components after it. ``v x dt`` fuses each component's second product
+    everywhere, and so do the x and y components of ``v x (v x dt)`` where
+    the translation's loop is unrolled whole (8 poses or fewer)."""
     k = graph.poses_q.shape[0]
     xi = dx.reshape(k, 6)
-    dq = quat.exp_so3(xi[:, :3])
-    q2 = quat.quat_normalize(quat.quat_multiply_fma(graph.poses_q, dq))
-    t2 = graph.poses_t + quat.quat_rotate_fma(graph.poses_q, xi[:, 3:])
-    return PoseGraph(poses_q=q2, poses_t=t2)
+    rot = xi[:, :3]
+    sq = rot * rot
+    wide = torch.arange(k, device=dx.device)[:, None] < _vector_poses(k)
+    norm = torch.where(wide, xf.sqrt((sq[:, :1] + sq[:, 1:2]) + sq[:, 2:]),
+                       quat._norm(rot, keepdim=True))
+    dq = quat.exp_so3(rot, norm=norm)
+    q = graph.poses_q
+    q2 = torch.where(wide, quat.quat_multiply_fma(q, dq),
+                     quat.quat_multiply_fma(q, dq, fuse_second={1, 2}))
+    uv = xf.cross(q[:, 1:], xi[:, 3:], fuse_second=True)
+    uuv = xf.cross(q[:, 1:], uv)
+    if k <= 8:
+        uuv = torch.cat([xf.cross(q[:, 1:], uv, fuse_second=True)[:, :2],
+                         uuv[:, 2:]], dim=-1)
+    t2 = graph.poses_t + (xi[:, 3:] + xf.fma(q[:, :1], uv, uuv) * 2.0)
+    return PoseGraph(poses_q=quat.quat_normalize(q2), poses_t=t2)
+
+
+def _vector_poses(k: int) -> int:
+    """How many of ``k`` poses the update's 8-wide loops take: they read
+    3 of each pose's 6 step entries, and a vectorized loop with such gaps
+    keeps a scalar remainder of at least one pose."""
+    return 8 * ((k - 1) // 8)
 
 
 def _solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -296,7 +347,7 @@ def optimize_pose_graph_cg(graph: PoseGraph, cons: Constraints,
 
     for _ in range(n_iterations):
         r, ji, jj = _linearize(*_gather(graph, cons))
-        w = _robust_weights(cons, r, robust_delta)
+        w = _graph_weights(cons, r, robust_delta)
         wji, wjj = _weighted_jacobians(cons, w, ji, jj)
 
         def hvp(x):                     # x: [K, 6] -> H x

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from lidar_feature_extraction_tpu_torch.config import PipelineConfig
+from lidar_feature_extraction_tpu_torch.core import _xla_f32 as xf
 from lidar_feature_extraction_tpu_torch.core import quaternion as quat
 from lidar_feature_extraction_tpu_torch.core.pose import (
     Pose, pose_delta_magnitudes)
@@ -31,7 +32,7 @@ from lidar_feature_extraction_tpu_torch.ops import gauss_newton as gn
 from lidar_feature_extraction_tpu_torch.ops import voxel_grid as vg
 from lidar_feature_extraction_tpu_torch.ops.downsample import voxel_downsample
 from lidar_feature_extraction_tpu_torch.ops.residuals import (
-    edge_residuals, surface_residuals)
+    edge_residuals, surface_residuals, surface_residuals_eager)
 from lidar_feature_extraction_tpu_torch.parallel.pose_graph import (
     Constraints, PoseGraph, optimize_pose_graph, optimize_pose_graph_cg)
 from lidar_feature_extraction_tpu_torch.pipeline.odometry import Odometry
@@ -316,17 +317,20 @@ class MappingPipeline:
         # Fitness gate at the final pose, per feature class: surface
         # inliers alone cannot certify a closure (a ground plane aligns
         # with any other); the edges, which pin x / y / yaw, must agree.
+        # The reference computes these rows outside a jitted program,
+        # the surfaces' ill-conditioned plane fits in their eager forms.
         eb = edge_residuals(edge_map, kf.edge_pts, kf.edge_valid,
                             result.pose, reg.n_neighbors)
-        sb = surface_residuals(surf_map, surf_ds, surf_ds_valid,
-                               result.pose, reg.n_neighbors)
+        sb = surface_residuals_eager(surf_map, surf_ds, surf_ds_valid,
+                                     result.pose, reg.n_neighbors)
         counts = []
-        for block, dist_scale in ((eb, 2.0), (sb, 1.0)):
-            # |edge residual| = 2 x the point-line distance.
-            err = torch.linalg.vector_norm(block.residual, dim=-1) \
-                / dist_scale
-            counts += [torch.sum(block.valid.to(torch.int32)),
-                       torch.sum((block.valid & (
+        for (res, valid), dist_scale in (((eb.residual, eb.valid), 2.0),
+                                         (sb, 1.0)):
+            # |edge residual| = 2 x the point-line distance; numpy's
+            # float32 norm: the squares rounded, summed in order.
+            err = xf.sqrt(xf.sum_in_order(res * res, dim=-1)) / dist_scale
+            counts += [torch.sum(valid.to(torch.int32)),
+                       torch.sum((valid & (
                            err < self.loop_inlier_threshold)).to(
                                torch.int32))]
         n_edge, k_edge, n_surf, k_surf = torch.stack(counts).tolist()

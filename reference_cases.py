@@ -561,6 +561,47 @@ def load_mapping():
     return load(MAPPING_RECORD, MAPPING_MANIFEST)
 
 
+# slam_loop's optimize() calls, by active keyframes: one per shape
+# bucket (K, M) = (8, 8), (16, 16), (32, 32) and (64, 64).
+SLAM_GRAPH_KEYFRAMES = (8, 16, 24, 40)
+
+
+def _bucket(n: int) -> int:
+    """``MappingPipeline._bucket``: the next power of two, at least 8."""
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+def slam_graph(arrays: dict, ka: int):
+    """slam_loop's pose graph over its first ``ka`` keyframes as
+    ``MappingPipeline.optimize`` assembles it, from the mapping record's
+    ``slam.*`` arrays: ((poses_q, poses_t), (i, j, z_q, z_t, weight,
+    info)) as numpy, the keyframes' odometry poses and every recorded
+    constraint between them with its weight and information (the
+    identity where it has none), padded to the pipeline's shape buckets
+    (identity poses, weight-0 lanes from 0 to 1)."""
+    s = {k[5:]: v for k, v in arrays.items() if k.startswith("slam.")}
+    scans = s["keyframe_scans"][:ka]
+    keep = np.nonzero(s["cons_j"] < ka)[0]
+    m = len(keep)
+    pad = _bucket(m) - m
+    q = np.tile(np.float32([1, 0, 0, 0]), (_bucket(ka), 1))
+    t = np.zeros((_bucket(ka), 3), np.float32)
+    q[:ka], t[:ka] = s["odom_q"][scans], s["odom_t"][scans]
+    eye = np.eye(6, dtype=np.float32)
+    info = np.where(s["has_info"][keep, None, None], s["info"][keep], eye)
+    cons = (np.r_[s["cons_i"][keep], np.zeros(pad)].astype(np.int32),
+            np.r_[s["cons_j"][keep], np.ones(pad)].astype(np.int32),
+            np.float32(np.r_[s["rel_q"][keep],
+                             np.tile([1.0, 0, 0, 0], (pad, 1))]),
+            np.float32(np.r_[s["rel_t"][keep], np.zeros((pad, 3))]),
+            np.float32(np.r_[s["weight"][keep], np.zeros(pad)]),
+            np.float32(np.r_[info, np.tile(eye, (pad, 1, 1))]))
+    return (q, t), cons
+
+
 def frames_sha256(frames) -> str:
     """The digest of feature frames: (edges [N, E, 3], edge valid,
     surfaces [N, S, 3], surface valid), float32 and bool."""

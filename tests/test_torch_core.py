@@ -182,8 +182,9 @@ _PORT_FILES = sorted(
                                  "k1_check.py",
                                  "profile_drive.py", "profile_fits.py",
                                  "profile_fma_gn_update.py",
-                                 "profile_k1.py",
+                                 "profile_k1.py", "profile_lu_solve.py",
                                  "profile_normal_equations.py",
+                                 "profile_pose_graph.py",
                                  "profile_robust_weights.py",
                                  "reference_cases.py", "scatter_probe.py",
                                  "tests/torch_parallel_worker.py")])

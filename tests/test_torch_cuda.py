@@ -483,6 +483,51 @@ def test_pose_graph_solvers_on_the_card_match_the_cpu(cuda, solver):
     assert float((want.poses_t - torch.as_tensor(t)).abs().max()) > 0.05
 
 
+@pytest.mark.parametrize("keyframes", [8, 16, 24, 40])
+def test_pose_graph_float32_on_the_card_equals_the_cpu(cuda, keyframes):
+    """slam_loop's graphs from the mapping record through the graduated
+    schedule ``MappingPipeline.optimize`` runs, float32: the card's
+    poses equal the CPU's bit for bit (the linearization's forms, the
+    block scatter adding each destination's blocks in turn, the
+    ``lu_solve`` kernel against its plain version, the update)."""
+    import reference_cases as rc
+    from lidar_feature_extraction_tpu_torch.parallel import pose_graph
+    from lidar_feature_extraction_tpu_torch.pipeline.slam import (
+        MappingPipeline)
+
+    (q, t), cons = rc.slam_graph(rc.load_mapping()[0], keyframes)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        graph = pose_graph.PoseGraph(torch.as_tensor(q, device=dev),
+                                     torch.as_tensor(t, device=dev))
+        c = pose_graph.Constraints(*[torch.as_tensor(a, device=dev)
+                                     for a in cons])
+        for delta, n in MappingPipeline._gnc_schedule(0.5, 10):
+            graph = pose_graph.optimize_pose_graph(
+                graph, c, n_iterations=n, robust_delta=delta)
+        out.append(graph)
+    for g, w in zip(*out):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("width", [1, 6, 9, 32, 33, 36])
+def test_index_add_rows_in_order_on_the_card_equals_the_cpu(cuda, width):
+    """The normal equations' block scatter on the card: each
+    destination's rows added in turn, the CPU's bits and those of the
+    rows added one at a time, at g's widths (6, 9), the blocks' (36) and
+    about torch's 32-value threshold between its ``index_put`` kernels."""
+    from torch_parity import scatter_rows_case
+    from lidar_feature_extraction_tpu_torch.ops.scatter import (
+        index_add_rows_in_order)
+
+    out, index, src, want = scatter_rows_case(width)
+    got = [index_add_rows_in_order(*(torch.as_tensor(a, device=dev)
+                                     for a in (out, index, src))).cpu()
+           for dev in (cuda, torch.device("cpu"))]
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], torch.as_tensor(want))
+
+
 def test_optimize_imu_graph_on_the_card_matches_the_cpu(cuda):
     """A 2 s arc with a 0.02 rad/s yaw-rate bias, keyframes every 0.2 s,
     factors preintegrated at zero bias; the bias is recovered on both."""

@@ -319,15 +319,15 @@ def test_residual_forms_equal_the_jitted_reference():
 
 
 def test_graph_maps_are_plain_under_torch_func():
-    """The pose and IMU graphs batch and differentiate ``exp_so3`` /
+    """The IMU graph batches and differentiates ``exp_so3`` /
     ``log_so3`` with ``torch.func`` (``plain=True``: torch's ``sin``,
     ``cos``, ``atan2`` and ``sqrt``, since the float32 forms read float
     bits through integer views): in float32 under ``vmap`` and the
-    graphs' ``_jac`` (``jacfwd``) they give the unbatched values and the identity Jacobian of
+    graph's ``_jac`` (``jacfwd``) they give the unbatched values and the identity Jacobian of
     ``log(exp(x))``."""
     from torch.func import vmap
     from lidar_feature_extraction_tpu_torch.core import quaternion as quat
-    from lidar_feature_extraction_tpu_torch.parallel.pose_graph import _jac
+    from lidar_feature_extraction_tpu_torch.parallel.imu_graph import _jac
 
     theta = torch.as_tensor(np.float32(
         np.random.default_rng(8).normal(scale=0.3, size=(64, 3))))

@@ -16,12 +16,16 @@ jitted programs, all at tolerance 0.
   (``reference_cases.mapping_gaps``). Its first ``optimize()`` comes at
   scan 14, ~45 s of CPU at full width; chip_smoke's ``slam`` phase holds
   all 80 scans on the card.
-- The pose graph's Gauss-Newton step: the linearization (residual and
-  Jacobians) against ``jax.jit(jax.vmap(_linearize_one))``, which does not
-  equal the reference yet (ROADMAP §C23.1: a strict expected failure
-  naming the open site), and the dense solve (``fusion/kalman.py``'s
+- The pose graph (ROADMAP §C23, repaired): held to the program the
+  mapper runs, the reference's eager ``optimize_pose_graph`` loop, at
+  slam_loop's graphs (``reference_cases.slam_graph``) through the
+  graduated schedule, every stage's poses; every iteration's residual and
+  Jacobians and pose update against the values inside that loop (read
+  through ``jax.debug.callback``, which leaves its results as they were);
+  the residual against ``jax.jit(jax.vmap(constraint_residual))``; H and
+  g against a jitted step; the dense solve (``fusion/kalman.py``'s
   ``lu_factor`` / ``lu_solve``) against ``jax.jit(jnp.linalg.solve)`` at
-  6K = 48 to 768 (§C23.3, repaired).
+  6K = 48 to 768.
 - OpenBLAS's own halves, which the reference's solve reaches: ``lu_factor``
   against ``scipy.linalg.lu_factor`` (factors and pivots) and ``lu_solve``
   on those factors against ``scipy.linalg.blas.strsm``. scipy's wheel and
@@ -404,14 +408,47 @@ def jq_rot(q, p):
     return jq.quat_rotate(jnp.asarray(q), jnp.asarray(p))
 
 
+def _record_graph(record, ka: int):
+    """``reference_cases.slam_graph`` in both packages' types."""
+    (q, t), cons = rc.slam_graph(record[0], ka)
+    return (jpg.PoseGraph(jnp.asarray(q), jnp.asarray(t)),
+            jpg.Constraints(*map(jnp.asarray, cons)),
+            tpg.PoseGraph(torch.as_tensor(q), torch.as_tensor(t)),
+            tpg.Constraints(*map(torch.as_tensor, cons)))
+
+
+def _recorded_calls(name, flatten, jgraph, jcons, **kw):
+    """The reference's optimizer run eagerly, as the mapper calls it,
+    with its function ``name`` wrapped in a ``jax.debug.callback`` that
+    records each call's inputs (``flatten(*args)``) and outputs, and
+    the final graphs of the same call without and with the wrapper."""
+    seen = []
+    original = getattr(jpg, name)
+
+    def recorded(*args):
+        out = original(*args)
+        jax.debug.callback(lambda *v: seen.append([np.asarray(x) for x in v]),
+                           *flatten(*args), *out)
+        return out
+
+    with _openblas_threads():
+        plain = jpg.optimize_pose_graph(jgraph, jcons, **kw)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jpg, name, recorded)
+            wrapped = jpg.optimize_pose_graph(jgraph, jcons, **kw)
+    return seen, plain, wrapped
+
+
 @pytest.mark.parametrize("delta", [None, 8.0, 0.5])
 def test_normal_equations_and_update_match_the_reference_program(delta):
     """§C23's normal equations and update (repaired): fed the reference's
-    own linearization (which equals the values in its optimizer's
-    program), the port's H, g and pose update equal the reference's bit
-    for bit: the blocks as in-order FMA chains, scattered onto the gauge
-    prior and damping (XLA folds the reference's ``h + diag`` into the
-    scatter), the update in the jitted forms."""
+    own linearization, the port's H and g equal the reference's bit for
+    bit (the blocks as in-order FMA chains, scattered onto the gauge
+    prior and damping: XLA folds the reference's ``h + diag`` into the
+    scatter); and the port's pose update equals every update in the
+    reference's optimizer loop (read through ``jax.debug.callback``),
+    whose vectorized loops over the poses round otherwise than a
+    standalone jit of it."""
     jgraph, jcons, tgraph, tcons = _graph()
     k = jgraph.poses_q.shape[0]
 
@@ -423,12 +460,11 @@ def test_normal_equations_and_update_match_the_reference_program(delta):
                                            robust_delta=delta)
         prior = jnp.zeros(6 * k, h.dtype).at[:6].set(1e6)
         h = h + jnp.diag(prior + 1e-6)
-        return (*lin, h, g, jpg._apply_update(graph, -1e-3 * g / (
-            1.0 + jnp.abs(g))))
+        return (*lin, h, g)
 
     want = [np.asarray(x) for x in jax.tree_util.tree_leaves(
         jax.jit(step)(jgraph, jcons))]
-    r, ji, jj, h, g, up_q, up_t = want
+    r, ji, jj, h, g = want
     prior = torch.zeros(6 * k)
     prior[:6] = 1e6
     got_h, got_g = tpg._normal_equations(
@@ -436,18 +472,73 @@ def test_normal_equations_and_update_match_the_reference_program(delta):
         torch.diag(prior + 1e-6), delta)
     np.testing.assert_array_equal(_bits(got_h), h.view(np.int32))
     np.testing.assert_array_equal(_bits(got_g), g.view(np.int32))
-    tg = torch.as_tensor(g)
-    up = tpg._apply_update(tgraph, -1e-3 * tg / (1.0 + torch.abs(tg)))
-    np.testing.assert_array_equal(_bits(up.poses_q), up_q.view(np.int32))
-    np.testing.assert_array_equal(_bits(up.poses_t), up_t.view(np.int32))
+    seen, plain, wrapped = _recorded_calls(
+        "_apply_update", lambda graph, dx: (*graph, dx), jgraph, jcons,
+        n_iterations=3, robust_delta=delta)
+    for a, b in zip(plain, wrapped):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert len(seen) == 3
+    for q, t, dx, up_q, up_t in seen:
+        up = tpg._apply_update(tpg.PoseGraph(torch.as_tensor(q),
+                                             torch.as_tensor(t)),
+                               torch.as_tensor(dx))
+        np.testing.assert_array_equal(_bits(up.poses_q), up_q.view(np.int32))
+        np.testing.assert_array_equal(_bits(up.poses_t), up_t.view(np.int32))
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP §C23 (open): the pose graph's linearization, the forward-"
-    "mode tangents of the reference's fused program, is torch.func's"))
-def test_linearization_matches_jitted_jacfwd():
-    args = _graph_inputs()
-    want = jax.jit(jpg._linearize)(*map(jnp.asarray, args))
-    got = tpg._linearize(*map(torch.as_tensor, args))
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(_bits(g), np.asarray(w).view(np.int32))
+
+@pytest.mark.parametrize("ka,delta,iterations", [
+    (8, 8.0, 3), (16, 2.0, 3), (24, 0.5, 4), (40, 0.5, 4)])
+def test_linearization_matches_jitted_jacfwd(record, ka, delta, iterations):
+    """§C23.1 (repaired): the residual and both Jacobians of every
+    iteration equal the values in the reference's optimizer program,
+    the loop that ``MappingPipeline.optimize`` runs (a standalone
+    ``jax.jit(_linearize)`` is another program: its tangent basis is a
+    constant that XLA folds, where the loop keeps it as an input, and a
+    few Jacobian entries round otherwise). The values are read through
+    ``jax.debug.callback``, which leaves the program's results as they
+    were."""
+    jgraph, jcons, _, _ = _record_graph(record, ka)
+    seen, plain, wrapped = _recorded_calls(
+        "_linearize", lambda *args: args, jgraph, jcons,
+        n_iterations=iterations, robust_delta=delta)
+    for a, b in zip(plain, wrapped):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert len(seen) == iterations
+    for values in seen:
+        got = tpg._linearize(*map(torch.as_tensor, values[:6]))
+        for g, w in zip(got, values[6:]):
+            np.testing.assert_array_equal(_bits(g), w.view(np.int32))
+
+
+@pytest.mark.parametrize("m,seed", [(8, 4), (19, 5), (64, 6)])
+def test_residual_matches_jitted_constraint_residual(m, seed):
+    """The residual's float32 forms (the error quaternion's nested
+    product, both rotations, the logarithm) against
+    ``jax.jit(jax.vmap(constraint_residual))``."""
+    args = _graph_inputs(m, seed)
+    want = jax.jit(jax.vmap(jpg.constraint_residual))(
+        *map(jnp.asarray, args))
+    got = tpg.constraint_residual(*map(torch.as_tensor, args))
+    np.testing.assert_array_equal(_bits(got), np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("ka", rc.SLAM_GRAPH_KEYFRAMES)
+def test_optimizer_matches_the_reference_program(record, ka):
+    """The dense Gauss-Newton over slam_loop's graphs (the record's
+    constraints, weights and 6x6 information on the keyframes' odometry
+    poses, at the pipeline's shape buckets) through the graduated
+    schedule ``MappingPipeline.optimize`` runs (delta 8.0, 2.0, 0.5 for
+    3, 3, 4 iterations), each stage's poses bit for bit against the
+    reference's eager ``optimize_pose_graph`` with OpenBLAS pinned."""
+    jgraph, jcons, tgraph, tcons = _record_graph(record, ka)
+    for delta, iterations in tslam.MappingPipeline._gnc_schedule(0.5, 10):
+        with _openblas_threads():
+            jgraph = jpg.optimize_pose_graph(jgraph, jcons,
+                                             n_iterations=iterations,
+                                             robust_delta=delta)
+        tgraph = tpg.optimize_pose_graph(tgraph, tcons,
+                                         n_iterations=iterations,
+                                         robust_delta=delta)
+        for g, w in zip(tgraph, jgraph):
+            np.testing.assert_array_equal(_bits(g), _bits(w))

@@ -49,7 +49,7 @@ from jax.sharding import NamedSharding, PartitionSpec  # noqa: E402
 jax.config.update("jax_enable_x64", True)   # as in-suite (test_extraction)
 
 import torch_parallel_worker  # noqa: E402
-from torch_parity import np32  # noqa: E402
+from torch_parity import np32, scatter_rows_case  # noqa: E402
 from test_parallel import chain_graph  # noqa: E402
 from test_torch_batch import JCFG, TCFG  # noqa: E402
 from lidar_feature_extraction_tpu.core import quaternion as jq  # noqa: E402
@@ -476,4 +476,25 @@ def test_normal_equations_scatter_repeats_on_a_large_graph():
         np.add.at(want, (rows * 6 * k + cols).reshape(-1),
                   blocks.numpy().reshape(-1))
     np.testing.assert_array_equal(h1.numpy().reshape(-1), want)
+
+
+@pytest.mark.parametrize("width", [1, 6, 9, 32, 33, 36])
+def test_index_add_rows_in_order_adds_each_destination_in_turn(width):
+    """The block scatter of the normal equations: each destination's
+    rows added in ``src``'s order, ``((out + s_1) + s_2) + ...``, at the
+    row widths of g (6, the IMU graph's 9) and of the blocks (36), and
+    about torch's 32-value threshold between its CUDA ``index_put``
+    kernels; summing a destination's rows first would give other bits."""
+    from lidar_feature_extraction_tpu_torch.ops.scatter import (
+        index_add_rows_in_order)
+
+    out, index, src, want = scatter_rows_case(width)
+    got = index_add_rows_in_order(torch.as_tensor(out),
+                                  torch.as_tensor(index),
+                                  torch.as_tensor(src))
+    np.testing.assert_array_equal(got.numpy(), want)
+    summed = out.copy()
+    for dst in range(out.shape[0]):
+        summed[dst] += src[index == dst].sum(0, dtype=np.float32)
+    assert not np.array_equal(summed, want)
 

@@ -19,13 +19,12 @@ Tolerances:
 - keyframe count, every constraint's (i, j) and IMU factor count
   exactly; without IMU the chain constraints and the loop closures up to
   the first ``optimize()`` bit for bit (relative pose, weight, 6x6
-  information), the later closures within 1e-4 (registered from the
-  optimized graph, ROADMAP §C23); with IMU relative poses within 1e-4
-  (the preintegration's order, ROADMAP §C24), loop weights within 1e-6;
-  the keyframe trajectory within 1e-3 m and the assembled map within
-  2e-3 m (a dozen chained float32 registrations and graph solves; at 0
-  an expected failure, strictly, naming the open site of §C23); the gyro
-  bias within 1e-4 rad/s;
+  information), and the optimized graph, every constraint and the
+  keyframe trajectory at 0 too (ROADMAP §C23, repaired); with IMU
+  relative poses within 1e-4 (the preintegration's order, ROADMAP §C24),
+  loop weights within 1e-6, the keyframe trajectory within 1e-3 m and
+  the assembled map within 2e-3 m (a dozen chained float32
+  registrations and graph solves); the gyro bias within 1e-4 rad/s;
 - the resumed run: its trajectory within 1e-6 m of the unbroken run's
   (the same operations on the same values in one process);
 - the mapping drive: ray-cast scans and IMU windows exactly (the same
@@ -69,8 +68,9 @@ TRAJ_ATOL = 1e-3
 # Without IMU the front end equals the reference bit for bit: every
 # constraint whose registration does not start from an optimized graph
 # (the chain's, and loop closures up to the first optimize()) is held at
-# 0; the graph itself keeps the tolerances above until its linearization
-# and dense solve are in the reference's order (ROADMAP §C23).
+# 0 in test_mapping_pipeline_matches_reference, and the graph and the
+# closures registered from it in
+# test_mapping_pipeline_graph_is_the_reference_bit_for_bit.
 EXACT = 0.0
 CPU = "cpu"
 
@@ -250,9 +250,6 @@ def _first_optimize(constraints) -> int:
     return next(k for k, c in enumerate(constraints) if c[1] - c[0] > 1)
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP §C23 (open): the pose graph's linearization and OpenBLAS's "
-    "blocked sgetrf / strsm order of its dense solve"))
 def test_mapping_pipeline_graph_is_the_reference_bit_for_bit(pipelines):
     """The optimized trajectory and the loop closures registered from it,
     at tolerance 0."""

@@ -48,3 +48,19 @@ def port_config(cfg) -> tcfg.PipelineConfig:
         ekf=tcfg.EkfConfig(**d["ekf"]),
         mapping=tcfg.MappingConfig(**d["mapping"]),
         parallel=tcfg.ParallelConfig(**d["parallel"]))
+
+
+def scatter_rows_case(width: int, seed: int = 3):
+    """(out, index, src) with many rows per destination and values over
+    ten decades, so the order of each destination's adds shows in its
+    bits; and the rows added one at a time in ``src``'s order."""
+    rng = np.random.default_rng(seed)
+    n, d = 400, 7
+    index = rng.integers(0, d, n)
+    src = np32(rng.normal(size=(n, width))
+               * 10.0 ** rng.uniform(-5, 5, (n, 1)))
+    out = np32(rng.normal(size=(d, width)))
+    want = out.copy()
+    for k in range(n):
+        want[index[k]] = want[index[k]] + src[k]
+    return out, index, src, want
